@@ -1,0 +1,120 @@
+"""Streaming single-image predictor (counterpart of ``oneshotdet_tpu/predictor.py``).
+
+``set_support(image)`` runs the support branch once per class and caches its
+features on the device; each ``run_on_image(frame)`` then resizes, normalizes
+and pads the frame on the device, runs the query branch against the cached
+support, and returns (boxes, scores) in the frame's own coordinates.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .data.transforms import get_resize_size
+from .models import build_detection_model
+from .structures.image_batch import ImageBatch
+
+
+def preprocess_frame(pixels_u8: torch.Tensor, in_hw, out_hw, pixel_mean,
+                     pixel_std, to_bgr255: bool) -> torch.Tensor:
+    """uint8 RGB (H0, W0, 3) -> normalized, zero-padded float32 (outH, outW, 3).
+
+    Bilinear resize to ``in_hw`` with the JAX package's filter: antialiased
+    (triangle kernel widened by the scale) when an axis shrinks, plain
+    bilinear when both grow.
+    """
+    oh, ow = in_hw
+    h0, w0 = pixels_u8.shape[:2]
+    x = pixels_u8.to(torch.float32).permute(2, 0, 1)[None]
+    x = F.interpolate(x, size=(oh, ow), mode="bilinear", align_corners=False,
+                      antialias=(oh < h0 or ow < w0))
+    img = x[0].permute(1, 2, 0)
+    img = img.flip(-1) if to_bgr255 else img / 255.0
+    mean = torch.as_tensor(pixel_mean, dtype=torch.float32, device=img.device)
+    std = torch.as_tensor(pixel_std, dtype=torch.float32, device=img.device)
+    out = torch.zeros((*out_hw, 3), dtype=torch.float32, device=img.device)
+    out[:oh, :ow] = (img - mean) / std
+    return out
+
+
+def _select_threshold(thr, class_id: int) -> float:
+    """Scalar threshold, or the class's entry of a per-class vector."""
+    if np.ndim(thr) == 0:
+        return float(thr)
+    thr = np.asarray(thr, np.float32)
+    if not 0 <= class_id < thr.shape[0]:
+        raise IndexError(
+            f"support class_id {class_id} outside the "
+            f"{thr.shape[0]}-entry per-class threshold vector")
+    return float(thr[class_id])
+
+
+class OneShotPredictor:
+    def __init__(
+        self,
+        cfg,
+        state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+        confidence_threshold=0.0,
+        query_bucket: Optional[Tuple[int, int]] = None,
+        supp_bucket: Optional[Tuple[int, int]] = None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """``state_dict``: reference-keyed weights (``utils.weights``); without
+        it the weights are drawn from ``generator``. ``confidence_threshold``
+        is a scalar or a per-class vector indexed by ``set_support``'s
+        ``class_id``. ``device`` defaults to "cuda"."""
+        self.cfg = cfg
+        self.model = build_detection_model(cfg, device=device, generator=generator)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+        self.device = next(self.model.parameters()).device
+        self.confidence_threshold = confidence_threshold
+        self.query_bucket = tuple(query_bucket or cfg.TPU.QUERY_BUCKETS[0])
+        self.supp_bucket = tuple(supp_bucket or cfg.TPU.SUPP_BUCKET)
+        self._supp_cache = None
+        self._supp_class_id = 1
+
+    def _batch(self, image_rgb_u8: np.ndarray, min_size: int, max_size: int,
+               bucket) -> Tuple[ImageBatch, Tuple[int, int]]:
+        h0, w0 = image_rgb_u8.shape[:2]
+        oh, ow = get_resize_size((w0, h0), min_size, max_size)
+        oh, ow = min(oh, bucket[0]), min(ow, bucket[1])
+        pixels = torch.from_numpy(np.ascontiguousarray(image_rgb_u8)).to(self.device)
+        c = self.cfg.INPUT
+        padded = preprocess_frame(pixels, (oh, ow), bucket, c.PIXEL_MEAN,
+                                  c.PIXEL_STD, c.TO_BGR255)
+        sizes = torch.tensor([[oh, ow]], dtype=torch.float32, device=self.device)
+        return ImageBatch(pixels=padded[None], sizes=sizes), (oh, ow)
+
+    def set_support(self, image_rgb_u8: np.ndarray, class_id: int = 1):
+        """Compute and cache the support features of one support crop."""
+        self._supp_class_id = int(class_id)
+        batch, _ = self._batch(image_rgb_u8, self.cfg.INPUT.SUPP_MIN_SIZE_TEST,
+                               self.cfg.INPUT.SUPP_MAX_SIZE_TEST, self.supp_bucket)
+        self._supp_cache = self.model.compute_support_features(batch, 1)
+        return self._supp_cache
+
+    def run_on_image(self, image_rgb_u8: np.ndarray):
+        """Detect the cached support class in one frame: (boxes_xyxy, scores)
+        as numpy arrays in the frame's coordinates, by descending score."""
+        if self._supp_cache is None:
+            raise RuntimeError("call set_support() first")
+        h0, w0 = image_rgb_u8.shape[:2]
+        batch, (oh, ow) = self._batch(image_rgb_u8, self.cfg.INPUT.MIN_SIZE_TEST,
+                                      self.cfg.INPUT.MAX_SIZE_TEST, self.query_bucket)
+        supp_pooled, supp_7x7 = self._supp_cache
+        dets = self.model.detect_with_support(batch, supp_pooled, supp_7x7)
+        boxes = dets.xyxy[0].float().cpu().numpy()
+        scores = dets.get_field("scores")[0].float().cpu().numpy()
+        valid = dets.valid[0].cpu().numpy()
+        valid = valid & (scores > _select_threshold(self.confidence_threshold,
+                                                    self._supp_class_id))
+        boxes, scores = boxes[valid], scores[valid]
+        order = np.argsort(-scores, kind="stable")
+        boxes, scores = boxes[order], scores[order]
+        return boxes * np.array([w0 / ow, h0 / oh, w0 / ow, h0 / oh]), scores

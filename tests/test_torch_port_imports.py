@@ -1,0 +1,57 @@
+"""oneshotdet_tpu_torch stands alone: importing it loads neither JAX nor
+flax, and no source of the port (nor chip_smoke.py) imports jax, flax or the
+JAX package ``oneshotdet_tpu``.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_SOURCES = sorted((ROOT / "oneshotdet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "flax", "oneshotdet_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_loads_neither_jax_nor_flax():
+    code = (
+        "import sys\n"
+        "import oneshotdet_tpu_torch, oneshotdet_tpu_torch.csrc, oneshotdet_tpu_torch.ops.roi_align\n"
+        "import oneshotdet_tpu_torch.models, oneshotdet_tpu_torch.predictor\n"
+        "import oneshotdet_tpu_torch.utils.weights, oneshotdet_tpu_torch.data\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_forbidden_name_matching():
+    assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert _forbidden("oneshotdet_tpu") and _forbidden("oneshotdet_tpu.ops.nms")
+    assert not _forbidden("oneshotdet_tpu_torch") and not _forbidden("oneshotdet_tpu_torch.ops")
+    assert not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
