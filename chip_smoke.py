@@ -2,23 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version at the main path's shapes, drives the flagship one-shot
-detector (Siamese FCOS R-50-FPN, configs/oneshot_fcos_r50.yaml, bf16, random
-weights from a seed) through its two entry points -- the streaming predictor
-and the batch-8 832x1216 eval forward at 512 and 2000 proposals per image --
-and checks a small float32 forward on the card against the same model on the
-CPU. Any failure raises and exits non-zero. The last two lines of stdout are
-the per-kernel JSON line and {"ok": true, "device": {...}}.
+Builds the port's CUDA kernels from this checkout (ROIAlign and the fused
+relation head), holds each against its plain PyTorch version at the main
+path's shapes, drives the flagship one-shot detector (Siamese FCOS
+R-50-FPN, configs/oneshot_fcos_r50.yaml, bf16, random weights from a seed)
+through its entry points -- the streaming predictor, the batch-8 832x1216
+eval forward at 512 and 2000 proposals per image, each with the unfused and
+the fused head, and the eval engine (per-batch, cached-support and
+multi-class steps, and inference() with the COCO evaluator) -- and checks
+small float32 forwards on the card against the same model on the CPU. Any
+failure raises and exits non-zero. The last two lines of stdout are the
+per-kernel JSON line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -27,8 +32,17 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
 KERNEL_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align.cu"
 KERNEL_REPLACES = "oneshotdet_tpu/ops/pallas_roi_align.py:249"
+HEAD_SOURCE = "oneshotdet_tpu_torch/csrc/roi_head.cu"
+HEAD_REPLACES = "oneshotdet_tpu/ops/pallas_roi_head.py:226"
+# fused head vs its plain version: both run float32 chains and differ in the
+# order of the sums (f32); in bf16 an intermediate can round to the
+# neighbouring bf16 value (outputs of order 1)
+HEAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+HEAD_CASES = ((16000, 2000), (4096, 512))     # (R, ROIs per image) of the two cells
+ENGINE_MIN_SHARE = 0.8        # see engine_checks
 QUERY_HW = (832, 1216)
 SUPP_HW = (416, 416)
 BATCH = 8
@@ -161,6 +175,82 @@ def kernel_checks(ra, dev):
     return results
 
 
+def head_work(r, b, ops):
+    """(bytes, flops) the fused head needs: each input and operand read
+    once, the outputs written once; multiply-adds of compress_0 (query half
+    per ROI, support half per image), compress_1, the 3x3 conv, fc6, fc7 and
+    the predictors."""
+    hidden, npred = ops["fc7"].shape[0], ops["pred"].shape[1]
+    elt = torch.finfo(ops["dtype"]).bits // 8
+    operands = sum(v.numel() * v.element_size() for k, v in ops.items()
+                   if torch.is_tensor(v) and not k.endswith("T"))   # not the transposed copies
+    nbytes = (r + b) * 49 * 256 * elt + operands + r * npred * 4
+    per_roi = 49 * (256 * 512 + 512 * 256 + 9 * 256 * 128) + 49 * 128 * hidden \
+        + hidden * hidden + hidden * npred
+    return nbytes, 2 * (r * per_roi + b * 49 * 256 * 512)
+
+
+def head_checks(dev):
+    """Phase 3b: the fused head kernel against its plain version at the main
+    path's two ROI counts (B = 8 images x 2000 and x 512 proposals), f32 and
+    bf16, seeded N(0, 1/fan_in) weights; a support swap; times of the kernel,
+    the plain version and the unfused ROIBoxHead (cuBLAS/cuDNN layers)."""
+    from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead
+    from oneshotdet_tpu_torch.ops import roi_head_fused as rf
+
+    gen = torch.Generator().manual_seed(21)
+    head = ROIBoxHead()
+    distinct_weights_(head, gen)
+    head = head.to(dev).eval()
+    packed = rf.pack_roi_head_params(head)
+    results = {}
+    for r, per_image in HEAD_CASES:
+        b = r // per_image
+        x32 = torch.randn(r, 7, 7, 256, generator=gen).to(dev)
+        s32 = torch.randn(b, 7, 7, 256, generator=gen).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, supp = x32.to(dtype), s32.to(dtype)
+            ops = rf.kernel_operands(packed, dtype)
+            with torch.inference_mode():
+                kl, kd = rf.fused_roi_head_cuda(x, supp, ops, per_image)
+                torch.cuda.synchronize()
+                pl, pd = rf.fused_roi_head_plain(x, supp, ops, per_image)
+                sl, _ = rf.fused_roi_head_cuda(x, supp.flip(0), ops, per_image)
+                torch.cuda.synchronize()
+            err = max(float((kl - pl).abs().max()), float((kd - pd).abs().max()))
+            scale = max(float(pl.abs().max()), float(pd.abs().max()))
+            rel = err / scale
+            swap = float((sl - kl).abs().max())
+            tol = HEAD_TOL[dtype]
+            name = f"R={r} ({b} x {per_image}) {str(dtype)[6:]}"
+            if not (err <= tol and torch.isfinite(kl).all() and torch.isfinite(kd).all()):
+                raise AssertionError(f"roi_head {name}: max abs err {err:.3e} (tolerance {tol})")
+            if not swap > 10 * tol:
+                raise AssertionError(f"roi_head {name}: swapping supports moved the logits "
+                                     f"by only {swap:.3e}")
+            reps = 10 if dtype == torch.bfloat16 else 5
+            with torch.inference_mode():
+                ms = time_ms(lambda: rf.fused_roi_head_cuda(x, supp, ops, per_image), reps=reps)
+                plain_ms = time_ms(lambda: rf.fused_roi_head_plain(x, supp, ops, per_image),
+                                   reps=5, warmup=1)
+                unfused_ms = time_ms(lambda: head(x, supp), reps=reps)
+            nbytes, flops = head_work(r, b, ops)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S) * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"roi_head {name}: max abs err {err:.3e} at output scale {scale:.3f} "
+                f"({rel:.2e} of it; tolerance {tol} abs); support swap moves logits by "
+                f"{swap:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused ROIBoxHead "
+                f"(cuBLAS/cuDNN) {unfused_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} TFLOP)")
+            results[(r, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       unfused_ms=unfused_ms, bound_ms=bound, bound_by=by)
+            del kl, kd, pl, pd, sl, x, supp
+            torch.cuda.empty_cache()
+    return results
+
+
 def distinct_weights_(model, gen):
     """Seeded weights with no near-equal scores (so top-k tie order does not
     decide the CPU/GPU comparison): N(0, 1/fan_in) kernels, 1 + 0.1 N
@@ -179,6 +269,25 @@ def distinct_weights_(model, gen):
             v.copy_(val)
 
 
+def _best_partners(a, b, score_rtol, box_rtol):
+    """For each detection of a (boxes, scores), whether its highest-IoU
+    detection in b has IoU > 0.99 and score and coordinates within
+    tolerance; and that partner's index and IoU."""
+    (ab, as_), (bb, bs) = a, b
+    if len(ab) == 0 or len(bb) == 0:
+        return np.zeros(len(ab), bool), np.zeros(len(ab), int), np.zeros(len(ab))
+    lt = np.maximum(ab[:, None, :2], bb[None, :, :2])
+    rb = np.minimum(ab[:, None, 2:], bb[None, :, 2:])
+    inter = np.prod(np.clip(rb - lt + 1, 0, None), axis=2)
+    area = lambda x: (x[..., 2] - x[..., 0] + 1) * (x[..., 3] - x[..., 1] + 1)
+    iou = inter / (area(ab)[:, None] + area(bb)[None, :] - inter)
+    j = np.argmax(iou, axis=1)
+    best = iou[np.arange(len(ab)), j]
+    ok = ((best > 0.99) & (np.abs(bs[j] - as_) <= score_rtol * np.abs(as_) + 1e-5)
+          & np.all(np.abs(bb[j] - ab) <= box_rtol * np.abs(ab) + 1e-3, axis=1))
+    return ok, j, best
+
+
 def match_detections(a, b, score_rtol=5e-4, box_rtol=1e-3):
     """Valid detections of a and b (one image each, numpy) agree as sets:
     equal counts, and each box of a has a box of b with IoU > 0.99 whose
@@ -186,26 +295,28 @@ def match_detections(a, b, score_rtol=5e-4, box_rtol=1e-3):
     (ab, as_), (bb, bs) = a, b
     if len(ab) != len(bb):
         raise AssertionError(f"{len(ab)} vs {len(bb)} detections")
-    for box, score in zip(ab, as_):
-        lt = np.maximum(box[:2], bb[:, :2])
-        rb = np.minimum(box[2:], bb[:, 2:])
-        inter = np.prod(np.clip(rb - lt + 1, 0, None), axis=1)
-        area = lambda x: (x[..., 2] - x[..., 0] + 1) * (x[..., 3] - x[..., 1] + 1)
-        iou = inter / (area(box) + area(bb) - inter)
-        j = int(np.argmax(iou))
-        if not (iou[j] > 0.99
-                and abs(bs[j] - score) <= score_rtol * abs(score) + 1e-5
-                and np.all(np.abs(bb[j] - box) <= box_rtol * np.abs(box) + 1e-3)):
-            raise AssertionError(f"detection {box} {score} unmatched "
-                                 f"(best {bb[j]} {bs[j]}, IoU {iou[j]:.4f})")
+    ok, j, best = _best_partners(a, b, score_rtol, box_rtol)
+    if not ok.all():
+        i = int(np.argmin(ok))
+        raise AssertionError(f"detection {ab[i]} {as_[i]} unmatched "
+                             f"(best {bb[j[i]]} {bs[j[i]]}, IoU {best[i]:.4f})")
 
 
-def small_forward_check(cfg_path, dev):
+def match_fraction(a, b, score_rtol=5e-4, box_rtol=1e-3):
+    """Share of the detections of a and b (one image each) that pair up as
+    in ``match_detections``, over the larger of the two counts."""
+    n = max(len(a[0]), len(b[0]))
+    return 1.0 if n == 0 else float(_best_partners(a, b, score_rtol, box_rtol)[0].sum()) / n
+
+
+def small_forward_check(cfg_path, dev, fused=False):
     """A float32 forward (batch 2, 128x160 queries, 64x64 supports) on the
-    card (the kernel) and on the CPU (the plain version that the tier-1 tests
-    hold against the JAX package) with the same weights and inputs."""
+    card (the kernels) and on the CPU (the plain versions that the tier-1
+    tests hold against the JAX package) with the same weights and inputs;
+    with ``fused``, both with the fused relation head."""
     from oneshotdet_tpu_torch.config import cfg as default_cfg
     from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.ops import roi_head_fused as rf
     from oneshotdet_tpu_torch.structures import ImageBatch
 
     cfg = default_cfg.clone()
@@ -222,8 +333,13 @@ def small_forward_check(cfg_path, dev):
     distinct_weights_(cpu, torch.Generator().manual_seed(12))
     gpu = build_detection_model(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict(), strict=True)
+    for m in (cpu, gpu):
+        m.config = dataclasses.replace(m.config, fused_roi_head=fused)
     ref = cpu(ImageBatch(q, qs), ImageBatch(s, ss))
+    rf.fused_roi_head_launches = 0
     out = gpu(ImageBatch(q.to(dev), qs.to(dev)), ImageBatch(s.to(dev), ss.to(dev)))
+    if rf.fused_roi_head_launches != int(fused):
+        raise AssertionError(f"small forward: {rf.fused_roi_head_launches} roi_head launches")
     n = 0
     for i in range(2):
         def valid_dets(d):
@@ -231,8 +347,8 @@ def small_forward_check(cfg_path, dev):
             return (d.xyxy[i].cpu().numpy()[v], d.get_field("scores")[i].cpu().numpy()[v])
         match_detections(valid_dets(out), valid_dets(ref))
         n += int(out.valid[i].sum())
-    log(f"small float32 forward: {n} detections on the card match the CPU plain path "
-        f"(score rtol 5e-4, box rtol 1e-3, TF32 off)")
+    log(f"small float32 forward{', fused head' if fused else ''}: {n} detections on the "
+        f"card match the CPU plain path (score rtol 5e-4, box rtol 1e-3, TF32 off)")
 
 
 STAGES = ("query_backbone", "support_backbone", "support_pool", "fcos_head",
@@ -290,6 +406,150 @@ def check_detections(dets, batch, capacity, sizes_wh):
         raise AssertionError("scores outside [0, 1]")
 
 
+class SyntheticEpisodes:
+    """An episodic eval dataset as ``inference`` takes it (duck-typed):
+    ``coco``, ``id_to_img_map``, ``get_img_info`` and ``len``, over a COCO
+    annotation file written to ``root``: one image per episode, sized as the
+    episode's query, with two ground-truth boxes of the episode's class."""
+
+    def __init__(self, root, sizes_hw, cats):
+        from oneshotdet_tpu_torch.data import LiteCOCO
+
+        rng = np.random.RandomState(31)
+        images, anns = [], []
+        for i, ((h, w), cat) in enumerate(zip(sizes_hw, cats)):
+            images.append({"id": 100 + i, "file_name": f"{i:06d}.jpg", "width": int(w),
+                           "height": int(h)})
+            for k in range(2):
+                bw, bh = rng.uniform(40, w / 2), rng.uniform(40, h / 2)
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                anns.append({"id": 2 * i + k + 1, "image_id": 100 + i, "category_id": int(cat),
+                             "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": 0})
+        path = os.path.join(root, "instances.json")
+        with open(path, "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": c, "name": f"class{c}"} for c in sorted(set(cats))]},
+                      f)
+        self.coco = LiteCOCO(path)
+        self.id_to_img_map = {i: 100 + i for i in range(len(images))}
+        self._cats = [int(c) for c in cats]
+
+    def __len__(self):
+        return len(self._cats)
+
+    def get_img_info(self, index):
+        return self.coco.imgs[self.id_to_img_map[index]], self._cats[index]
+
+
+def engine_checks(cfg, model, card, n_batches=3, classes=4):
+    """Phase 6: the eval engine at full width (batch 8, 832x1216 bf16, fused
+    head): compute_on_dataset per batch and with cached supports, the
+    multi-class step against the single-class step, and inference() with
+    the COCO evaluator. Class c's support is one fixed image, so cached and
+    per-batch supports are the same pixels. Returns the K3 launches."""
+    from oneshotdet_tpu_torch import engine
+    from oneshotdet_tpu_torch.ops import roi_head_fused as rf
+
+    rng = np.random.RandomState(41)
+    q_sizes = np.array([[832, 1216], [800, 1200], [832, 1100], [704, 1216],
+                        [832, 1216], [768, 1024], [832, 1184], [640, 960]], np.float32)
+    supp_px = (rng.randn(classes, *SUPP_HW, 3) * 50).astype(np.float32)
+    supp_hw = np.array([[416, 416], [300, 400], [400, 300], [416, 320]], np.float32)
+    batches = []
+    for it in range(n_batches):
+        tids = (np.arange(BATCH) + it) % classes + 1
+        batches.append({
+            "query_pixels": (rng.randn(BATCH, *QUERY_HW, 3) * 50).astype(np.float32),
+            "query_sizes": q_sizes,
+            "supp_pixels": supp_px[tids - 1],
+            "supp_sizes": supp_hw[tids - 1],
+            "target_ids": tids.astype(np.int32),
+            "img_ids": np.arange(BATCH) + BATCH * it,
+            "idxs": np.arange(BATCH) + BATCH * it,
+        })
+    n_img = n_batches * BATCH
+    rf.fused_roi_head_launches = 0
+    engine.compute_on_dataset(model, batches[:1])                 # warm-up
+    runs = {}
+    for cached in (False, True):
+        t0 = time.perf_counter()
+        runs[cached] = engine.compute_on_dataset(model, batches, cache_supports=cached)
+        dt = time.perf_counter() - t0
+        log(f"engine compute_on_dataset cache_supports={cached}: {n_img} images in "
+            f"{dt:.3f} s, {n_img / dt:.1f} img/s (host clock, numpy batches in) [{card}]")
+    # Cached supports are computed at batch 1, per-batch ones at batch 8:
+    # cuDNN picks its convolution kernels by shape, so the bf16 support
+    # features differ in the last bits, which moves near-tied scores across
+    # NMS decisions. The check is the share of each episode's detections
+    # that pair up at the detection tolerances, held against a control: the
+    # same episodes with every support moved to the next class.
+    control = engine.compute_on_dataset(model, [dict(b, supp_pixels=np.roll(b["supp_pixels"], 1, 0))
+                                                for b in batches])
+    share, share_control, n = [], [], 0
+    for idx, ref in runs[False].items():
+        got = runs[True][idx]
+        if got["input_size"] != ref["input_size"]:
+            raise AssertionError(f"engine episode {idx}: input_size differs")
+        share.append(match_fraction((got["boxes"], got["scores"]), (ref["boxes"], ref["scores"])))
+        share_control.append(match_fraction((control[idx]["boxes"], control[idx]["scores"]),
+                                            (ref["boxes"], ref["scores"])))
+        n += len(ref["scores"])
+    log(f"engine: cached-support vs per-batch detections ({n}): per episode, "
+        f"{100 * min(share):.2f}% (min) / {100 * np.mean(share):.2f}% (mean) pair up at "
+        f"score rtol 5e-4, box rtol 1e-3; control (another class's support) "
+        f"{100 * max(share_control):.2f}% (max) / {100 * np.mean(share_control):.2f}% (mean)")
+    if not (min(share) >= ENGINE_MIN_SHARE and max(share_control) < ENGINE_MIN_SHARE):
+        raise AssertionError(f"engine: cached supports disagree with per-batch ones "
+                             f"(min share {min(share):.4f}, control {max(share_control):.4f}, "
+                             f"required >= {ENGINE_MIN_SHARE} and below it)")
+
+    # multi-class: S = classes cached class-level supports off one query pass
+    support_step, query_step = engine.make_cached_support_eval_steps(model)
+    feats = [support_step(supp_px[k:k + 1], supp_hw[k:k + 1]) for k in range(classes)]
+    pooled = [torch.stack([f[0][lvl] for f in feats]) for lvl in range(len(feats[0][0]))]
+    s7 = torch.stack([f[1] for f in feats])
+    tids = np.arange(1, classes + 1, dtype=np.int32)
+    step = engine.make_multiclass_eval_step(model)
+    step(batches[0], pooled, s7, tids)                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(batches[1], pooled, s7, tids)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"engine multi-class step: {classes} classes x {BATCH} images in {dt * 1e3:.1f} ms, "
+        f"{classes * BATCH / dt:.1f} episodes/s [{card}]")
+    share = []
+    for k in range(classes):
+        single = query_step(dict(batches[1], target_ids=np.full(BATCH, k + 1, np.int32)),
+                            [p[k] for p in pooled], s7[k])
+        for i in range(BATCH):
+            v, sv = out[3][k, i].cpu().numpy(), single[3][i].cpu().numpy()
+            share.append(match_fraction((out[0][k, i].float().cpu().numpy()[v],
+                                         out[1][k, i].float().cpu().numpy()[v]),
+                                        (single[0][i].float().cpu().numpy()[sv],
+                                         single[1][i].float().cpu().numpy()[sv])))
+            if not (out[2][k, i][v] == k + 1).all():
+                raise AssertionError("multi-class step: labels are not the class ids")
+    log(f"engine: multi-class slices vs the single-class step: per (class, image) "
+        f"{100 * min(share):.2f}% (min) / {100 * np.mean(share):.2f}% (mean) of the "
+        f"detections pair up (score rtol 5e-4, box rtol 1e-3)")
+    if min(share) < ENGINE_MIN_SHARE:
+        raise AssertionError(f"multi-class step: a class slice disagrees with the "
+                             f"single-class step (share {min(share):.4f})")
+
+    with tempfile.TemporaryDirectory() as root:
+        ds = SyntheticEpisodes(root, [q_sizes[i % BATCH] for i in range(n_img)],
+                               [int(b["target_ids"][i]) for b in batches for i in range(BATCH)])
+        t0 = time.perf_counter()
+        res = engine.inference(cfg, model, batches, ds, output_folder=os.path.join(root, "out"))
+        dt = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"inference: non-finite metrics {res}")
+    log(f"engine inference(): {n_img} episodes in {dt:.3f} s with evaluation, "
+        f"AP {res['AP']:.4f} AP50 {res['AP50']:.4f} (random weights) [{card}]")
+    return rf.fused_roi_head_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -299,6 +559,7 @@ def main() -> int:
     from oneshotdet_tpu_torch.config import cfg as default_cfg
     from oneshotdet_tpu_torch.models import build_detection_model
     from oneshotdet_tpu_torch.ops import roi_align as ra
+    from oneshotdet_tpu_torch.ops import roi_head_fused as rf
     from oneshotdet_tpu_torch.predictor import OneShotPredictor
     from oneshotdet_tpu_torch.structures import ImageBatch
 
@@ -320,41 +581,52 @@ def main() -> int:
     for name, text in csrc.build_logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
 
-    # -- phase 3: kernel against plain ----------------------------------------
+    # -- phase 3: kernels against plain ----------------------------------------
     checks = kernel_checks(ra, dev)
+    head_checks_result = head_checks(dev)
     small_forward_check(flagship, dev)
+    small_forward_check(flagship, dev, fused=True)
 
-    # -- phase 4: predictor ---------------------------------------------------
+    # -- phase 4: predictor, unfused and fused head --------------------------
     cfg = default_cfg.clone()
     cfg.merge_from_file(flagship)
     gen = torch.Generator().manual_seed(0)
     launches = {}
+    head_launches = {}
     ra.roi_align_launches = 0
     pred = OneShotPredictor(cfg, confidence_threshold=0.0, device=dev,
                             generator=torch.Generator().manual_seed(1))
     supp = torch.randint(0, 256, (300, 400, 3), generator=gen, dtype=torch.uint8).numpy()
     pred.set_support(supp)
     frames = [(480, 640), (800, 1200), (720, 1280), (600, 800)]
-    for fh, fw in frames:
-        frame = torch.randint(0, 256, (fh, fw, 3), generator=gen, dtype=torch.uint8).numpy()
-        t0 = time.perf_counter()
-        boxes, scores = pred.run_on_image(frame)
-        ms = (time.perf_counter() - t0) * 1e3
-        if not (np.isfinite(boxes).all() and np.isfinite(scores).all() and len(scores) > 0):
-            raise AssertionError(f"predictor frame {fh}x{fw}: empty or non-finite output")
-        if not (boxes[:, [0, 2]].min() >= 0 and boxes[:, [0, 2]].max() <= fw
-                and boxes[:, [1, 3]].min() >= 0 and boxes[:, [1, 3]].max() <= fh):
-            raise AssertionError(f"predictor frame {fh}x{fw}: box outside the frame")
-        log(f"predictor frame {fh}x{fw}: {len(scores)} detections, {ms:.1f} ms "
-            f"(host clock, first frame includes warm-up) [{card}]")
+    frame_pixels = [torch.randint(0, 256, (fh, fw, 3), generator=gen,
+                                  dtype=torch.uint8).numpy() for fh, fw in frames]
+    for fused in (False, True):
+        pred.model.config = dataclasses.replace(pred.model.config, fused_roi_head=fused)
+        rf.fused_roi_head_launches = 0
+        for (fh, fw), frame in zip(frames, frame_pixels):
+            t0 = time.perf_counter()
+            boxes, scores = pred.run_on_image(frame)
+            ms = (time.perf_counter() - t0) * 1e3
+            if not (np.isfinite(boxes).all() and np.isfinite(scores).all() and len(scores) > 0):
+                raise AssertionError(f"predictor frame {fh}x{fw}: empty or non-finite output")
+            if not (boxes[:, [0, 2]].min() >= 0 and boxes[:, [0, 2]].max() <= fw
+                    and boxes[:, [1, 3]].min() >= 0 and boxes[:, [1, 3]].max() <= fh):
+                raise AssertionError(f"predictor frame {fh}x{fw}: box outside the frame")
+            log(f"predictor{' (fused head)' if fused else ''} frame {fh}x{fw}: {len(scores)} "
+                f"detections, {ms:.1f} ms (host clock, first frame includes warm-up) [{card}]")
+        label = "predictor, fused head" if fused else "predictor"
+        if rf.fused_roi_head_launches != (len(frames) if fused else 0):
+            raise AssertionError(f"{label}: {rf.fused_roi_head_launches} roi_head launches")
+        head_launches[label] = rf.fused_roi_head_launches
     launches["predictor"] = ra.roi_align_launches
-    expected = 6 + len(frames)
+    expected = 6 + 2 * len(frames)
     if launches["predictor"] != expected:
         raise AssertionError(f"predictor: {launches['predictor']} roi_align launches, expected {expected}")
     del pred
     torch.cuda.empty_cache()
 
-    # -- phase 5: batched eval forward ----------------------------------------
+    # -- phase 5: batched eval forward, unfused and fused head ------------------
     g = torch.Generator(device=dev).manual_seed(5)
     q_sizes = torch.tensor([[832, 1216], [800, 1200], [832, 1100], [704, 1216],
                             [832, 1216], [768, 1024], [832, 1184], [640, 960]],
@@ -368,33 +640,51 @@ def main() -> int:
         c = default_cfg.clone()
         c.merge_from_file(path)
         model = build_detection_model(c, device=dev, generator=torch.Generator().manual_seed(1))
-        dets = model(images, supps)                     # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ra.roi_align_launches = 0
-        iters = 5
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            dets = model(images, supps)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / iters
-        n = ra.roi_align_launches
-        if n != 7 * iters:
-            raise AssertionError(f"{label}: {n} roi_align launches in {iters} forwards, expected {7 * iters}")
-        launches[label] = n
-        capacity = min(c.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
-                       c.TPU.EVAL_ROI_TOPK or c.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST)
-        check_detections(dets, BATCH, capacity, images.sizes_wh())
-        log(f"eval forward {label}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} bf16, "
-            f"{dt * 1e3:.1f} ms/batch, {BATCH / dt:.1f} img/s, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"{int(dets.valid.sum())} detections [{card}]")
-        profile_forward(model, images, supps, label)
+        for fused in (False, True):
+            cell = f"{label}, fused head" if fused else label
+            model.config = dataclasses.replace(model.config, fused_roi_head=fused)
+            dets = model(images, supps)                     # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ra.roi_align_launches = 0
+            rf.fused_roi_head_launches = 0
+            iters = 5
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                dets = model(images, supps)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / iters
+            n, nh = ra.roi_align_launches, rf.fused_roi_head_launches
+            if n != 7 * iters:
+                raise AssertionError(f"{cell}: {n} roi_align launches in {iters} forwards, expected {7 * iters}")
+            if nh != (iters if fused else 0):
+                raise AssertionError(f"{cell}: {nh} roi_head launches in {iters} forwards")
+            launches[cell] = n
+            head_launches[cell] = nh
+            capacity = min(c.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+                           c.TPU.EVAL_ROI_TOPK or c.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST)
+            check_detections(dets, BATCH, capacity, images.sizes_wh())
+            log(f"eval forward {cell}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} bf16, "
+                f"{dt * 1e3:.1f} ms/batch, {BATCH / dt:.1f} img/s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                f"{int(dets.valid.sum())} detections [{card}]")
+            profile_forward(model, images, supps, cell)
         del model, dets
         torch.cuda.empty_cache()
+    del images, supps
+
+    # -- phase 6: the eval engine, fused head ------------------------------------
+    c = default_cfg.clone()
+    c.merge_from_file(flagship)
+    model = build_detection_model(c, device=dev, generator=torch.Generator().manual_seed(1))
+    model.config = dataclasses.replace(model.config, fused_roi_head=True)
+    head_launches["engine"] = engine_checks(c, model, card)
+    del model
+    torch.cuda.empty_cache()
 
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
+    k3 = head_checks_result[(16000, torch.bfloat16)]
     kernels = [{
         "name": "roi_align",
         "route": "cuda",
@@ -409,6 +699,23 @@ def main() -> int:
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
+        "library_ms": None,
+        "card": card,
+    }, {
+        "name": "roi_head",
+        "route": "cuda",
+        "source": HEAD_SOURCE,
+        "replaces": HEAD_REPLACES,
+        "launches": head_launches["full 2000/img, fused head"],
+        "launches_by_path": head_launches,
+        "shape": "R=16000 rois (8 images x 2000) of (7, 7, 256) + 8 supports, bf16",
+        "max_abs_err": k3["max_abs_err"],
+        "tolerance": f"{HEAD_TOL[torch.bfloat16]} abs (f32 cases: {HEAD_TOL[torch.float32]} abs)",
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "unfused_head_ms": k3["unfused_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
         "library_ms": None,
         "card": card,
     }]

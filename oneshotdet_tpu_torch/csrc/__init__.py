@@ -18,14 +18,21 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-SOURCES = ("roi_align",)
+SOURCES = ("roi_align", "roi_head")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no contracted multiply-adds: the kernels repeat their plain versions'
-    # float32 operations in the same order
-    "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+# Flags of one source on top of NVCC_FLAGS.
+SOURCE_FLAGS = {
+    # no contracted multiply-adds: the ROIAlign kernel repeats its plain
+    # version's float32 operations in the same order, and equals it exactly
+    "roi_align": ("-fmad=false",),
+}
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 _SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _SRC_DIR.parents[1] / "build" / "oneshotdet_tpu_torch"
@@ -48,7 +55,7 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (_SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -64,7 +71,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC_DIR / f"{n}.cu")]
+        cmd = [_nvcc(), *_flags(n), "-o", str(tmp), str(_SRC_DIR / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, path)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -74,6 +75,7 @@ class DetectorConfig:
     roi_detections_per_img: int = 2000
     eval_roi_topk: int = 0
     supp_roialign: bool = True
+    fused_roi_head: bool = False    # ONESHOT_PALLAS_ROI_HEAD=1: the fused head kernel
 
 
 def _not_ported(cfg) -> List[str]:
@@ -131,6 +133,8 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         roi_detections_per_img=cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
         eval_roi_topk=cfg.TPU.EVAL_ROI_TOPK,
         supp_roialign=cfg.FEW_SHOT.SUPP_ROIALIGN,
+        # the JAX package's opt-in, read once here
+        fused_roi_head=os.environ.get("ONESHOT_PALLAS_ROI_HEAD") == "1",
     )
 
 
@@ -227,12 +231,15 @@ class GeneralizedRCNN(nn.Module):
         return pooled.reshape(batch_size, -1, r, r, pooled.shape[-1])
 
     def _roi_head_multi_shot(self, roi_feats, supp_7x7):
-        """One head pass per support shot; element-wise max over class
-        logits, each class slot's deltas from its winning shot."""
+        """One head pass per support shot (each through the fused head when
+        it is on); element-wise max over class logits, each class slot's
+        deltas from its winning shot."""
         head = self.roi_heads.box
+        fused = self.config.fused_roi_head
         if supp_7x7.shape[1] == 1:
-            return head(roi_feats, supp_7x7[:, 0])
-        outs = [head(roi_feats, supp_7x7[:, s]) for s in range(supp_7x7.shape[1])]
+            return head(roi_feats, supp_7x7[:, 0], use_fused=fused)
+        outs = [head(roi_feats, supp_7x7[:, s], use_fused=fused)
+                for s in range(supp_7x7.shape[1])]
         logits = torch.stack([o[0] for o in outs])          # (S, N, ncls)
         regs = torch.stack([o[1] for o in outs])            # (S, N, 4*nreg)
         merged_logits, cls_idx = logits.max(dim=0)

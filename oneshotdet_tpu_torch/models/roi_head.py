@@ -12,6 +12,9 @@
 
 ROI features are NHWC (N, 7, 7, C); the 1x1 convs run as matmuls over the
 last axis, the 3x3 conv on the channels_last NCHW view of the same memory.
+With ``use_fused`` (the eval opt-in) the whole head runs as one fused op,
+``ops.roi_head_fused`` (the CUDA kernel on the card), wherever the JAX
+package would take its fused kernel; otherwise it runs through the layers.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from torch import nn
 
 from ..ops.box_coder import BoxCoder
 from ..ops.nms import nms_keep_mask
+from ..ops.roi_head_fused import (fused_head_applies, fused_roi_head, kernel_operands,
+                                  pack_roi_head_params)
 from ..structures.boxes import Boxes, clip_to_image
 from .layers import Conv2d, GroupNorm, Linear
 
@@ -67,6 +72,8 @@ class ROIBoxHead(nn.Module):
         super().__init__()
         c = in_channels
         self.in_channels = c
+        self.resolution = resolution
+        self._fused_cache = None
         self.compress_dim_conv = nn.Sequential(
             Conv2d(2 * c, 2 * c, 1), GroupNorm(32, 2 * c, eps=1e-5), nn.LeakyReLU(0.2),
             Conv2d(2 * c, c, 1), GroupNorm(32, c, eps=1e-5), nn.LeakyReLU(0.2),
@@ -78,10 +85,29 @@ class ROIBoxHead(nn.Module):
         self.fc7 = Linear(representation_size, representation_size)
         self.predictor = FPNPredictor(representation_size, num_classes, num_bbox_reg)
 
-    def forward(self, roi_feats: torch.Tensor, supp_feats: torch.Tensor):
+    def _fused_operands(self, dtype: torch.dtype):
+        """Kernel operands of the current parameters, packed once and packed
+        again after any of them changes (load_state_dict, in-place edits)."""
+        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._fused_cache is None or self._fused_cache[0] != key:
+            self._fused_cache = (key, kernel_operands(pack_roi_head_params(self), dtype))
+        return self._fused_cache[1]
+
+    def forward(self, roi_feats: torch.Tensor, supp_feats: torch.Tensor,
+                use_fused: bool = False):
         """roi_feats (N, 7, 7, C); supp_feats (N, 7, 7, C), or (B, 7, 7, C)
         with B dividing N (one support per image, image-major ROIs).
-        Returns float32 logits (N, ncls) and deltas (N, 4 * nreg)."""
+        Returns float32 logits (N, ncls) and deltas (N, 4 * nreg).
+
+        ``use_fused`` (the eval path with the fused head switched on) runs
+        the fused head where the JAX package's gate takes its kernel:
+        resolution 7, one support per image (B != N, B divides N) and a
+        per-image ROI count that is a positive multiple of 8."""
+        n, b = roi_feats.shape[0], supp_feats.shape[0]
+        if (use_fused and self.resolution == 7 and b != n and n % b == 0
+                and fused_head_applies(n // b)):
+            return fused_roi_head(roi_feats, supp_feats,
+                                  self._fused_operands(roi_feats.dtype), n // b)
         c = self.in_channels
         conv0, gn0, act0, conv1, gn1, act1 = self.compress_dim_conv
         w0 = conv0.weight.to(roi_feats.dtype)[:, :, 0, 0]        # (2C out, 2C in)

@@ -1,3 +1,4 @@
+from .metric_logger import Timer
 from .weights import map_flax_leaf, state_dict_from_flax
 
-__all__ = ["map_flax_leaf", "state_dict_from_flax"]
+__all__ = ["Timer", "map_flax_leaf", "state_dict_from_flax"]

@@ -26,6 +26,8 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch, oneshotdet_tpu_torch.csrc, oneshotdet_tpu_torch.ops.roi_align\n"
         "import oneshotdet_tpu_torch.models, oneshotdet_tpu_torch.predictor\n"
         "import oneshotdet_tpu_torch.utils.weights, oneshotdet_tpu_torch.data\n"
+        "import oneshotdet_tpu_torch.engine, oneshotdet_tpu_torch.data.evaluation\n"
+        "import oneshotdet_tpu_torch.ops.roi_head_fused, oneshotdet_tpu_torch.utils.comm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -34,6 +36,15 @@ def test_import_loads_neither_jax_nor_flax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_scan_covers_every_module_of_the_port():
+    names = {str(p.relative_to(ROOT)) for p in PORT_SOURCES}
+    for path in ("oneshotdet_tpu_torch/engine/inference.py",
+                 "oneshotdet_tpu_torch/data/evaluation/coco_eval.py",
+                 "oneshotdet_tpu_torch/data/evaluation/coco_metrics.py",
+                 "oneshotdet_tpu_torch/ops/roi_head_fused.py", "chip_smoke.py"):
+        assert path in names
 
 
 def test_forbidden_name_matching():

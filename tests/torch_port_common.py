@@ -63,6 +63,27 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+def random_tree(shapes, rng):
+    """Seeded numpy leaves in the structure of a tree of shapes: kernels
+    N(0, 1/fan_in), scales 1 + 0.1 N, variances 1 + 0.2 |N|, biases and
+    means 0.1 N, drawn in sorted path order."""
+    out = {}
+    for path, leaf in _leaves(shapes):
+        shape, name = tuple(leaf.shape), path[-1]
+        n = rng.standard_normal(shape).astype(np.float32)
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            val = n * np.float32(np.sqrt(1.0 / fan_in))
+        elif name in ("scale", "weight"):
+            val = 1.0 + 0.1 * n
+        elif name == "running_var":
+            val = 1.0 + 0.2 * np.abs(n)
+        else:   # bias, running_mean
+            val = 0.1 * n
+        _set(out, path, val.astype(np.float32))
+    return out
+
+
 def random_variables(jax_model, example_args, seed: int = 0):
     """Seeded numpy weights in the JAX variables' structure. Every leaf is
     drawn (none left at its initializer's constant), so near-equal scores
@@ -70,22 +91,7 @@ def random_variables(jax_model, example_args, seed: int = 0):
     shapes = jax.eval_shape(
         lambda: jax_model.init({"params": jax.random.PRNGKey(0)}, *example_args, train=False))
     rng = np.random.RandomState(seed)
-    out = {}
-    for coll in ("params", "constants"):
-        for path, leaf in _leaves(shapes[coll]):
-            shape, name = tuple(leaf.shape), path[-1]
-            n = rng.standard_normal(shape).astype(np.float32)
-            if name == "kernel":
-                fan_in = int(np.prod(shape[:-1]))
-                val = n * np.float32(np.sqrt(1.0 / fan_in))
-            elif name in ("scale", "weight"):
-                val = 1.0 + 0.1 * n
-            elif name == "running_var":
-                val = 1.0 + 0.2 * np.abs(n)
-            else:   # bias, running_mean
-                val = 0.1 * n
-            _set(out.setdefault(coll, {}), path, val.astype(np.float32))
-    return out
+    return {coll: random_tree(shapes[coll], rng) for coll in ("params", "constants")}
 
 
 def t(x, dtype=None) -> torch.Tensor:
