@@ -2,17 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout (ROIAlign and the fused
-relation head), holds each against its plain PyTorch version at the main
-path's shapes, drives the flagship one-shot detector (Siamese FCOS
-R-50-FPN, configs/oneshot_fcos_r50.yaml, bf16, random weights from a seed)
-through its entry points -- the streaming predictor, the batch-8 832x1216
-eval forward at 512 and 2000 proposals per image, each with the unfused and
-the fused head, and the eval engine (per-batch, cached-support and
-multi-class steps, and inference() with the COCO evaluator) -- and checks
-small float32 forwards on the card against the same model on the CPU. Any
-failure raises and exits non-zero. The last two lines of stdout are the
-per-kernel JSON line and {"ok": true, "device": {...}}.
+Builds the port's five CUDA kernels from this checkout (ROIAlign K1, the
+fused relation head K3, GroupNorm K2, the cross-ROI ROIAlign variants K4 and
+K5), holds each against its plain PyTorch version at the shapes its path
+gives it (K2 on the FCOS tower's P3-P7 with its backward; K4 and K5 on K1's
+proposal cases, with K5's window clamp), drives the paths of the kernels
+that no model runs (FusedGroupNorm over the tower levels; the port's tools
+tune_roialign_v3, ablate_v4 and tune_roi_head at reduced counts), then the
+flagship one-shot detector (Siamese FCOS R-50-FPN,
+configs/oneshot_fcos_r50.yaml, bf16, random weights from a seed) through its
+entry points -- the streaming predictor, the batch-8 832x1216 eval forward at
+512 and 2000 proposals per image, each with the unfused and the fused head,
+and the eval engine (per-batch, cached-support and multi-class steps, and
+inference() with the COCO evaluator) -- and checks small float32 forwards on
+the card against the same model on the CPU. Every kernel's launch count is
+set to 0 before each path and read after it. Any failure raises and exits
+non-zero. The last two lines of stdout are the per-kernel JSON line and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -42,6 +48,13 @@ HEAD_REPLACES = "oneshotdet_tpu/ops/pallas_roi_head.py:226"
 # neighbouring bf16 value (outputs of order 1)
 HEAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 HEAD_CASES = ((16000, 2000), (4096, 512))     # (R, ROIs per image) of the two cells
+GN_SOURCE = "oneshotdet_tpu_torch/csrc/group_norm.cu"
+GN_REPLACES = "oneshotdet_tpu/ops/pallas_groupnorm.py:111"
+V3_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align_v3.cu"
+V3_REPLACES = "oneshotdet_tpu/ops/pallas_roi_align_v3.py:119"
+V4_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align_v4.cu"
+V4_REPLACES = "oneshotdet_tpu/ops/pallas_roi_align_v4.py:168"
+SCALES_Q = (0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
 ENGINE_MIN_SHARE = 0.8        # see engine_checks
 QUERY_HW = (832, 1216)
 SUPP_HW = (416, 416)
@@ -249,6 +262,275 @@ def head_checks(dev):
             del kl, kd, pl, pd, sl, x, supp
             torch.cuda.empty_cache()
     return results
+
+
+def gn_library(x, gamma, beta, act):
+    """One PyTorch GroupNorm call (plus the activation) on the same input:
+    NHWC viewed as channels-last NCHW."""
+    y = torch.nn.functional.group_norm(x.permute(0, 3, 1, 2), 32, gamma.to(x.dtype),
+                                       beta.to(x.dtype), 1e-5)
+    if act == "relu":
+        return torch.relu(y)
+    return torch.nn.functional.leaky_relu(y, 0.2) if act == "leaky" else y
+
+
+def group_norm_checks(dev):
+    """Phase 3c: the GroupNorm kernels (K2) against their plain version on the
+    FCOS tower's shapes (batch 8, P3-P7 of 832x1216, C = 256), f32 and bf16,
+    for no activation, ReLU and LeakyReLU(0.2); one P3 case at input mean 100;
+    the backward through GroupNormAct with the kernels' forward against
+    autograd of the plain forward. Times at P3 of the kernels, the plain
+    version and F.group_norm. Returns {(act, dtype): entry} at P3."""
+    from oneshotdet_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator().manual_seed(13)
+    gamma = (1.0 + 0.1 * torch.randn(256, generator=gen)).to(dev)
+    beta = (0.1 * torch.randn(256, generator=gen)).to(dev)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for lvl, (h, w) in enumerate(pyramid_shapes(*QUERY_HW)):
+            x = torch.randn(BATCH, h, w, 256, generator=gen).to(dev, dtype)
+            for act in (None, "relu", "leaky"):
+                k, k_mean, k_inv = gn.group_norm_act_cuda(x, gamma, beta, 32, 1e-5, act, 0.2)
+                torch.cuda.synchronize()
+                p, p_mean, p_inv = gn.group_norm_act_plain(x, gamma, beta, 32, 1e-5, act, 0.2)
+                err = float((k.float() - p.float()).abs().max())
+                stat_err = max(float((k_mean - p_mean).abs().max()),
+                               float(((k_inv - p_inv) / p_inv).abs().max()))
+                name = f"P{lvl + 3} {tuple(x.shape)} {str(dtype)[6:]} act={act}"
+                if dtype == torch.float32:
+                    ok, tol, metric = err <= 1e-4, "abs <= 1e-4", f"max abs err {err:.3e}"
+                else:
+                    ulps = bf16_ulps(k, p)
+                    ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
+                    metric = f"max abs err {err:.3e}, {ulps:.2f} bf16 ulp"
+                metric += f", statistics {stat_err:.2e}"
+                if not (ok and stat_err <= 1e-4):
+                    raise AssertionError(f"group_norm {name}: {metric} (tolerance {tol})")
+                if lvl != 0:
+                    log(f"group_norm {name}: {metric} (tolerance {tol})")
+                    continue
+                ms = time_ms(lambda: gn.group_norm_act_cuda(x, gamma, beta, 32, 1e-5, act, 0.2))
+                plain_ms = time_ms(lambda: gn.group_norm_act_plain(x, gamma, beta, 32, 1e-5,
+                                                                   act, 0.2), warmup=1)
+                lib_ms = time_ms(lambda: gn_library(x, gamma, beta, act))
+                nbytes = 2 * x.numel() * x.element_size()
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                log(f"group_norm {name}: {metric} (tolerance {tol}); kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, F.group_norm{'+' + act if act else ''} {lib_ms:.4f} ms, "
+                    f"bound {bound:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
+                results[(act, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                             library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
+            del x
+    # input mean 100: E[x^2] ~ 1e4, so two f32 summation orders of the one-pass
+    # variance differ by ~1e-3 and the outputs by ~1e-2 (the formula's
+    # conditioning, shared with the JAX package)
+    h, w = pyramid_shapes(*QUERY_HW)[0]
+    x = (torch.randn(BATCH, h, w, 256, generator=gen) + 100.0).to(dev)
+    k = gn.group_norm_act_cuda(x, gamma, beta)[0]
+    torch.cuda.synchronize()
+    err = float((k - gn.group_norm_act_plain(x, gamma, beta)[0]).abs().max())
+    log(f"group_norm P3 float32 input mean 100: max abs err {err:.3e} (tolerance 3e-2 abs)")
+    if not err <= 3e-2:
+        raise AssertionError(f"group_norm at input mean 100: max abs err {err:.3e}")
+    # backward: f32, P4, LeakyReLU
+    h, w = pyramid_shapes(*QUERY_HW)[1]
+    x = torch.randn(BATCH, h, w, 256, generator=gen).to(dev)
+    cot = torch.randn(BATCH, h, w, 256, generator=gen).to(dev)
+    grads = []
+    for fn in (gn.group_norm_act, lambda *a: gn.group_norm_act_plain(*a)[0]):
+        xs, gs, bs = (v.clone().requires_grad_() for v in (x, gamma, beta))
+        (fn(xs, gs, bs, 32, 1e-5, "leaky", 0.2) * cot).sum().backward()
+        grads.append((xs.grad, gs.grad, bs.grad))
+    for name, got, want in zip(("dx", "dgamma", "dbeta"), *grads):
+        if not torch.allclose(got, want, rtol=2e-3, atol=2e-4):
+            raise AssertionError(f"group_norm backward {name}: max abs err "
+                                 f"{float((got - want).abs().max()):.3e}")
+    log(f"group_norm backward (f32, P4, leaky, kernel forward) vs autograd of the plain forward: "
+        f"dx {float((grads[0][0] - grads[1][0]).abs().max()):.3e}, dgamma "
+        f"{float((grads[0][1] - grads[1][1]).abs().max()):.3e} (rtol 2e-3, atol 2e-4)")
+    torch.cuda.empty_cache()
+    return results
+
+
+def fused_group_norm_path(dev):
+    """K2's own path: the FusedGroupNorm module (ReLU) over the FCOS tower's
+    five bf16 levels, each an NCHW channels-last map viewed as NHWC, as a
+    tower in the port's NCHW modules would call it. Returns every kernel's
+    launches on this path."""
+    from oneshotdet_tpu_torch.models.layers import FusedGroupNorm
+    from oneshotdet_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator().manual_seed(17)
+    module = FusedGroupNorm(256, act="relu")
+    distinct_weights_(module, gen)
+    module = module.to(dev)
+    maps = [torch.randn(BATCH, 256, h, w, generator=gen).to(dev, torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for h, w in pyramid_shapes(*QUERY_HW)]
+    reset_launches()
+    with torch.inference_mode():
+        outs = [module(m.permute(0, 2, 3, 1)) for m in maps]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    launches = counts["group_norm"]
+    for m, y in zip(maps, outs):
+        ref = gn.group_norm_act_plain(m.permute(0, 2, 3, 1), module.weight.detach(),
+                                      module.bias.detach(), 32, 1e-5, "relu")[0]
+        if y.shape != ref.shape or bf16_ulps(y, ref) > 1.0 or not torch.isfinite(y).all():
+            raise AssertionError(f"FusedGroupNorm on {tuple(m.shape)}: differs from plain")
+    if launches != len(maps):
+        raise AssertionError(f"FusedGroupNorm path: {launches} group_norm launches, "
+                             f"expected {len(maps)}")
+    log(f"FusedGroupNorm (relu) over the five tower levels, bf16 channels-last: {launches} "
+        f"group_norm launches, each within 1 bf16 ulp of the plain version")
+    return counts
+
+
+def roi_variant_work(v4, feats, rois, levels, valid):
+    """Each variant's own operation count on these inputs: K4 multiplies and
+    adds 4 x 4 x-taps then 4 y-taps per output value; K5 as the JAX kernel
+    writes it (dense stage A over the level's rows, then the 64-column
+    window) and as the CUDA kernel runs it (the non-zero rows of each output
+    row times the window columns that lie in the level and carry weight)."""
+    from oneshotdet_tpu_torch.ops import roi_align_v3 as v3
+
+    r, c = rois.shape[0], feats[0].shape[-1]
+    ok = v3.live_rois(rois, levels, valid, feats[0].shape[0], len(feats))
+    wy, wx, x0 = v4.window_operands(feats, rois, levels, (7, 7), SCALES_Q, 2, ok)
+    heights = torch.tensor([f.shape[1] for f in feats], device=rois.device)[levels.long()]
+    widths = torch.tensor([f.shape[2] for f in feats], device=rois.device)[levels.long()]
+    k4 = 2 * r * 49 * 20 * c
+    k5_dense = 2 * c * float((ok * (7 * heights * 64 + 7 * 64 * 7)).sum())
+    rows = (wy != 0).sum(-1)                                           # (R, 7)
+    cols = (((wx != 0).any(1)) & (x0[:, None] + torch.arange(64, device=rois.device)
+                                  < widths[:, None])).sum(-1)          # (R,)
+    k5 = 2 * c * float((cols[:, None] * (rows + 7)).sum())
+    return k4, k5_dense, k5
+
+
+
+def roi_variant_checks(ra, dev):
+    """Phase 3d: the cross-ROI ROIAlign kernels K4 (v3) and K5 (v4) against
+    their plain versions on K1's proposal cases (R = 16 000 and 4096 random
+    ROIs on the batch-8 832x1216 pyramid, 10% invalid), f32 1e-5 abs and bf16
+    1 ulp; that K5 clamps ROIs wider than 56 cells (differs from K1) and, in
+    f32, equals K1 on ROIs up to 48 cells wide. Returns {(name, R, dtype):
+    entry}."""
+    from oneshotdet_tpu_torch.ops import roi_align_v3 as v3
+    from oneshotdet_tpu_torch.ops import roi_align_v4 as v4
+
+    gen = torch.Generator().manual_seed(19)
+    q_shapes = pyramid_shapes(*QUERY_HW)
+    variants = (("roi_align_v3", v3.multilevel_roi_align_v3_cuda,
+                 v3.multilevel_roi_align_v3_plain),
+                ("roi_align_v4", v4.multilevel_roi_align_v4_cuda,
+                 v4.multilevel_roi_align_v4_plain))
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = [torch.randn(BATCH, h, w, 256, generator=gen).to(dev, dtype) for h, w in q_shapes]
+        for r in (16000, 4096):
+            rois, valid = random_rois(r, BATCH, QUERY_HW, gen, dev)
+            levels = ra.fpn_level_map(rois[:, 1:], 3, 7)
+            args = (feats, rois, levels, (7, 7), SCALES_Q, 2, valid)
+            k1 = ra.multilevel_roi_align_cuda(*args)
+            elt = torch.finfo(dtype).bits // 8
+            nbytes = (sum(f.numel() for f in feats) * elt + rois.numel() * 4 + levels.numel() * 4
+                      + valid.numel() + k1.numel() * elt)
+            k4_ops, k5_dense_ops, k5_ops = roi_variant_work(v4, feats, rois, levels, valid)
+            for name, cuda_fn, plain_fn in variants:
+                k = cuda_fn(*args)
+                torch.cuda.synchronize()
+                p = plain_fn(*args)
+                err = float((k.float() - p.float()).abs().max())
+                if dtype == torch.float32:
+                    ok, tol, metric = err <= 1e-5, "abs <= 1e-5", f"max abs err {err:.3e}"
+                else:
+                    ulps = bf16_ulps(k, p)
+                    ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
+                    metric = f"max abs err {err:.3e}, {ulps:.2f} bf16 ulp"
+                if not ok:
+                    raise AssertionError(f"{name} R={r} {dtype}: {metric} (tolerance {tol})")
+                if name == "roi_align_v4":
+                    scale_r = torch.tensor(SCALES_Q, device=dev)[levels.long()]
+                    span = torch.clamp((rois[:, 3] - rois[:, 1]) * scale_r, min=1.0)
+                    wide, narrow = valid & (span > 56), valid & (span <= 48)
+                    gap_wide = float((k[wide].float() - k1[wide].float()).abs().max())
+                    gap_narrow = float((k[narrow].float() - k1[narrow].float()).abs().max())
+                    # K5 and K1 sum in other orders: in bf16, outputs near zero
+                    # can round apart by more than one ulp, so f32 alone
+                    narrow_ok = dtype == torch.bfloat16 or gap_narrow <= 1e-5
+                    log(f"roi_align_v4 R={r} {str(dtype)[6:]}: vs K1, {int(wide.sum())} ROIs wider "
+                        f"than 56 cells differ by up to {gap_wide:.4f} (the window clamp), "
+                        f"{int(narrow.sum())} up to 48 cells by {gap_narrow:.3e}")
+                    if not (gap_wide > 0.1 and narrow_ok):
+                        raise AssertionError(f"roi_align_v4 R={r}: window clamp not as expected "
+                                             f"({gap_wide}, {gap_narrow})")
+                own_ops = k4_ops if name == "roi_align_v3" else k5_ops
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = own_ops / FP32_OPS_PER_S * 1e3
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                ms = time_ms(lambda: cuda_fn(*args), reps=10)
+                plain_ms = time_ms(lambda: plain_fn(*args), reps=3, warmup=1)
+                ops_text = (f"{own_ops / 1e9:.2f} GFLOP" if name == "roi_align_v3" else
+                            f"{own_ops / 1e9:.2f} GFLOP non-zero, {k5_dense_ops / 1e9:.1f} "
+                            f"GFLOP dense as the TPU kernel writes it")
+                log(f"{name} R={r} {str(dtype)[6:]}: {metric} (tolerance {tol}); kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+                    f"{nbytes / 1e6:.1f} MB as K1; own work {ops_text})")
+                results[(name, r, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                 bound_ms=bound, bound_by=by, gflop=own_ops / 1e9)
+                del k, p
+                torch.cuda.empty_cache()
+            del k1
+        del feats
+        torch.cuda.empty_cache()
+    return results
+
+
+def tool_runs():
+    """Phase 3e: the port's card tools at reduced counts, each with every
+    kernel's launch count set to 0 just before and read just after.
+    Returns {tool: {kernel: launches}}."""
+    from oneshotdet_tpu_torch.tools import ablate_v4, tune_roi_head, tune_roialign_v3
+
+    runs = (("tune_roialign_v3", tune_roialign_v3, ["--iters", "2", "--warmup", "1",
+                                                     "--blocks", "16"]),
+            ("ablate_v4", ablate_v4, ["--iters", "2", "--warmup", "1", "--rounds", "1"]),
+            ("tune_roi_head", tune_roi_head, ["--iters", "2", "--warmup", "1"]))
+    launches = {}
+    for name, tool, argv in runs:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = tool.main(argv)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"tool {name} exited {rc}")
+        launches[name] = read_launches()
+        log(f"tool {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches[name]}")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _counters():
+    from oneshotdet_tpu_torch.ops import group_norm, roi_align, roi_align_v3, roi_align_v4
+    from oneshotdet_tpu_torch.ops import roi_head_fused
+
+    return {"roi_align": (roi_align, "roi_align_launches"),
+            "roi_head": (roi_head_fused, "fused_roi_head_launches"),
+            "group_norm": (group_norm, "group_norm_launches"),
+            "roi_align_v3": (roi_align_v3, "roi_align_v3_launches"),
+            "roi_align_v4": (roi_align_v4, "roi_align_v4_launches")}
+
+
+def reset_launches():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_launches():
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 def distinct_weights_(model, gen):
@@ -586,6 +868,11 @@ def main() -> int:
     head_checks_result = head_checks(dev)
     small_forward_check(flagship, dev)
     small_forward_check(flagship, dev, fused=True)
+    gn_checks = group_norm_checks(dev)
+    variant_checks = roi_variant_checks(ra, dev)
+    # launches of every kernel on each path, counts set to 0 just before it
+    paths = {"FusedGroupNorm, 5 tower levels": fused_group_norm_path(dev)}
+    paths.update(tool_runs())
 
     # -- phase 4: predictor, unfused and fused head --------------------------
     cfg = default_cfg.clone()
@@ -593,7 +880,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     launches = {}
     head_launches = {}
-    ra.roi_align_launches = 0
+    reset_launches()
     pred = OneShotPredictor(cfg, confidence_threshold=0.0, device=dev,
                             generator=torch.Generator().manual_seed(1))
     supp = torch.randint(0, 256, (300, 400, 3), generator=gen, dtype=torch.uint8).numpy()
@@ -620,6 +907,7 @@ def main() -> int:
             raise AssertionError(f"{label}: {rf.fused_roi_head_launches} roi_head launches")
         head_launches[label] = rf.fused_roi_head_launches
     launches["predictor"] = ra.roi_align_launches
+    paths["predictor, unfused and fused"] = read_launches()
     expected = 6 + 2 * len(frames)
     if launches["predictor"] != expected:
         raise AssertionError(f"predictor: {launches['predictor']} roi_align launches, expected {expected}")
@@ -646,8 +934,7 @@ def main() -> int:
             dets = model(images, supps)                     # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            ra.roi_align_launches = 0
-            rf.fused_roi_head_launches = 0
+            reset_launches()
             iters = 5
             t0 = time.perf_counter()
             for _ in range(iters):
@@ -661,6 +948,7 @@ def main() -> int:
                 raise AssertionError(f"{cell}: {nh} roi_head launches in {iters} forwards")
             launches[cell] = n
             head_launches[cell] = nh
+            paths[f"{cell}, {iters} forwards"] = read_launches()
             capacity = min(c.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
                            c.TPU.EVAL_ROI_TOPK or c.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST)
             check_detections(dets, BATCH, capacity, images.sizes_wh())
@@ -678,7 +966,9 @@ def main() -> int:
     c.merge_from_file(flagship)
     model = build_detection_model(c, device=dev, generator=torch.Generator().manual_seed(1))
     model.config = dataclasses.replace(model.config, fused_roi_head=True)
+    reset_launches()
     head_launches["engine"] = engine_checks(c, model, card)
+    paths["engine"] = read_launches()
     del model
     torch.cuda.empty_cache()
 
@@ -719,6 +1009,49 @@ def main() -> int:
         "library_ms": None,
         "card": card,
     }]
+    k2 = gn_checks[("relu", torch.bfloat16)]
+    kernels.append({
+        "name": "group_norm",
+        "route": "cuda",
+        "source": GN_SOURCE,
+        "replaces": GN_REPLACES,
+        "launches": paths["FusedGroupNorm, 5 tower levels"]["group_norm"],
+        "launches_by_path": {label: n["group_norm"] for label, n in paths.items()},
+        "shape": "(8, 104, 152, 256) bf16 (P3 of the FCOS tower), act relu",
+        "max_abs_err": k2["max_abs_err"],
+        "tolerance": "1 bf16 ulp (f32: 1e-4 abs; f32 at input mean 100: 3e-2 abs)",
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+        "library": "torch.nn.functional.group_norm + relu",
+        "card": card,
+    })
+    for name, source, replaces, tool in (("roi_align_v3", V3_SOURCE, V3_REPLACES, "tune_roialign_v3"),
+                                         ("roi_align_v4", V4_SOURCE, V4_REPLACES, "tune_roialign_v3")):
+        v = variant_checks[(name, 16000, torch.bfloat16)]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": paths[tool][name],
+            "launches_by_path": {label: n[name] for label, n in paths.items()},
+            "shape": "batch-8 832x1216 pyramid, C=256, R=16000 rois, 7x7, bf16",
+            "max_abs_err": v["max_abs_err"],
+            "tolerance": "1 bf16 ulp (f32 cases: 1e-5 abs)",
+            "ms": v["ms"],
+            "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"],
+            "library_ms": None,
+            "gflop": v["gflop"],
+            "card": card,
+        })
+    for k in kernels[2:]:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']}: not launched on its own path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

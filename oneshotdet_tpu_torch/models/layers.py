@@ -34,6 +34,34 @@ class GroupNorm(nn.GroupNorm):
                             _cast(self.bias, x), self.eps)
 
 
+class FusedGroupNorm(nn.Module):
+    """GroupNorm + optional activation over channels-last ``(B, ..., C)``
+    input, run by ``ops/group_norm.py`` (the CUDA kernels on the card, the
+    plain version on the CPU): the counterpart of the JAX package's
+    ``FusedGroupNorm``. ``act`` is ``""``, ``"relu"`` or ``"leaky"`` (slope
+    ``negative_slope``). A channels-last NCHW tensor permuted to NHWC is
+    contiguous, so an NCHW caller pays no copy. Load flax weights through
+    ``utils.weights.group_norm_params_from_flax``."""
+
+    def __init__(self, features: int, num_groups: int = 32, eps: float = 1e-5,
+                 act: str = "", negative_slope: float = 0.2):
+        super().__init__()
+        if act not in ("", "relu", "leaky"):
+            raise ValueError(f"FusedGroupNorm: act {act!r} ('', 'relu' or 'leaky')")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.act = act
+        self.negative_slope = negative_slope
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        from ..ops.group_norm import group_norm_act
+
+        return group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps,
+                              self.act or None, self.negative_slope)
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with fixed statistics and affine parameters, over NCHW.
 

@@ -27,6 +27,7 @@ sys.path.insert(0, ROOT)
 from oneshotdet_tpu_torch import csrc  # noqa: E402
 from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead  # noqa: E402
 from oneshotdet_tpu_torch.ops import roi_head_fused as rf  # noqa: E402
+from oneshotdet_tpu_torch.tools import card_line  # noqa: E402
 
 # (name, [(text in roi_head.cu, replacement)]): each cut removes one part
 CUTS = [
@@ -92,8 +93,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_roi_head: no CUDA device visible to torch", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     gen = torch.Generator().manual_seed(21)
     head = ROIBoxHead()

@@ -109,6 +109,15 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
+def group_norm_params_from_flax(params) -> Dict[str, torch.Tensor]:
+    """A flax ``FusedGroupNorm``'s params (``scale``, ``bias``) -> the state
+    dict of ``models.layers.FusedGroupNorm`` (``weight``, ``bias``)."""
+    extra = set(params) - {"scale", "bias"}
+    if extra:
+        raise KeyError(f"no FusedGroupNorm counterpart for {sorted(extra)}")
+    return {_w(k): torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in params.items()}
+
+
 def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """``{'params': ..., 'constants': ...}`` nested dicts of arrays -> the
     port's float32 state dict. Raises on a leaf with no counterpart."""

@@ -28,6 +28,9 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.utils.weights, oneshotdet_tpu_torch.data\n"
         "import oneshotdet_tpu_torch.engine, oneshotdet_tpu_torch.data.evaluation\n"
         "import oneshotdet_tpu_torch.ops.roi_head_fused, oneshotdet_tpu_torch.utils.comm\n"
+        "import oneshotdet_tpu_torch.ops.group_norm, oneshotdet_tpu_torch.ops.roi_align_v3\n"
+        "import oneshotdet_tpu_torch.ops.roi_align_v4, oneshotdet_tpu_torch.tools.tune_roi_head\n"
+        "import oneshotdet_tpu_torch.tools.tune_roialign_v3, oneshotdet_tpu_torch.tools.ablate_v4\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -43,7 +46,12 @@ def test_scan_covers_every_module_of_the_port():
     for path in ("oneshotdet_tpu_torch/engine/inference.py",
                  "oneshotdet_tpu_torch/data/evaluation/coco_eval.py",
                  "oneshotdet_tpu_torch/data/evaluation/coco_metrics.py",
-                 "oneshotdet_tpu_torch/ops/roi_head_fused.py", "chip_smoke.py"):
+                 "oneshotdet_tpu_torch/ops/roi_head_fused.py", "chip_smoke.py",
+                 "oneshotdet_tpu_torch/ops/group_norm.py", "oneshotdet_tpu_torch/ops/roi_align_v3.py",
+                 "oneshotdet_tpu_torch/ops/roi_align_v4.py",
+                 "oneshotdet_tpu_torch/tools/tune_roialign_v3.py",
+                 "oneshotdet_tpu_torch/tools/ablate_v4.py",
+                 "oneshotdet_tpu_torch/tools/tune_roi_head.py"):
         assert path in names
 
 
