@@ -27,6 +27,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,7 +48,8 @@ HEAD_REPLACES = "oneshotdet_tpu/ops/pallas_roi_head.py:226"
 # order of the sums (f32); in bf16 an intermediate can round to the
 # neighbouring bf16 value (outputs of order 1)
 HEAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-HEAD_CASES = ((16000, 2000), (4096, 512))     # (R, ROIs per image) of the two cells
+# (R, ROIs per image): the two cells, the predictor's frame, a 3-image tail
+HEAD_CASES = ((16000, 2000), (4096, 512), (2000, 2000), (24, 8))
 GN_SOURCE = "oneshotdet_tpu_torch/csrc/group_norm.cu"
 GN_REPLACES = "oneshotdet_tpu/ops/pallas_groupnorm.py:111"
 V3_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align_v3.cu"
@@ -70,6 +72,26 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text):
+    """From an ``-Xptxas -v`` log: {kernel: (registers, spill store bytes,
+    spill load bytes)} and the lines that warn of an ignored setmaxnreg
+    (C7508) or serialized wgmma (C7513)."""
+    kernels, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            kernels.setdefault(cur, [0, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            kernels.setdefault(cur, [0, 0, 0])[0] = int(m.group(1))
+    warnings = [ln.strip() for ln in text.splitlines() if "C7508" in ln or "C7513" in ln]
+    return {k: tuple(v) for k, v in kernels.items()}, warnings
 
 
 def pyramid_shapes(h, w):
@@ -205,9 +227,11 @@ def head_work(r, b, ops):
 
 def head_checks(dev):
     """Phase 3b: the fused head kernel against its plain version at the main
-    path's two ROI counts (B = 8 images x 2000 and x 512 proposals), f32 and
-    bf16, seeded N(0, 1/fan_in) weights; a support swap; times of the kernel,
-    the plain version and the unfused ROIBoxHead (cuBLAS/cuDNN layers)."""
+    path's ROI counts (B = 8 images x 2000 and x 512 proposals, the
+    predictor's 1 x 2000) and a tail of 3 images x 8, f32 and bf16, seeded
+    N(0, 1/fan_in) weights; a support swap; times of the kernel, the plain
+    version and the unfused ROIBoxHead (cuBLAS/cuDNN layers), and the
+    kernel's share of its bound."""
     from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead
     from oneshotdet_tpu_torch.ops import roi_head_fused as rf
 
@@ -228,7 +252,9 @@ def head_checks(dev):
                 kl, kd = rf.fused_roi_head_cuda(x, supp, ops, per_image)
                 torch.cuda.synchronize()
                 pl, pd = rf.fused_roi_head_plain(x, supp, ops, per_image)
-                sl, _ = rf.fused_roi_head_cuda(x, supp.flip(0), ops, per_image)
+                # another image's support; with one image, its channels reversed
+                other = supp.flip(0) if b > 1 else supp.flip(-1)
+                sl, _ = rf.fused_roi_head_cuda(x, other, ops, per_image)
                 torch.cuda.synchronize()
             err = max(float((kl - pl).abs().max()), float((kd - pd).abs().max()))
             scale = max(float(pl.abs().max()), float(pd.abs().max()))
@@ -256,9 +282,11 @@ def head_checks(dev):
                 f"({rel:.2e} of it; tolerance {tol} abs); support swap moves logits by "
                 f"{swap:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused ROIBoxHead "
                 f"(cuBLAS/cuDNN) {unfused_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
-                f"{nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} TFLOP)")
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} TFLOP), kernel at "
+                f"{100 * bound / ms:.1f}% of its bound, {unfused_ms / ms:.2f}x the unfused head")
             results[(r, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                       unfused_ms=unfused_ms, bound_ms=bound, bound_by=by)
+                                       unfused_ms=unfused_ms, bound_ms=bound, bound_by=by,
+                                       bound_share=bound / ms)
             del kl, kd, pl, pd, sl, x, supp
             torch.cuda.empty_cache()
     return results
@@ -862,6 +890,12 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for name, text in csrc.build_logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
+    kernels_ptx, warnings = ptxas_report(csrc.build_logs.get("roi_head", ""))
+    for kname, (regs, st, ld) in kernels_ptx.items():
+        if "head_front_bf16" in kname or "fc_gemm_bf16" in kname:
+            log(f"ptxas roi_head.cu {kname}: {regs} registers at entry (setmaxnreg: consumers "
+                f"232, producer 40), spill stores {st} B, spill loads {ld} B")
+    log(f"ptxas roi_head.cu C7508/C7513 warnings: {warnings or 'none'}")
 
     # -- phase 3: kernels against plain ----------------------------------------
     checks = kernel_checks(ra, dev)
@@ -1005,6 +1039,7 @@ def main() -> int:
         "plain_ms": k3["plain_ms"],
         "unfused_head_ms": k3["unfused_ms"],
         "bound_ms": k3["bound_ms"],
+        "bound_share": k3["bound_share"],
         "bound_by": k3["bound_by"],
         "library_ms": None,
         "card": card,

@@ -23,40 +23,42 @@
 // R = 16 000 at 989 TFLOP/s; fp32 has no tensor-core path at parity: 16.6 ms
 // at 67 TFLOP/s).
 //
-// Design, three kernels on the caller's stream:
-//   1. head_front: one block of two warpgroups (8 warps) per ROI. The 49 rows
-//      (padded to 64) stay in shared memory through compress_0, GN0,
-//      compress_1, GN1, the 3x3 conv and its GN. compress_0 runs in four
-//      128-column chunks (each holds whole GN0 groups), and each normalized
-//      chunk is at once multiplied into compress_1's register accumulators,
-//      so the 64x512 intermediate never exists in full. compress_1's output
-//      is normalized in two 128-column halves into a zero-bordered 9x9 grid
-//      that takes the place of the input tile; there each 3x3 tap is a
-//      constant row offset (9 dy + dx), the border supplies the SAME padding,
-//      and rows of one ROI never mix with another's. bf16 products are wgmma
-//      (m64n64k16 / m64n128k16, each warpgroup half the columns) with A from
-//      registers (ldmatrix) and B from shared memory: the weights, L2-resident
-//      and stored transposed by the wrapper, stream by cp.async through a
-//      120 KB ring of 32-deep slices laid out as wgmma core matrices. fp32
-//      uses FMA loops (no TF32) on weights read from global memory.
-//      Measured: streaming the 1.1 MB of weights per ROI from L2 is what
-//      limits it (tools/ablate_roi_head.py); several ROIs per block, or
-//      multicast across a cluster, would cut that traffic.
-//   2. gemm_bias_relu (twice): fc6 over (R, 49 * 128) in (p, q, c) order
-//      (fc6's rows are permuted to match by the wrapper) and fc7, 128x128
-//      block tiles (bf16 WMMA; fp32 FMA) so that the weights are reused
-//      across ROIs.
+// bf16 design, four launches on the caller's stream:
+//   1. head_front_bf16: G = 2 ROIs per block, one consumer warpgroup each
+//      (the ROI's 49 rows padded to one 64-row wgmma tile), and a producer
+//      warp. Every ROI needs the same 1.1 MB of compress and 3x3 weights; the
+//      producer streams them once per block, as 136 slices of 8 KB that the
+//      wrapper pre-tiled in wgmma's no-swizzle core-matrix order, each one
+//      bulk copy (cp.async.bulk) into a 13-slot ring completed on an mbarrier;
+//      both consumers multiply every slice, and release it on an "empty"
+//      mbarrier. No barrier spans the block after the start. The producer
+//      also copies each ROI's input rows and the GroupNorm parameters and
+//      biases into shared memory first. compress_0 runs
+//      in eight 64-column chunks (whole GN0 groups), each normalized and at
+//      once multiplied into compress_1's 64 x 256 accumulator, so the 64 x 512
+//      intermediate never exists. compress_1's output goes into a zero-bordered
+//      9x9 grid that takes the place of the input tile: there each 3x3 tap is
+//      a constant row offset (9 dy + dx), the border supplies the SAME padding,
+//      and the conv is one product of depth 9 C. Products are wgmma with A from
+//      registers (ldmatrix: any row offset) and B from the ring. GroupNorm
+//      statistics come from the accumulator registers (lane shuffles, then the
+//      warpgroup's 4 warps through shared memory), and the normalized bf16
+//      values go straight to the next product's operand.
+//   2. fc_gemm_bf16 (fc6, then fc7): persistent blocks over 128 x 256 output
+//      tiles, a producer warp keeping 4 stages of A rows (one bulk copy per
+//      row) and pre-tiled B in flight, two consumer warpgroups of 64 rows on
+//      wgmma m64n256k16, a bias + ReLU + bf16 epilogue.
 //   3. predictor: one warp per ROI for the two small output layers.
+// fp32 uses FMA loops (no TF32): one block per ROI for the front, 64 x 64
+// tiles for fc6/fc7, the same predictor.
 // The wrapper (oneshotdet_tpu_torch/ops/roi_head_fused.py) checks shapes,
 // dtypes, devices and contiguity and allocates the outputs and scratch; this
 // file launches and returns cudaGetLastError() after each launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -65,56 +67,55 @@ constexpr int C = 256;          // ROI feature channels
 constexpr int C2 = 2 * C;       // compress_0 width
 constexpr int CA = C / 2;       // aggregation width
 constexpr int NPOS = 49;        // 7 x 7 positions of a ROI
-constexpr int ROWS = 64;        // positions padded to whole 16-row tiles
+constexpr int ROWS = 64;        // positions padded to one 64-row tile
 constexpr int GRID_ROWS = 84;   // 9 x 9 zero-bordered grid, + 3 rows the taps may read
-constexpr int CHUNK = 128;      // compress_0 columns per pass
-constexpr int THREADS = 256;
 constexpr int MAX_PRED = 16;    // ncls + 4 * nreg
+constexpr float EPS = 1e-5f;
+constexpr float SLOPE = 0.2f;
 
-// Shared-memory layout of head_front, leading dimensions in elements. The
-// bf16 rows of X, D and H are 16 bytes past a multiple of 128 bytes, so the 8
-// rows an ldmatrix reads fall in distinct banks.
-constexpr int LDX = C + 8;      // X: the ROI's 64 x C input
-constexpr int LDS = CHUNK + 8;  // S: 64 x 128 float32 staging
-constexpr int LDH = C + 8;      // H: the 9x9 grid of compress_1's output (aliases X)
-// bf16 weights stream through a ring of KS-deep slices (cp.async), as many
-// slices of N columns in flight as RING_BYTES holds
-constexpr int KS = 32;
-constexpr int RING_BYTES = 120 * 1024;
-
-template <typename T>
-struct Layout {
-  // D holds the normalized compress_0 chunk in T; for fp32 it is S itself
-  static constexpr bool kSeparateD = sizeof(T) != sizeof(float);
-  static constexpr int LDD = kSeparateD ? CHUNK + 8 : LDS;
-  static constexpr int kRegion1 =
-      ROWS * LDX * (int)sizeof(T) > GRID_ROWS * LDH * (int)sizeof(T)
-          ? ROWS * LDX * (int)sizeof(T) : GRID_ROWS * LDH * (int)sizeof(T);
-  static constexpr int OFF_S = (kRegion1 + 127) / 128 * 128;
-  static constexpr int OFF_D = kSeparateD ? OFF_S + ROWS * LDS * 4 : OFF_S;
-  static constexpr int OFF_R = OFF_S + ROWS * LDS * 4 + (kSeparateD ? ROWS * LDD * (int)sizeof(T) : 0);
-  static constexpr int BYTES = OFF_R + (kSeparateD ? RING_BYTES : 0);
+// Mirrors `struct HeadArgs` in oneshotdet_tpu_torch/ops/roi_head_fused.py.
+// The *T operands are the bf16 path's pre-tiled weights (tile_operand there).
+struct HeadArgs {
+  const void* x;      // (R, 7, 7, C) T
+  const void* yb;     // (B, 49, 2C) T: support half of compress_0 plus its bias
+  const void* c0a;    // (C, 2C) T: query half of compress_0
+  const void* c0aT;   // its 64 x 64 tiles, column-block major
+  const float* gn0g;
+  const float* gn0b;
+  const void* c1;     // (2C, C) T
+  const void* c1T;    // its 16 x 256 tiles
+  const float* c1b;
+  const float* gn1g;
+  const float* gn1b;
+  const void* ag;     // (9, C, C/2) T, taps in (ky, kx) order
+  const void* agT;    // (9 C, C/2) tiled 32 x 128
+  const float* agb;
+  const float* gng;
+  const float* gnb;
+  const void* fc6;    // (49 C/2, hidden) T, rows in (p, q, c) order
+  const void* fc6T;   // its 64 x 256 tiles, column-block major
+  const float* fc6b;
+  const void* fc7;    // (hidden, hidden) T
+  const void* fc7T;   // its 64 x 256 tiles
+  const float* fc7b;
+  const void* pred;   // (hidden, ncls + nreg4) T: cls_score | bbox_pred
+  const float* predb;
+  void* a;            // scratch (R, 49 C/2) T; bf16: tiled (a_tile_offset), rows
+                      // padded to a multiple of 128
+  void* f6;           // scratch (R, hidden) T; bf16: tiled, as a
+  void* f7;           // scratch (R, hidden) T
+  float* logits;      // (R, ncls)
+  float* deltas;      // (R, nreg4)
+  int rois;
+  int per_image;
+  int hidden;
+  int ncls;
+  int nreg4;
+  int dtype;          // 0 = float32, 1 = bfloat16
 };
-static_assert(Layout<float>::BYTES <= 232448 - 1024, "fp32 head_front exceeds shared memory");
-static_assert(Layout<bf16>::BYTES <= 232448 - 1024, "bf16 head_front exceeds shared memory");
-static_assert(Layout<bf16>::OFF_D % 128 == 0 && Layout<bf16>::OFF_R % 128 == 0,
-              "unaligned shared-memory regions");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -122,16 +123,103 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// A 64 x N float32 accumulator tile spread over the block's 256 threads:
-// acc += A (64 x K in shared memory; a_at(k) points at row 0, column k; row
-// stride lda) @ B, given as B_kn (K x N, row-major) and as B_nk (its
-// transpose), both in global memory. Every thread of the block calls mma
-// together.
-template <typename T, int N> struct Acc;
+__device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * SLOPE; }
+
+// ---------------------------------------------------------------------------
+// Hopper primitives: mbarriers, bulk copies, named barriers, wgmma.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// arrives and adds `bytes` to the transfer count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// global -> shared copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) that completes its bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// synchronizes the 128 threads of one warpgroup on named barrier `id`
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator register across
+// the asynchronous wgmma that owns it.
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Shared-memory descriptor of a K-major B tile without swizzle: 8 x 16-byte
+// core matrices, lbo bytes apart along K, sbo bytes apart along N.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
+  const uint32_t addr = smem_u32(p);
+  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
 
 // wgmma m64nNk16, A (64 x 16 bf16) from registers, B from shared memory, f32
-// accumulators; d holds N / 2 floats per thread.
-__device__ __forceinline__ void wgmma_n64(float* d, const uint32_t* a, uint64_t desc) {
+// accumulators: d holds N / 2 floats per thread. Thread t of the warpgroup
+// holds, for j = 0 .. N/8 - 1, d[4 j + q] at row 16 (t / 32) + (t % 32) / 4 +
+// 8 (q / 2) and column 8 j + 2 (t % 4) + q % 2.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc);
+
+#define D8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -140,14 +228,12 @@ __device__ __forceinline__ void wgmma_n64(float* d, const uint32_t* a, uint64_t 
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : D8(0), D8(8), D8(16), D8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a, uint64_t desc) {
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -160,133 +246,616 @@ __device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a, uint64_t
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// Shared-memory descriptor of a K-major B tile without swizzle: 8 x 16-byte
-// core matrices, lbo bytes apart along K, sbo bytes apart along N.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80),
+        D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+#undef D8
+
+// bf16 fc6 / fc7 tiles (below), and the tiled layout of their A operand:
+// the rows padded to a multiple of GBM, cut into GBM x GBK blocks stored one
+// after the other (row block major), each block row-major with its 16-byte
+// chunks swizzled (chunk c of row r at c ^ (r % 8)), so that one bulk copy
+// brings a block and ldmatrix reads it without bank conflicts.
+constexpr int GBM = 128, GBN = 256, GBK = 64;
+
+__device__ __forceinline__ int64_t a_tile_offset(int row, int col, int ksteps) {
+  const int rr = row % GBM;
+  return (((int64_t)(row / GBM) * ksteps + col / GBK) * GBM + rr) * GBK +
+         ((((col % GBK) >> 3) ^ (rr & 7)) << 3) + (col & 7);
 }
 
-// Keeps the compiler from moving accesses of an accumulator register across
-// the asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+// ---------------------------------------------------------------------------
+// bf16 head_front: G ROIs per block, one consumer warpgroup each, and a
+// producer warp that streams the weight slices through the ring.
 
-// bf16: wgmma. Warpgroup g (warps 4g .. 4g + 3) owns columns g N/2 ..; its
-// warp w holds rows 16 (w % 4) .. of A, loaded by ldmatrix. B, read from
-// B_nk (N x K, K contiguous), streams through the shared-memory ring in
-// KS-deep slices laid out as wgmma core matrices (n / 8, k / 8) of 8 rows x
-// 16 bytes: STAGES - 2 slices in flight while one is multiplied.
-template <int N>
-struct Acc<bf16, N> {
-  static constexpr int NW = N / 2;             // columns of one warpgroup
-  static constexpr int SLOT = N * KS * 2;      // bytes of one slice
-  static constexpr int STAGES = RING_BYTES / SLOT;
-  static_assert(STAGES >= 4, "weight ring too small");
-  static_assert(NW == 64 || NW == 128, "wgmma width");
-  float d[NW / 2];
+constexpr int G = 2;                          // ROIs per block
+constexpr int FRONT_THREADS = 128 * (G + 1);  // G consumer warpgroups + the producer's
+constexpr int LDX = C + 8;                    // X / H row stride, elements (16 bytes past
+                                              // 512: ldmatrix's 8 rows in distinct banks)
+constexpr int CH = 64;                        // compress_0 columns per chunk (4 GN0 groups)
+constexpr int LDD = CH + 8;                   // D: the normalized chunk
+constexpr int LDO = CA + 8;                   // the output tile staged for its store
+constexpr int SLOT = 8192;                    // bytes of one weight slice
+constexpr int STAGES = 13;                    // slices in the ring
+constexpr int KD0 = SLOT / (2 * CH);          // 64: depth of a compress_0 slice (64 columns)
+constexpr int KD1 = SLOT / (2 * C);           // 16: of a compress_1 slice (256 columns)
+constexpr int KDA = SLOT / (2 * CA);          // 32: of a 3x3 slice (128 columns)
+constexpr int S0 = C / KD0;                   // slices of one compress_0 chunk
+constexpr int S1 = CH / KD1;                  // slices of compress_1 that one chunk feeds
+constexpr int NCHUNK = C2 / CH;
+constexpr int SA = 9 * C / KDA;               // slices of the 3x3 conv
+constexpr int SLICES = NCHUNK * (S0 + S1) + SA;
+// The GroupNorm parameters and biases, copied to shared memory once per
+// block, at these offsets (floats)
+constexpr int P_GN0G = 0, P_GN0B = C2, P_GN1G = 2 * C2, P_GN1B = P_GN1G + C, P_C1B = P_GN1B + C,
+              P_GNG = P_C1B + C, P_GNB = P_GNG + CA, P_AGB = P_GNB + CA, PARAM_FLOATS = P_AGB + CA;
+// shared memory, bytes: per ROI X (then H) and D; the ring; its barriers
+// (full and empty per slot, one per consumer's X, one for the parameters);
+// the parameters; per warpgroup the GN partials of its 4 warps, means and
+// 1/std
+constexpr int XH_BYTES = (GRID_ROWS * LDX * 2 + 127) / 128 * 128;
+constexpr int D_BYTES = ROWS * LDD * 2;
+constexpr int ROI_BYTES = XH_BYTES + D_BYTES;
+constexpr int OFF_RING = G * ROI_BYTES;
+constexpr int OFF_BAR = OFF_RING + STAGES * SLOT;
+constexpr int OFF_PARAMS = (OFF_BAR + (2 * STAGES + G + 1) * 8 + 127) / 128 * 128;
+constexpr int OFF_STATS = OFF_PARAMS + PARAM_FLOATS * 4;
+constexpr int STATS_FLOATS = 4 * 32 + 2 * 32;
+constexpr int FRONT_BYTES = OFF_STATS + G * STATS_FLOATS * 4;
+static_assert(FRONT_BYTES <= 232448, "bf16 head_front exceeds shared memory");
+static_assert(8 % G == 0, "the fused head takes multiples of 8 ROIs per image: a block of G "
+                          "ROIs must not span two images");
+static_assert(NPOS * LDO * 2 <= XH_BYTES, "output tile does not fit in X");
+static_assert(XH_BYTES % 128 == 0 && D_BYTES % 128 == 0, "unaligned regions");
+static_assert(S0 % 2 == 0 && S1 % 2 == 0 && SA % 2 == 0, "products run slices in pairs");
 
-  __device__ void zero() {
+// Halves v (2H entries) over lanes `o` apart: afterwards v[0..H) holds the
+// sums of the half that the lane's bit o selects (the upper one if set).
+template <int H>
+__device__ __forceinline__ void halve(float* v, int lane, int o) {
+  const bool up = lane & o;
 #pragma unroll
-    for (int i = 0; i < NW / 2; ++i) d[i] = 0.f;
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
   }
-  template <typename APtr>
-  __device__ void mma(APtr a_at, int lda, const bf16* /*B_kn*/, int /*ld_kn*/,
-                      const bf16* __restrict__ B_nk, int ld_nk, int K, bf16* ring) {
-    const int slices = K / KS;
-    const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
-    unsigned char* ring_b = reinterpret_cast<unsigned char*>(ring);
-    auto issue = [&](int slice) {
-      if (slice < slices) {
-        unsigned char* dst = ring_b + (slice % STAGES) * SLOT;
-        const bf16* src = B_nk + slice * KS;
-        for (int i = threadIdx.x; i < N * (KS / 8); i += THREADS) {
-          const int n = i / (KS / 8), kc = i % (KS / 8);
-          cp_async16(dst + (n >> 3) * (KS * 16) + kc * 128 + (n & 7) * 16,
-                     src + (int64_t)n * ld_nk + kc * 8);
-        }
-      }
-      cp_async_commit();  // an empty group past the end keeps the counts uniform
-    };
-    for (int i = 0; i < STAGES - 2; ++i) issue(i);
-    // this warp's 16 rows, ldmatrix x4 lane addresses: rows lane % 16, k + 8 (lane / 16)
-    const int a_row = (16 * ((threadIdx.x >> 5) & 3) + (lane & 15)) * lda + (lane >> 4) * 8;
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) fence_reg(d[i]);
-    // one slice; A registers alternate between two sets, since the wgmma of
-    // the previous slice may still read its set
-    auto step = [&](int slice, uint32_t (&af)[KS / 16][4]) {
-      // the wgmma of slice - 2 is done: its ring slot and A registers are free
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      cp_async_wait<STAGES - 3>();
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();  // every thread's part of the slice has landed
-      issue(slice + STAGES - 2);
-#pragma unroll
-      for (int kk = 0; kk < KS / 16; ++kk) {
-        const uint32_t addr =
-            (uint32_t)__cvta_generic_to_shared(a_at(slice * KS + kk * 16) + a_row);
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(af[kk][0]), "=r"(af[kk][1]), "=r"(af[kk][2]), "=r"(af[kk][3])
-                     : "r"(addr));
-      }
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      const unsigned char* w = ring_b + (slice % STAGES) * SLOT + wg * (NW / 8) * (KS * 16);
-#pragma unroll
-      for (int kk = 0; kk < KS / 16; ++kk) {
-        const uint64_t desc = smem_desc(w + kk * 256, 128, KS * 16);
-        if constexpr (NW == 64) wgmma_n64(d, af[kk], desc);
-        else wgmma_n128(d, af[kk], desc);
-      }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-#pragma unroll
-      for (int i = 0; i < NW / 2; ++i) fence_reg(d[i]);
-    };
-    uint32_t a0[KS / 16][4], a1[KS / 16][4];
-    for (int slice = 0; slice < slices; slice += 2) {
-      step(slice, a0);
-      if (slice + 1 < slices) step(slice + 1, a1);
-    }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) fence_reg(d[i]);
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free for the next product
+}
+
+// Groups of GS columns of a 64 x N accumulator tile. For GS >= 8 a column
+// block j lies in one group, the same for every lane; for GS = 4 it holds two
+// groups, and lane bit 1 says which of them the lane's columns are in.
+template <int N, int GS>
+struct TileGroups {
+  static constexpr int NG = N / GS;                  // groups of the tile
+  static constexpr int NE = GS >= 8 ? NG : N / 8;    // a thread's partial sums
+  __device__ static int group(int j, int lane) {
+    return GS >= 8 ? j * 8 / GS : 2 * j + ((lane >> 1) & 1);
   }
-  // columns c0 .. c0 + 127 of the tile into S (columns 0 .. 127). Lane
-  // 4 r + t of warp w holds rows 16 (w % 4) + r and + 8, and columns 8 j + 2 t
-  // and + 1 of its warpgroup's block, j = 0 .. NW / 8 - 1.
-  __device__ void store_cols(float* S, int lds, int c0) const {
-    const int lane = threadIdx.x & 31;
-    const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-    const int col0 = (threadIdx.x >> 7) * NW + 2 * (lane & 3) - c0;
-#pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const int col = col0 + 8 * j;
-      if (col < 0 || col >= 128) continue;
-      S[row * lds + col] = d[4 * j];
-      S[row * lds + col + 1] = d[4 * j + 1];
-      S[(row + 8) * lds + col] = d[4 * j + 2];
-      S[(row + 8) * lds + col + 1] = d[4 * j + 3];
-    }
-  }
+  __device__ static int entry(int j) { return GS >= 8 ? j * 8 / GS : j; }
 };
 
-// fp32: FMA, B read from global memory. Thread t owns rows 4 (t / 16) .. +3
-// and columns t % 16 + 16 j.
+// out[g] = scale * sum over the tile's valid rows and group g's columns of
+// f(x, g), for g < NG, summed over the warpgroup's 128 threads. v0 and v1:
+// whether the thread's two rows are valid. Two named-barrier waits; out is
+// read by the whole warpgroup after the second.
+template <int N, int GS, bool kRstd, typename F>
+__device__ __forceinline__ void tile_group_sum(const float* d, bool v0, bool v1, F f, float* red,
+                                               float* out, float scale, int bar) {
+  using TG = TileGroups<N, GS>;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  float v[TG::NE];
+#pragma unroll
+  for (int e = 0; e < TG::NE; ++e) v[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int g = TG::group(j, lane);
+    float s = 0.f;
+    if (v0) s += f(d[4 * j], g) + f(d[4 * j + 1], g);
+    if (v1) s += f(d[4 * j + 2], g) + f(d[4 * j + 3], g);
+    v[TG::entry(j)] += s;
+  }
+  int g;
+  if constexpr (GS == 8) {  // 32 entries, one group each, over all 32 lanes
+    static_assert(N == 256, "compress_1 tile");
+    halve<16>(v, lane, 16);
+    halve<8>(v, lane, 8);
+    halve<4>(v, lane, 4);
+    halve<2>(v, lane, 2);
+    halve<1>(v, lane, 1);
+    g = lane;
+  } else if constexpr (GS == 4) {  // 16 entries (j) over the lanes of one lane bit 1
+    static_assert(N == 128, "3x3 tile");
+    halve<8>(v, lane, 16);
+    halve<4>(v, lane, 8);
+    halve<2>(v, lane, 4);
+    halve<1>(v, lane, 1);
+    const int j = (lane >> 4 & 1) << 3 | (lane >> 3 & 1) << 2 | (lane >> 2 & 1) << 1 | (lane & 1);
+    g = 2 * j + ((lane >> 1) & 1);
+  } else {  // a compress_0 chunk: 4 groups over all 32 lanes
+    static_assert(N == 64 && GS == 16, "compress_0 chunk");
+    halve<2>(v, lane, 16);
+    halve<1>(v, lane, 8);
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 4);
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+    g = (lane >> 3) & 3;
+  }
+  if (TG::NG == 32 || (lane & 7) == 0) red[warp * 32 + g] = v[0];
+  wg_sync(bar);
+  const int t = threadIdx.x & 127;
+  if (t < TG::NG) {
+    const float s = (red[t] + red[32 + t] + red[64 + t] + red[96 + t]) * scale;
+    out[t] = kRstd ? 1.f / sqrtf(s + EPS) : s;
+  }
+  wg_sync(bar);
+}
+
+// GroupNorm statistics of the tile (mean, then the mean squared deviation):
+// st[128 + g] = mean, st[160 + g] = 1 / sqrt(var + eps); st[0..128) scratch.
+template <int N, int GS>
+__device__ __forceinline__ void tile_group_stats(const float* d, bool v0, bool v1, float* st,
+                                                 int bar) {
+  const float inv_n = 1.f / (float)(NPOS * GS);
+  float* mean = st + 128;
+  tile_group_sum<N, GS, false>(d, v0, v1, [](float x, int) { return x; }, st, mean, inv_n, bar);
+  tile_group_sum<N, GS, true>(
+      d, v0, v1,
+      [&](float x, int g) {
+        const float e = x - mean[g];
+        return e * e;
+      },
+      st, st + 160, inv_n, bar);
+}
+
+// bf16(leaky((x - mean) * rstd * gamma + beta)) of the tile's rows into
+// *dst(row, col) (two values), for the rows that w0 / w1 admit.
+template <int N, int GS, typename Dst>
+__device__ __forceinline__ void tile_gn_store(const float* d, const float* st,
+                                              const float* gamma, const float* beta, bool w0,
+                                              bool w1, Dst dst) {
+  using TG = TileGroups<N, GS>;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int g = TG::group(j, lane), col = 8 * j + 2 * (lane & 3);
+    const float m = st[128 + g], rs = st[160 + g];
+    const float2 ga = *reinterpret_cast<const float2*>(gamma + col);
+    const float2 be = *reinterpret_cast<const float2*>(beta + col);
+    const float ga0 = ga.x, ga1 = ga.y, be0 = be.x, be1 = be.y;
+    if (w0)
+      *dst(r0, col) = __floats2bfloat162_rn(leaky((d[4 * j] - m) * rs * ga0 + be0),
+                                            leaky((d[4 * j + 1] - m) * rs * ga1 + be1));
+    if (w1)
+      *dst(r0 + 8, col) = __floats2bfloat162_rn(leaky((d[4 * j + 2] - m) * rs * ga0 + be0),
+                                                leaky((d[4 * j + 3] - m) * rs * ga1 + be1));
+  }
+}
+
+// d (64 x N) += A @ B over the next NSL slices of the ring. Slice i holds a
+// KD x N tile of B in wgmma core matrices; A's columns i KD .. come from
+// shared memory, a_addr(k) = this lane's ldmatrix address at column k. Waits
+// for each slice on its full barrier, and releases it (lane 0 of each warp
+// arrives on its empty barrier) once its products are done.
+template <int N, int KD, int NSL, typename AAddr>
+__device__ __forceinline__ void front_product(float* d, AAddr a_addr, int& slice,
+                                              const unsigned char* ring, uint64_t* full,
+                                              uint64_t* empty) {
+  constexpr int KK = KD / 16;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) fence_reg(d[i]);
+  // A registers alternate between two sets: the products of the previous
+  // slice may still read its set
+  auto step = [&](int i, uint32_t (&a)[KK][4]) {
+    const int stage = slice % STAGES;
+    mbar_wait(&full[stage], (slice / STAGES) & 1);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) ldmatrix_x4(a[kk], a_addr(i * KD + kk * 16));
+    wgmma_fence();
+    const unsigned char* w = ring + stage * SLOT;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) wgmma_rs<N>(d, a[kk], smem_desc(w + kk * 256, 128, KD * 16));
+    wgmma_commit();
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) fence_reg(d[e]);
+    wgmma_wait<1>();  // the previous slice's products are done: release it
+    if (i > 0 && lane == 0) mbar_arrive(&empty[(slice + STAGES - 1) % STAGES]);
+    ++slice;
+  };
+  uint32_t a0[KK][4], a1[KK][4];
+#pragma unroll 1
+  for (int i = 0; i < NSL; i += 2) {
+    step(i, a0);
+    step(i + 1, a1);
+  }
+  if constexpr (NSL > 0) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) fence_reg(d[e]);
+    if (lane == 0) mbar_arrive(&empty[(slice + STAGES - 1) % STAGES]);
+  }
+}
+
+// The producer's slice s: compress_0 chunk by chunk (its S0 slices, then the
+// S1 slices of compress_1 that the chunk feeds), then the 3x3 conv's.
+__device__ __forceinline__ const unsigned char* slice_source(const HeadArgs& args, int s) {
+  constexpr int PER_CHUNK = S0 + S1;
+  if (s < NCHUNK * PER_CHUNK) {
+    const int chunk = s / PER_CHUNK, i = s % PER_CHUNK;
+    return i < S0
+        ? static_cast<const unsigned char*>(args.c0aT) + (int64_t)(chunk * S0 + i) * SLOT
+        : static_cast<const unsigned char*>(args.c1T) + (int64_t)(chunk * S1 + i - S0) * SLOT;
+  }
+  return static_cast<const unsigned char*>(args.agT) + (int64_t)(s - NCHUNK * PER_CHUNK) * SLOT;
+}
+
+// One consumer warpgroup: ROI r's whole front, from its input tile to its
+// row of `a`.
+__device__ __forceinline__ void front_consumer(const HeadArgs& args, unsigned char* smem,
+                                               const unsigned char* ring, uint64_t* full,
+                                               uint64_t* empty, uint64_t* xbar,
+                                               uint64_t* pbar) {
+  const int g = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int bar = 1 + g;
+  const int r_raw = blockIdx.x * G + g;
+  const bool live = r_raw < args.rois;           // a last group may be partial
+  const int r = live ? r_raw : args.rois - 1;    // ... and then repeats the last ROI unstored
+  const int img = r / args.per_image;
+  unsigned char* xh = smem + g * ROI_BYTES;      // X, then H, then the output tile
+  bf16* X = reinterpret_cast<bf16*>(xh);
+  bf16* D = reinterpret_cast<bf16*>(xh + XH_BYTES);
+  float* st = reinterpret_cast<float*>(smem + OFF_STATS) + g * STATS_FLOATS;
+  const int r0 = 16 * warp + (lane >> 2);        // the thread's accumulator rows r0, r0 + 8
+  // this lane's ldmatrix row and column half, as a byte offset at stride ld
+  const int a_row = 16 * warp + (lane & 15), a_half = (lane >> 4) * 16;
+
+  const float* P = reinterpret_cast<const float*>(smem + OFF_PARAMS);
+  // X: the producer copies the ROI's 49 rows; rows 49..63 are zero
+  for (int i = t; i < (ROWS - NPOS) * (C / 8); i += 128)
+    *reinterpret_cast<uint4*>(xh + (NPOS + (i >> 5)) * LDX * 2 + (i & 31) * 16) =
+        make_uint4(0, 0, 0, 0);
+  mbar_wait(&xbar[g], 0);
+  mbar_wait(pbar, 0);
+  wg_sync(bar);
+
+  int slice = 0;
+  float h1[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) h1[i] = 0.f;
+  const bf16* yb = static_cast<const bf16*>(args.yb) + (int64_t)img * NPOS * C2;
+  const uint32_t x_lane = smem_u32(xh) + a_row * LDX * 2 + a_half;
+  const uint32_t d_lane = smem_u32(D) + a_row * LDD * 2 + a_half;
+#pragma unroll 1
+  for (int chunk = 0; chunk < NCHUNK; ++chunk) {
+    float h0[CH / 2];
+#pragma unroll
+    for (int i = 0; i < CH / 2; ++i) h0[i] = 0.f;
+    front_product<CH, KD0, S0>(h0, [&](int k) { return x_lane + 2 * k; }, slice, ring, full,
+                               empty);
+    // + the support half, GN0, leaky -> D
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j) {
+      const int col = chunk * CH + 8 * j + 2 * (lane & 3);
+      if (r0 < NPOS) {
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(yb + r0 * C2 + col));
+        h0[4 * j] += y.x;
+        h0[4 * j + 1] += y.y;
+      }
+      if (r0 + 8 < NPOS) {
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(yb + (r0 + 8) * C2 + col));
+        h0[4 * j + 2] += y.x;
+        h0[4 * j + 3] += y.y;
+      }
+    }
+    // (its barriers also order the previous chunk's reads of D before the writes)
+    tile_group_stats<CH, 16>(h0, r0 < NPOS, r0 + 8 < NPOS, st, bar);
+    tile_gn_store<CH, 16>(h0, st, P + P_GN0G + chunk * CH, P + P_GN0B + chunk * CH, true, true,
+                          [&](int row, int col) {
+                            return reinterpret_cast<__nv_bfloat162*>(D + row * LDD + col);
+                          });
+    wg_sync(bar);
+    front_product<C, KD1, S1>(h1, [&](int k) { return d_lane + 2 * k; }, slice, ring, full,
+                              empty);
+  }
+
+  // compress_1: + bias, GN1, leaky into the 9x9 grid H (over X, read to the end)
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 b = *reinterpret_cast<const float2*>(P + P_C1B + col);
+    const float b0 = b.x, b1 = b.y;
+    h1[4 * j] += b0;
+    h1[4 * j + 1] += b1;
+    h1[4 * j + 2] += b0;
+    h1[4 * j + 3] += b1;
+  }
+  tile_group_stats<C, C / 32>(h1, r0 < NPOS, r0 + 8 < NPOS, st, bar);
+  bf16* H = X;
+  // zero border: grid rows of y = 0 or 8 or x = 0 or 8, and rows 81..83
+  for (int i = t; i < 35 * (C / 8); i += 128) {
+    const int k = i >> 5;
+    const int row = k < 9 ? k : k < 18 ? 63 + k : k < 25 ? (k - 17) * 9 : k < 32 ? (k - 24) * 9 + 8
+                                                                                  : 49 + k;
+    *reinterpret_cast<uint4*>(xh + row * LDX * 2 + (i & 31) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  tile_gn_store<C, C / 32>(h1, st, P + P_GN1G, P + P_GN1B, r0 < NPOS, r0 + 8 < NPOS,
+                           [&](int p, int col) {
+                             return reinterpret_cast<__nv_bfloat162*>(
+                                 H + ((p / 7) * 9 + p % 7 + 10) * LDX + col);
+                           });
+  wg_sync(bar);
+
+  // 3x3 conv C -> C/2 over output grid rows 10..73 as one product of depth
+  // 9 C: tap (ky, kx) = k / C reads grid row m + 10 + 9 (ky - 1) + (kx - 1)
+  float acc[CA / 2];
+#pragma unroll
+  for (int i = 0; i < CA / 2; ++i) acc[i] = 0.f;
+  {
+    const uint32_t h_lane = smem_u32(H) + (a_row + 10) * LDX * 2 + a_half;
+    front_product<CA, KDA, SA>(acc,
+                               [&](int k) {
+                                 const int tap = k >> 8;
+                                 return h_lane + (9 * (tap / 3 - 1) + tap % 3 - 1) * LDX * 2 +
+                                        2 * (k & (C - 1));
+                               },
+                               slice, ring, full, empty);
+  }
+#pragma unroll
+  for (int j = 0; j < CA / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 b = *reinterpret_cast<const float2*>(P + P_AGB + col);
+    const float b0 = b.x, b1 = b.y;
+    acc[4 * j] += b0;
+    acc[4 * j + 1] += b1;
+    acc[4 * j + 2] += b0;
+    acc[4 * j + 3] += b1;
+  }
+  // output tile row m is position (m / 9, m % 9) where m % 9 < 7
+  const bool c0 = r0 < 63 && r0 % 9 < 7, c1 = r0 + 8 < 63 && (r0 + 8) % 9 < 7;
+  tile_group_stats<CA, CA / 32>(acc, c0, c1, st, bar);  // H is read to the end
+  bf16* O = X;
+  tile_gn_store<CA, CA / 32>(acc, st, P + P_GNG, P + P_GNB, c0, c1, [&](int m, int col) {
+    return reinterpret_cast<__nv_bfloat162*>(O + ((m / 9) * 7 + m % 9) * LDO + col);
+  });
+  wg_sync(bar);
+  if (live) {  // into fc6's A, tiled (a_tile_offset); k = 128 p + c
+    bf16* dst = static_cast<bf16*>(args.a);
+    for (int i = t; i < NPOS * (CA / 8); i += 128)
+      *reinterpret_cast<uint4*>(dst + a_tile_offset(r, 8 * i, NPOS * CA / GBK)) =
+          *reinterpret_cast<const uint4*>(xh + (i >> 4) * LDO * 2 + (i & 15) * 16);
+  }
+}
+
+__global__ void __launch_bounds__(FRONT_THREADS, 1) head_front_bf16(const HeadArgs args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem + OFF_RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* xbar = empty + STAGES;  // consumer g's input rows have landed
+  uint64_t* pbar = xbar + G;        // the parameters have landed
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * G);
+    }
+    for (int i = 0; i < G; ++i) mbar_init(&xbar[i], 1);
+    mbar_init(pbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * G) {  // the producer: warp 4 G
+    setmaxnreg_dec<40>();
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x - 128 * G >= 32) return;
+    float* params = reinterpret_cast<float*>(smem + OFF_PARAMS);
+    if (lane == 0) {
+      mbar_expect_tx(pbar, PARAM_FLOATS * 4);
+      bulk_load(params + P_GN0G, args.gn0g, C2 * 4, pbar);
+      bulk_load(params + P_GN0B, args.gn0b, C2 * 4, pbar);
+      bulk_load(params + P_GN1G, args.gn1g, C * 4, pbar);
+      bulk_load(params + P_GN1B, args.gn1b, C * 4, pbar);
+      bulk_load(params + P_C1B, args.c1b, C * 4, pbar);
+      bulk_load(params + P_GNG, args.gng, CA * 4, pbar);
+      bulk_load(params + P_GNB, args.gnb, CA * 4, pbar);
+      bulk_load(params + P_AGB, args.agb, CA * 4, pbar);
+      for (int g = 0; g < G; ++g) mbar_expect_tx(&xbar[g], NPOS * C * 2);
+    }
+    __syncwarp();
+    // each consumer's 49 input rows, one copy per row (the last group may be
+    // partial: its absent ROIs repeat the last one, unstored)
+    for (int i = lane; i < G * NPOS; i += 32) {
+      const int g = i / NPOS, row = i % NPOS;
+      const int r = min((int)blockIdx.x * G + g, args.rois - 1);
+      bulk_load(smem + g * ROI_BYTES + row * LDX * 2,
+                static_cast<const bf16*>(args.x) + ((int64_t)r * NPOS + row) * C, C * 2,
+                &xbar[g]);
+    }
+    if (lane == 0) {
+      for (int s = 0; s < SLICES; ++s) {
+        const int stage = s % STAGES;
+        if (s >= STAGES) mbar_wait(&empty[stage], (s / STAGES - 1) & 1);
+        const unsigned char* src = slice_source(args, s);
+        mbar_expect_tx(&full[stage], SLOT);
+        bulk_load(ring + stage * SLOT, src, SLOT, &full[stage]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    front_consumer(args, smem, ring, full, empty, xbar, pbar);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 fc6 / fc7: out[M, N] = bf16(relu(A[M, K] @ B[K, N] + bias)), B
+// pre-tiled (GBK x GBN tiles in core-matrix order, column-block major), A in
+// the tiled layout of a_tile_offset, out tiled so too (fc6, whose output is
+// fc7's A) or row-major (fc7). Persistent blocks walk the 128 x 256 output
+// tiles, row-block major; each stage is two bulk copies, A's 16 KB and B's
+// 32 KB.
+
+constexpr int GEMM_THREADS = 384;
+constexpr int GA_BYTES = GBM * GBK * 2;
+constexpr int GB_BYTES = GBN * GBK * 2;
+constexpr int GSTAGE = GA_BYTES + GB_BYTES;
+constexpr int GSTAGES = 4;
+constexpr int GEMM_BYTES = GSTAGES * GSTAGE + 2 * GSTAGES * 8;
+static_assert(GEMM_BYTES <= 232448, "fc GEMM exceeds shared memory");
+
+template <bool kTiledOut>
+__global__ void __launch_bounds__(GEMM_THREADS, 1) fc_gemm_bf16(
+    const bf16* __restrict__ A, const bf16* __restrict__ Bt, const float* __restrict__ bias,
+    bf16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GSTAGES * GSTAGE);
+  uint64_t* empty = full + GSTAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < GSTAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles_n = N / GBN, ksteps = K / GBK;
+  const int tiles = (M + GBM - 1) / GBM * tiles_n;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 256) {  // the producer: one thread of warp 8
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int mb = tile / tiles_n, nb = tile % tiles_n;
+        for (int kb = 0; kb < ksteps; ++kb, ++it) {
+          const int stage = it % GSTAGES;
+          if (it >= GSTAGES) mbar_wait(&empty[stage], (it / GSTAGES - 1) & 1);
+          unsigned char* sa = smem + stage * GSTAGE;
+          mbar_expect_tx(&full[stage], GSTAGE);
+          bulk_load(sa, A + ((int64_t)mb * ksteps + kb) * GBM * GBK, GA_BYTES, &full[stage]);
+          bulk_load(sa + GA_BYTES, Bt + ((int64_t)nb * ksteps + kb) * GBN * GBK, GB_BYTES,
+                    &full[stage]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+    // ldmatrix row of this lane and its 16-byte chunk (lane / 16) before the swizzle
+    const int a_row = 64 * wg + 16 * warp + (lane & 15), a_chunk = lane >> 4;
+    float acc[GBN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * GBM, n0 = tile % tiles_n * GBN;
+#pragma unroll
+      for (int i = 0; i < GBN / 2; ++i) {
+        acc[i] = 0.f;
+        fence_reg(acc[i]);
+      }
+      auto step = [&](int kb, uint32_t (&a)[GBK / 16][4]) {
+        const int stage = it % GSTAGES;
+        mbar_wait(&full[stage], (it / GSTAGES) & 1);
+        const unsigned char* sa = smem + stage * GSTAGE;
+        const uint32_t a_lane = smem_u32(sa) + a_row * GBK * 2;
+#pragma unroll
+        for (int kk = 0; kk < GBK / 16; ++kk)
+          ldmatrix_x4(a[kk], a_lane + (((2 * kk + a_chunk) ^ (a_row & 7)) << 4));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < GBK / 16; ++kk)
+          wgmma_rs<GBN>(acc, a[kk], smem_desc(sa + GA_BYTES + kk * 256, 128, GBK * 16));
+        wgmma_commit();
+#pragma unroll
+        for (int e = 0; e < GBN / 2; ++e) fence_reg(acc[e]);
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[(it + GSTAGES - 1) % GSTAGES]);
+        ++it;
+      };
+      uint32_t a0[GBK / 16][4], a1[GBK / 16][4];
+#pragma unroll 1
+      for (int kb = 0; kb < ksteps; kb += 2) {  // ksteps is even
+        step(kb, a0);
+        step(kb + 1, a1);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < GBN / 2; ++e) fence_reg(acc[e]);
+      if (lane == 0) mbar_arrive(&empty[(it + GSTAGES - 1) % GSTAGES]);
+      // epilogue: + bias, ReLU, bf16 (the producer already fills the next tile's
+      // stages). Column block j of the thread's rows `row` and `row + 8`: in
+      // the tiled layout, GBK-column block n0 / GBK + j / 8, 16-byte chunk j % 8
+      // (rows 8 apart share the swizzle)
+      const int row = m0 + 64 * wg + 16 * warp + (lane >> 2);
+      bf16* base = kTiledOut ? out + a_tile_offset(row, n0, N / GBK) - ((row & 7) << 3)
+                             : out + (int64_t)row * N + n0;
+      const int stride8 = kTiledOut ? 8 * GBK : 8 * N;   // row + 8
+#pragma unroll
+      for (int j = 0; j < GBN / 8; ++j) {
+        const int c = 8 * j + 2 * (lane & 3);
+        const float2 b = *reinterpret_cast<const float2*>(bias + n0 + c);
+        bf16* p = base + (kTiledOut ? (j / 8) * GBM * GBK + (((j % 8) ^ (row & 7)) << 3) +
+                                          2 * (lane & 3)
+                                    : c);
+        if (kTiledOut || row < M)
+          *reinterpret_cast<__nv_bfloat162*>(p) =
+              __floats2bfloat162_rn(fmaxf(acc[4 * j] + b.x, 0.f), fmaxf(acc[4 * j + 1] + b.y, 0.f));
+        if (kTiledOut || row + 8 < M)
+          *reinterpret_cast<__nv_bfloat162*>(p + stride8) =
+              __floats2bfloat162_rn(fmaxf(acc[4 * j + 2] + b.x, 0.f),
+                                    fmaxf(acc[4 * j + 3] + b.y, 0.f));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 head_front: one block of 256 threads per ROI, FMA products on weights
+// read from global memory, GroupNorm through a float32 staging tile S.
+
+constexpr int F_THREADS = 256;
+constexpr int F_CHUNK = 128;        // compress_0 columns per pass
+constexpr int F_LDX = C + 8;        // X, and H (the 9x9 grid) over it
+constexpr int F_LDS = F_CHUNK + 8;  // S: 64 x 128 float32 staging, normalized in place
+constexpr int F_OFF_S = (GRID_ROWS * F_LDX * 4 + 127) / 128 * 128;
+constexpr int F_BYTES = F_OFF_S + ROWS * F_LDS * 4;
+static_assert(F_BYTES <= 232448 - 1024, "fp32 head_front exceeds shared memory");
+
+// A 64 x N float32 accumulator tile over the block's 256 threads: thread t
+// owns rows 4 (t / 16) .. +3 and columns t % 16 + 16 j. acc += A (64 x K in
+// shared memory; a_at(k) points at row 0, column k; row stride lda) @ B
+// (K x N, row-major, global memory).
 template <int N>
-struct Acc<float, N> {
+struct AccF32 {
   static constexpr int NJ = N / 16;
   float v[4][NJ];
 
@@ -297,8 +866,7 @@ struct Acc<float, N> {
       for (int j = 0; j < NJ; ++j) v[i][j] = 0.f;
   }
   template <typename APtr>
-  __device__ void mma(APtr a_at, int lda, const float* __restrict__ B, int ldb,
-                      const float* /*B_nk*/, int /*ld_nk*/, int K, float* /*ring*/) {
+  __device__ void mma(APtr a_at, int lda, const float* __restrict__ B, int ldb, int K) {
     const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
     for (int k = 0; k < K; ++k) {
       const float* a_rows = a_at(k) + ty * 4 * lda;
@@ -346,7 +914,7 @@ __device__ void group_stats(const float* S, int lds, RowOf row_of, float* mean_s
                             float* rstd_s) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int n = NPOS * GS;
-  for (int g = warp; g < NCOLS / GS; g += THREADS / 32) {
+  for (int g = warp; g < NCOLS / GS; g += F_THREADS / 32) {
     const float* col = S + g * GS;
     float sum = 0.f;
     for (int i = lane; i < n; i += 32) sum += col[row_of(i / GS) * lds + i % GS];
@@ -359,147 +927,99 @@ __device__ void group_stats(const float* S, int lds, RowOf row_of, float* mean_s
     const float var = warp_sum(sq) / (float)n;
     if (lane == 0) {
       mean_s[g] = mean;
-      rstd_s[g] = 1.f / sqrtf(var + 1e-5f);
+      rstd_s[g] = 1.f / sqrtf(var + EPS);
     }
   }
 }
 
-// dst[dst_row(p)][c] = T(leaky((S[src_row(p)][c] - mean) * rstd * gamma + beta))
-template <int NCOLS, int GS, typename T, typename SrcRow, typename DstRow>
+// dst[dst_row(p)][c] = leaky((S[src_row(p)][c] - mean) * rstd * gamma + beta)
+template <int NCOLS, int GS, typename SrcRow, typename DstRow>
 __device__ void gn_leaky_store(const float* S, int lds, SrcRow src_row,
                                const float* __restrict__ gamma, const float* __restrict__ beta,
-                               const float* mean_s, const float* rstd_s, T* dst, int ldd,
+                               const float* mean_s, const float* rstd_s, float* dst, int ldd,
                                DstRow dst_row) {
-  for (int i = threadIdx.x; i < NPOS * NCOLS; i += THREADS) {
+  for (int i = threadIdx.x; i < NPOS * NCOLS; i += F_THREADS) {
     const int p = i / NCOLS, c = i % NCOLS, g = c / GS;
-    float v = (S[src_row(p) * lds + c] - mean_s[g]) * rstd_s[g] * gamma[c] + beta[c];
-    v = v >= 0.f ? v : v * 0.2f;
-    dst[(int64_t)dst_row(p) * ldd + c] = from_f<T>(v);
+    dst[(int64_t)dst_row(p) * ldd + c] =
+        leaky((S[src_row(p) * lds + c] - mean_s[g]) * rstd_s[g] * gamma[c] + beta[c]);
   }
 }
 
-// Mirrors `struct HeadArgs` in oneshotdet_tpu_torch/ops/roi_head_fused.py.
-struct HeadArgs {
-  const void* x;      // (R, 7, 7, C) T
-  const void* yb;     // (B, 49, 2C) T: support half of compress_0 plus its bias
-  const void* c0a;    // (C, 2C) T: query half of compress_0
-  const void* c0aT;   // (2C, C) T: its transpose
-  const float* gn0g;
-  const float* gn0b;
-  const void* c1;     // (2C, C) T
-  const void* c1T;    // (C, 2C) T
-  const float* c1b;
-  const float* gn1g;
-  const float* gn1b;
-  const void* ag;     // (9, C, C/2) T, taps in (ky, kx) order
-  const void* agT;    // (C/2, 9 C) T: agT[n][C tap + c] = ag[tap][c][n]
-  const float* agb;
-  const float* gng;
-  const float* gnb;
-  const void* fc6;    // (49 C/2, hidden) T, rows in (p, q, c) order
-  const float* fc6b;
-  const void* fc7;    // (hidden, hidden) T
-  const float* fc7b;
-  const void* pred;   // (hidden, ncls + nreg4) T: cls_score | bbox_pred
-  const float* predb;
-  void* a;            // scratch (R, 49 C/2) T
-  void* f6;           // scratch (R, hidden) T
-  void* f7;           // scratch (R, hidden) T
-  float* logits;      // (R, ncls)
-  float* deltas;      // (R, nreg4)
-  int rois;
-  int per_image;
-  int hidden;
-  int ncls;
-  int nreg4;
-  int dtype;          // 0 = float32, 1 = bfloat16
-};
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) head_front_kernel(HeadArgs args) {
+__global__ void __launch_bounds__(F_THREADS, 1) head_front_f32(HeadArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = Layout<T>;
-  T* X = reinterpret_cast<T*>(smem);
-  T* H = reinterpret_cast<T*>(smem);  // aliases X, written once X is no longer read
-  float* S = reinterpret_cast<float*>(smem + L::OFF_S);
-  T* D = reinterpret_cast<T*>(smem + L::OFF_D);
-  T* ring = reinterpret_cast<T*>(smem + L::OFF_R);
+  float* X = reinterpret_cast<float*>(smem);
+  float* H = X;  // written once X is no longer read
+  float* S = reinterpret_cast<float*>(smem + F_OFF_S);
   __shared__ float mean_s[32], rstd_s[32];
 
   const int tid = threadIdx.x;
   const int r = blockIdx.x;
   const int img = r / args.per_image;
-  const T* c0a = static_cast<const T*>(args.c0a);
-  const T* c0aT = static_cast<const T*>(args.c0aT);
-  const T* c1 = static_cast<const T*>(args.c1);
-  const T* c1T = static_cast<const T*>(args.c1T);
-  const T* ag = static_cast<const T*>(args.ag);
-  const T* agT = static_cast<const T*>(args.agT);
+  const float* c0a = static_cast<const float*>(args.c0a);
+  const float* c1 = static_cast<const float*>(args.c1);
+  const float* ag = static_cast<const float*>(args.ag);
 
   // X <- the ROI's 49 rows (rows 49..63 zero)
   {
-    constexpr int VPR = C * (int)sizeof(T) / 16;  // 16-byte vectors per row
-    const uint4* src = reinterpret_cast<const uint4*>(static_cast<const T*>(args.x) +
-                                                      (int64_t)r * NPOS * C);
-    for (int i = tid; i < ROWS * VPR; i += THREADS) {
+    constexpr int VPR = C * 4 / 16;  // 16-byte vectors per row
+    const uint4* src =
+        reinterpret_cast<const uint4*>(static_cast<const float*>(args.x) + (int64_t)r * NPOS * C);
+    for (int i = tid; i < ROWS * VPR; i += F_THREADS) {
       const int row = i / VPR, v = i - row * VPR;
       const uint4 val = row < NPOS ? src[row * VPR + v] : make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(X) +
-                                row * LDX * (int)sizeof(T) + v * 16) = val;
+      *reinterpret_cast<uint4*>(smem + row * F_LDX * 4 + v * 16) = val;
     }
   }
   __syncthreads();
 
-  // compress_0 by 128-column chunks, each normalized and fed to compress_1
-  Acc<T, C> h1;
+  // compress_0 by 128-column chunks, each normalized (in S) and fed to compress_1
+  AccF32<C> h1;
   h1.zero();
-  const T* yb = static_cast<const T*>(args.yb) + (int64_t)img * NPOS * C2;
-  for (int chunk = 0; chunk < C2 / CHUNK; ++chunk) {
+  const float* yb = static_cast<const float*>(args.yb) + (int64_t)img * NPOS * C2;
+  for (int chunk = 0; chunk < C2 / F_CHUNK; ++chunk) {
     {
-      Acc<T, CHUNK> h0;
+      AccF32<F_CHUNK> h0;
       h0.zero();
-      h0.mma([&](int k) { return X + k; }, LDX, c0a + chunk * CHUNK, C2,
-             c0aT + (int64_t)chunk * CHUNK * C, C, C, ring);
-      h0.store_cols(S, LDS, 0);
+      h0.mma([&](int k) { return X + k; }, F_LDX, c0a + chunk * F_CHUNK, C2, C);
+      h0.store_cols(S, F_LDS, 0);
     }
     __syncthreads();
-    for (int i = tid; i < NPOS * CHUNK; i += THREADS) {
-      const int p = i / CHUNK, c = i - p * CHUNK;
-      S[p * LDS + c] += to_f(yb[p * C2 + chunk * CHUNK + c]);
+    for (int i = tid; i < NPOS * F_CHUNK; i += F_THREADS) {
+      const int p = i / F_CHUNK, c = i - p * F_CHUNK;
+      S[p * F_LDS + c] += yb[p * C2 + chunk * F_CHUNK + c];
     }
     __syncthreads();
-    group_stats<CHUNK, 16>(S, LDS, CompactRow(), mean_s, rstd_s);
+    group_stats<F_CHUNK, 16>(S, F_LDS, CompactRow(), mean_s, rstd_s);
     __syncthreads();
-    gn_leaky_store<CHUNK, 16>(S, LDS, CompactRow(), args.gn0g + chunk * CHUNK,
-                              args.gn0b + chunk * CHUNK, mean_s, rstd_s, D, L::LDD,
-                              CompactRow());
-    for (int i = tid; i < (ROWS - NPOS) * CHUNK; i += THREADS)
-      D[(NPOS + i / CHUNK) * L::LDD + i % CHUNK] = from_f<T>(0.f);
+    gn_leaky_store<F_CHUNK, 16>(S, F_LDS, CompactRow(), args.gn0g + chunk * F_CHUNK,
+                                args.gn0b + chunk * F_CHUNK, mean_s, rstd_s, S, F_LDS,
+                                CompactRow());
+    for (int i = tid; i < (ROWS - NPOS) * F_CHUNK; i += F_THREADS)
+      S[(NPOS + i / F_CHUNK) * F_LDS + i % F_CHUNK] = 0.f;
     __syncthreads();
-    h1.mma([&](int k) { return D + k; }, L::LDD, c1 + (int64_t)chunk * CHUNK * C, C,
-           c1T + chunk * CHUNK, C2, CHUNK, ring);
-    __syncthreads();  // D (fp32: S) is read to the end before it is written again
+    h1.mma([&](int k) { return S + k; }, F_LDS, c1 + (int64_t)chunk * F_CHUNK * C, C, F_CHUNK);
+    __syncthreads();  // S is read to the end before it is written again
   }
 
   // compress_1, by halves of 128 columns (whole GN1 groups): + bias, GN1,
   // leaky, into the zero-bordered 9x9 grid H
   {
     uint4* h = reinterpret_cast<uint4*>(H);
-    for (int i = tid; i < GRID_ROWS * LDH * (int)sizeof(T) / 16; i += THREADS)
+    for (int i = tid; i < GRID_ROWS * F_LDX * 4 / 16; i += F_THREADS)
       h[i] = make_uint4(0, 0, 0, 0);
   }
   for (int half = 0; half < 2; ++half) {
-    h1.store_cols(S, LDS, half * 128);
+    h1.store_cols(S, F_LDS, half * 128);
     __syncthreads();
-    for (int i = tid; i < NPOS * 128; i += THREADS) {
+    for (int i = tid; i < NPOS * 128; i += F_THREADS) {
       const int p = i / 128, c = i % 128;
-      S[p * LDS + c] += args.c1b[half * 128 + c];
+      S[p * F_LDS + c] += args.c1b[half * 128 + c];
     }
     __syncthreads();
-    group_stats<128, C / 32>(S, LDS, CompactRow(), mean_s, rstd_s);
+    group_stats<128, C / 32>(S, F_LDS, CompactRow(), mean_s, rstd_s);
     __syncthreads();
-    gn_leaky_store<128, C / 32>(S, LDS, CompactRow(), args.gn1g + half * 128,
-                                args.gn1b + half * 128, mean_s, rstd_s, H + half * 128, LDH,
+    gn_leaky_store<128, C / 32>(S, F_LDS, CompactRow(), args.gn1g + half * 128,
+                                args.gn1b + half * 128, mean_s, rstd_s, H + half * 128, F_LDX,
                                 GridRow());
     __syncthreads();
   }
@@ -507,121 +1027,33 @@ __global__ void __launch_bounds__(THREADS, 1) head_front_kernel(HeadArgs args) {
   // 3x3 conv C -> C/2 over output grid rows 10..73 as one product of depth
   // 9 C: tap (ky, kx) = k / C reads grid row m + 9 (ky - 1) + (kx - 1)
   {
-    Acc<T, CA> acc;
+    AccF32<CA> acc;
     acc.zero();
     acc.mma([&](int k) {
               const int tap = k / C;
-              return H + (10 + 9 * (tap / 3 - 1) + tap % 3 - 1) * LDH + k % C;
+              return H + (10 + 9 * (tap / 3 - 1) + tap % 3 - 1) * F_LDX + k % C;
             },
-            LDH, ag, CA, agT, 9 * C, 9 * C, ring);
-    acc.store_cols(S, LDS, 0);
+            F_LDX, ag, CA, 9 * C);
+    acc.store_cols(S, F_LDS, 0);
   }
   __syncthreads();
-  for (int i = tid; i < NPOS * CA; i += THREADS) {
+  for (int i = tid; i < NPOS * CA; i += F_THREADS) {
     const int p = i / CA, c = i - p * CA;
-    S[ConvOutRow()(p) * LDS + c] += args.agb[c];
+    S[ConvOutRow()(p) * F_LDS + c] += args.agb[c];
   }
   __syncthreads();
-  group_stats<CA, CA / 32>(S, LDS, ConvOutRow(), mean_s, rstd_s);
+  group_stats<CA, CA / 32>(S, F_LDS, ConvOutRow(), mean_s, rstd_s);
   __syncthreads();
-  gn_leaky_store<CA, CA / 32>(S, LDS, ConvOutRow(), args.gng, args.gnb, mean_s, rstd_s,
-                              static_cast<T*>(args.a) + (int64_t)r * NPOS * CA, CA,
+  gn_leaky_store<CA, CA / 32>(S, F_LDS, ConvOutRow(), args.gng, args.gnb, mean_s, rstd_s,
+                              static_cast<float*>(args.a) + (int64_t)r * NPOS * CA, CA,
                               CompactRow());
-}
-
-// out[M, N] = bf16(relu(A[M, K] @ B[K, N] + bias)), row-major; N % 128 == 0,
-// K % 32 == 0. 128 x 128 block tile, 8 warps of 64 x 32, the next K-slice
-// loaded into registers while the current one is multiplied.
-constexpr int GBM = 128, GBN = 128, GBK = 32;
-
-__global__ void __launch_bounds__(THREADS) gemm_bias_relu_bf16(
-    const bf16* __restrict__ A, const bf16* __restrict__ B, const float* __restrict__ bias,
-    bf16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(128) bf16 As[GBM][GBK + 8];
-  __shared__ __align__(128) bf16 Bs[GBK][GBN + 8];
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  uint4 ra[2], rb[2];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int gm = m0 + tid / 4 + 64 * i;
-      ra[i] = gm < M ? *reinterpret_cast<const uint4*>(A + (int64_t)gm * K + k0 + (tid % 4) * 8)
-                     : make_uint4(0, 0, 0, 0);
-      rb[i] = *reinterpret_cast<const uint4*>(B + (int64_t)(k0 + tid / 16 + 16 * i) * N + n0 +
-                                              (tid % 16) * 8);
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(&As[tid / 4 + 64 * i][(tid % 4) * 8]) = ra[i];
-      *reinterpret_cast<uint4*>(&Bs[tid / 16 + 16 * i][(tid % 16) * 8]) = rb[i];
-    }
-  };
-
-  load(0);
-  stash();
-  __syncthreads();
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-    const bool more = k0 + GBK < K;
-    if (more) load(k0 + GBK);
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(a[i], &As[wm * 64 + i * 16][kk], GBK + 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wn * 32 + j * 16], GBN + 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      stash();
-      __syncthreads();
-    }
-  }
-
-  // epilogue through a per-warp 16 x 16 tile: + bias, relu, 8 bf16 per lane
-  const int row = lane >> 1, c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(Cs[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * 64 + i * 16 + row;
-      const int gn = n0 + wn * 32 + j * 16 + c8;
-      if (gm < M) {
-        __align__(16) bf16 v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = __float2bfloat16_rn(fmaxf(Cs[warp][row * 16 + c8 + e] + bias[gn + e], 0.f));
-        *reinterpret_cast<uint4*>(out + (int64_t)gm * N + gn) = *reinterpret_cast<uint4*>(v);
-      }
-      __syncwarp();
-    }
-  }
 }
 
 // out[M, N] = relu(A[M, K] @ B[K, N] + bias) in fp32 FMA; N % 64 == 0,
 // K % 16 == 0. 64 x 64 block tile, 4 x 4 outputs per thread.
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 
-__global__ void __launch_bounds__(THREADS) gemm_bias_relu_f32(
+__global__ void __launch_bounds__(F_THREADS) gemm_bias_relu_f32(
     const float* __restrict__ A, const float* __restrict__ B, const float* __restrict__ bias,
     float* __restrict__ out, int M, int N, int K) {
   __shared__ float As[FBK][FBM + 4];  // transposed: As[k][m]
@@ -674,9 +1106,9 @@ __global__ void __launch_bounds__(THREADS) gemm_bias_relu_f32(
 
 // logits | deltas = f @ pred + predb in float32, one warp per ROI.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) predictor_kernel(HeadArgs args) {
+__global__ void __launch_bounds__(256) predictor_kernel(HeadArgs args) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (THREADS / 32) + warp;
+  const int row = blockIdx.x * 8 + warp;
   if (row >= args.rois) return;
   const int np = args.ncls + args.nreg4;
   const T* f = static_cast<const T*>(args.f7) + (int64_t)row * args.hidden;
@@ -704,14 +1136,42 @@ __global__ void __launch_bounds__(THREADS) predictor_kernel(HeadArgs args) {
   }
 }
 
-template <typename T>
-int launch_front(const HeadArgs& args, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(head_front_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       Layout<T>::BYTES);
+int launch_front_bf16(const HeadArgs& args, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(head_front_bf16,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, FRONT_BYTES);
   if (e != cudaSuccess) return (int)e;
-  head_front_kernel<T><<<args.rois, THREADS, Layout<T>::BYTES, s>>>(args);
+  head_front_bf16<<<(args.rois + G - 1) / G, FRONT_THREADS, FRONT_BYTES, s>>>(args);
   return (int)cudaGetLastError();
+}
+
+template <bool kTiledOut>
+int launch_gemm_bf16(const void* a, const void* bt, const float* bias, void* out, int m, int n,
+                     int k, cudaStream_t s) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaError_t e = cudaFuncSetAttribute(fc_gemm_bf16<kTiledOut>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (m + GBM - 1) / GBM * (n / GBN);
+  fc_gemm_bf16<kTiledOut><<<tiles < sms ? tiles : sms, GEMM_THREADS, GEMM_BYTES, s>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(bt), bias, static_cast<bf16*>(out), m,
+      n, k);
+  return (int)cudaGetLastError();
+}
+
+// fc6 (tiled out, fc7's A) then fc7 (row-major out, the predictor's input),
+// each one persistent launch
+int launch_fc(const HeadArgs& args, cudaStream_t s) {
+  int rc = launch_gemm_bf16<true>(args.a, args.fc6T, args.fc6b, args.f6, args.rois, args.hidden,
+                                  NPOS * CA, s);
+  if (rc != 0) return rc;
+  return launch_gemm_bf16<false>(args.f6, args.fc7T, args.fc7b, args.f7, args.rois, args.hidden,
+                                 args.hidden, s);
 }
 
 }  // namespace
@@ -719,7 +1179,7 @@ int launch_front(const HeadArgs& args, cudaStream_t s) {
 extern "C" {
 
 // Runs the whole head for args.rois ROIs. Returns the first non-zero
-// cudaError_t of the four launches, or 0.
+// cudaError_t of the launches, or 0.
 int oneshot_roi_head_forward(const void* argp, void* stream) {
   const HeadArgs args = *static_cast<const HeadArgs*>(argp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -729,31 +1189,28 @@ int oneshot_roi_head_forward(const void* argp, void* stream) {
     return (int)cudaErrorInvalidValue;
   int rc;
   if (args.dtype == 1) {
-    if (hid % GBN != 0 || k6 % GBK != 0 || hid % GBK != 0) return (int)cudaErrorInvalidValue;
-    if ((rc = launch_front<bf16>(args, s)) != 0) return rc;
-    const dim3 grid(hid / GBN, (m + GBM - 1) / GBM);
-    gemm_bias_relu_bf16<<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(args.a), static_cast<const bf16*>(args.fc6), args.fc6b,
-        static_cast<bf16*>(args.f6), m, hid, k6);
-    if ((rc = (int)cudaGetLastError()) != 0) return rc;
-    gemm_bias_relu_bf16<<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(args.f6), static_cast<const bf16*>(args.fc7), args.fc7b,
-        static_cast<bf16*>(args.f7), m, hid, hid);
-    if ((rc = (int)cudaGetLastError()) != 0) return rc;
-    predictor_kernel<bf16><<<(m + 7) / 8, THREADS, 0, s>>>(args);
+    if (hid % GBN != 0 || k6 % (2 * GBK) != 0 || hid % (2 * GBK) != 0)
+      return (int)cudaErrorInvalidValue;
+    if ((rc = launch_front_bf16(args, s)) != 0) return rc;
+    if ((rc = launch_fc(args, s)) != 0) return rc;
+    predictor_kernel<bf16><<<(m + 7) / 8, 256, 0, s>>>(args);
   } else if (args.dtype == 0) {
     if (hid % FBN != 0 || k6 % FBK != 0 || hid % FBK != 0) return (int)cudaErrorInvalidValue;
-    if ((rc = launch_front<float>(args, s)) != 0) return rc;
+    cudaError_t e = cudaFuncSetAttribute(head_front_f32,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    head_front_f32<<<m, F_THREADS, F_BYTES, s>>>(args);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
     const dim3 grid(hid / FBN, (m + FBM - 1) / FBM);
-    gemm_bias_relu_f32<<<grid, THREADS, 0, s>>>(
+    gemm_bias_relu_f32<<<grid, F_THREADS, 0, s>>>(
         static_cast<const float*>(args.a), static_cast<const float*>(args.fc6), args.fc6b,
         static_cast<float*>(args.f6), m, hid, k6);
     if ((rc = (int)cudaGetLastError()) != 0) return rc;
-    gemm_bias_relu_f32<<<grid, THREADS, 0, s>>>(
+    gemm_bias_relu_f32<<<grid, F_THREADS, 0, s>>>(
         static_cast<const float*>(args.f6), static_cast<const float*>(args.fc7), args.fc7b,
         static_cast<float*>(args.f7), m, hid, hid);
     if ((rc = (int)cudaGetLastError()) != 0) return rc;
-    predictor_kernel<float><<<(m + 7) / 8, THREADS, 0, s>>>(args);
+    predictor_kernel<float><<<(m + 7) / 8, 256, 0, s>>>(args);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -83,17 +83,38 @@ def pack_roi_head_params(head) -> Dict[str, torch.Tensor]:
     }
 
 
+# Depth and width of the tiles of each pre-tiled operand, as the bf16 kernel
+# reads them (csrc/roi_head.cu: KD0, KD1, KDA; GBK x GBN): one 8 KB weight
+# slice of head_front, or one B tile of the fc6/fc7 GEMM.
+TILES = {"c0aT": ("c0a", 64, 64), "c1T": ("c1", 16, 256), "agT": ("ag", 32, 128),
+         "fc6T": ("fc6", 64, 256), "fc7T": ("fc7", 64, 256)}
+FC_TILE_N = 256   # hidden must be a multiple of the GEMM's tile width
+A_TILE_ROWS = 128  # the GEMM's A operand: rows padded to whole tiles
+
+
+def tile_operand(w: torch.Tensor, kd: int, nb: int) -> torch.Tensor:
+    """(K, N) weights -> the 1-D sequence of their kd x nb tiles, column
+    block major (tile [n // nb][k // kd]), each in wgmma's no-swizzle
+    K-major core-matrix order: element (k, n) of a tile at
+    (n // 8) kd 8 + (k // 8) 64 + (n % 8) 8 + k % 8."""
+    k, n = w.shape
+    t = w.reshape(k // kd, kd // 8, 8, n // nb, nb // 8, 8)   # kb, kh, kl, nb, nh, nl
+    return t.permute(3, 0, 4, 1, 5, 2).contiguous().reshape(-1)
+
+
 def kernel_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict:
     """Packed float32 params -> the operands of one dtype: matrices in
     ``dtype``, biases and GN factors float32, the query and support halves of
-    compress_0 apart, cls and box side by side. Operands already of ``dtype``
-    are returned as they are."""
+    compress_0 apart, cls and box side by side, and the bf16 kernel's
+    pre-tiled weights (``TILES``; fc6's and fc7's only where hidden is a
+    multiple of ``FC_TILE_N``). Operands already of ``dtype`` are returned as
+    they are."""
     if w.get("dtype") == dtype:
         return w
     c = w["c0"].shape[0] // 2
     mat = lambda t: t.to(dtype).contiguous()
     vec = lambda t: t.to(torch.float32).contiguous()
-    return {
+    ops = {
         "dtype": dtype,
         "ncls": w["cls"].shape[1],
         "c0a": mat(w["c0"][:c]), "c0s": mat(w["c0"][c:]), "c0b": vec(w["c0b"]),
@@ -101,15 +122,16 @@ def kernel_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict:
         "c1": mat(w["c1"]), "c1b": vec(w["c1b"]),
         "gn1g": vec(w["gn1g"]), "gn1b": vec(w["gn1b"]),
         "ag": mat(w["ag"]), "agb": vec(w["agb"]),
-        # the kernel's tensor-core path reads these three transposed (K contiguous)
-        "c0aT": mat(w["c0"][:c].t()), "c1T": mat(w["c1"].t()),
-        "agT": mat(w["ag"].permute(2, 0, 1).reshape(w["ag"].shape[2], -1)),
         "gng": vec(w["gng"]), "gnb": vec(w["gnb"]),
         "fc6": mat(w["fc6"]), "fc6b": vec(w["fc6b"]),
         "fc7": mat(w["fc7"]), "fc7b": vec(w["fc7b"]),
         "pred": mat(torch.cat([w["cls"], w["box"]], dim=1)),
         "predb": vec(torch.cat([w["clsb"], w["boxb"]])),
     }
+    for key, (src, kd, nb) in TILES.items():
+        m = ops[src].reshape(-1, ops[src].shape[-1])        # ag: (9 C, C/2), k = C tap + c
+        ops[key] = tile_operand(m, kd, nb) if m.shape[1] % nb == 0 else None
+    return ops
 
 
 def support_half(supp_7x7: torch.Tensor, ops: Dict) -> torch.Tensor:
@@ -164,7 +186,8 @@ class _HeadArgs(ctypes.Structure):
     # mirrors `struct HeadArgs` in csrc/roi_head.cu
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x", "yb", "c0a", "c0aT", "gn0g", "gn0b", "c1", "c1T", "c1b", "gn1g", "gn1b",
-        "ag", "agT", "agb", "gng", "gnb", "fc6", "fc6b", "fc7", "fc7b", "pred", "predb",
+        "ag", "agT", "agb", "gng", "gnb", "fc6", "fc6T", "fc6b", "fc7", "fc7T", "fc7b",
+        "pred", "predb",
         "a", "f6", "f7", "logits", "deltas")] + [(n, ctypes.c_int) for n in (
         "rois", "per_image", "hidden", "ncls", "nreg4", "dtype")]
 
@@ -208,26 +231,33 @@ def fused_roi_head_cuda(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict
     _check(per_image > 0 and r == b * per_image, f"R={r} != B={b} x per_image={per_image}")
     ops = kernel_operands(w, dtype)
     hidden, npred = ops["fc7"].shape[0], ops["pred"].shape[1]
-    _check(ops["fc6"].shape == (49 * 128, hidden) and hidden % 128 == 0,
-           f"fc6 {tuple(ops['fc6'].shape)} must be (6272, hidden), hidden % 128 == 0")
+    _check(ops["fc6"].shape == (49 * 128, hidden) and hidden % FC_TILE_N == 0,
+           f"fc6 {tuple(ops['fc6'].shape)} must be (6272, hidden), hidden % {FC_TILE_N} == 0")
     _check(npred <= MAX_PRED, f"{npred} predictor outputs (at most {MAX_PRED})")
+    # the bf16 kernel bulk-copies the input rows, the GN parameters and the
+    # weight tiles: 16-byte aligned sources
+    _check(roi_feats.data_ptr() % 16 == 0, "roi_feats must be 16-byte aligned")
     for k, v in ops.items():
         if isinstance(v, torch.Tensor):
-            _check(v.device == dev and v.is_contiguous(), f"operand {k} on {v.device}")
+            _check(v.device == dev and v.is_contiguous() and v.data_ptr() % 16 == 0,
+                   f"operand {k} must be contiguous, 16-byte aligned, on {dev}")
     ncls = ops["ncls"]
     logits = torch.empty((r, ncls), dtype=torch.float32, device=dev)
     deltas = torch.empty((r, npred - ncls), dtype=torch.float32, device=dev)
     if r == 0:
         return logits, deltas
     yb = support_half(supp_7x7, ops).contiguous()
-    a = torch.empty((r, 49 * 128), dtype=dtype, device=dev)
-    f6 = torch.empty((r, hidden), dtype=dtype, device=dev)
+    # bf16: fc6's and fc7's A operands are tiled in blocks of 128 rows
+    rows = -(-r // A_TILE_ROWS) * A_TILE_ROWS
+    a = torch.empty((rows, 49 * 128), dtype=dtype, device=dev)
+    f6 = torch.empty((rows, hidden), dtype=dtype, device=dev)
     f7 = torch.empty((r, hidden), dtype=dtype, device=dev)
 
     args = _HeadArgs(
         roi_feats.data_ptr(), yb.data_ptr(), *(ops[k].data_ptr() for k in (
             "c0a", "c0aT", "gn0g", "gn0b", "c1", "c1T", "c1b", "gn1g", "gn1b", "ag", "agT",
-            "agb", "gng", "gnb", "fc6", "fc6b", "fc7", "fc7b", "pred", "predb")),
+            "agb", "gng", "gnb", "fc6", "fc6T", "fc6b", "fc7", "fc7T", "fc7b", "pred",
+            "predb")),
         a.data_ptr(), f6.data_ptr(), f7.data_ptr(), logits.data_ptr(), deltas.data_ptr(),
         r, per_image, hidden, ncls, npred - ncls, _DTYPE_CODE[dtype])
     lib = _kernel()

@@ -3,11 +3,11 @@
     python3 oneshotdet_tpu_torch/tools/ablate_roi_head.py
 
 Needs one CUDA card and nvcc. Builds copies of csrc/roi_head.cu, each with
-one part of the work cut out (the results of the cut copies are wrong and
-only their times count), and times each against the full kernel with CUDA
-events on the main path's bf16 shapes: R = 16 000 ROIs, 8 images x 2000.
-Prints the card, one line per copy (two rounds, interleaved) and the time
-each cut saves.
+one part of the bf16 work cut out (the results of the cut copies are wrong
+and only their times count), and times each against the full kernel with
+CUDA events on the main path's bf16 shapes: R = 16 000 ROIs, 8 images x
+2000. Prints the card, one line per copy (three rounds, interleaved) and the
+time each cut saves.
 """
 
 from __future__ import annotations
@@ -29,33 +29,26 @@ from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead  # noqa: E402
 from oneshotdet_tpu_torch.ops import roi_head_fused as rf  # noqa: E402
 from oneshotdet_tpu_torch.tools import card_line  # noqa: E402
 
-# (name, [(text in roi_head.cu, replacement)]): each cut removes one part
+# (name, [(text in roi_head.cu, replacement)]): each cut removes one part of
+# the bf16 path. head_front_bf16 runs without a thread block cluster (its
+# weight copies cost nothing measurable, the first cut shows), so there is
+# no multicast to cut.
 CUTS = [
     ("full", []),
-    ("no weight copies", [(
-        "      if (slice < slices) {\n        unsigned char* dst",
-        "      if (false) {\n        unsigned char* dst")]),
-    ("no tensor-core products", [(
-        "        if constexpr (NW == 64) wgmma_n64(d, af[kk], desc);\n"
-        "        else wgmma_n128(d, af[kk], desc);",
-        "        d[0] += af[kk][0] + (float)desc;")]),
-    ("no activation fragment loads", [(
-        '        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\\n"\n'
-        '                     : "=r"(af[kk][0]), "=r"(af[kk][1]), "=r"(af[kk][2]), "=r"(af[kk][3])\n'
-        '                     : "r"(addr));',
-        "        af[kk][0] = af[kk][1] = af[kk][2] = af[kk][3] = addr;")]),
-    ("no barrier per weight slice", [(
-        "      __syncthreads();  // every thread's part of the slice has landed", "")]),
-    ("no support-half add", [(
-        "S[p * LDS + c] += to_f(yb[p * C2 + chunk * CHUNK + c]);", "S[p * LDS + c] += 0.f;")]),
-    ("no GroupNorm statistics", [(
-        "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n  constexpr int n = NPOS * GS;",
-        "  return;\n  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
-        "  constexpr int n = NPOS * GS;")]),
-    ("no 3x3 conv products", [("LDH, ag, CA, agT, 9 * C, 9 * C, ring);",
-                               "LDH, ag, CA, agT, 9 * C, 0, ring);")]),
-    ("no head_front products", [("    const int slices = K / KS;\n    const int wg",
-                                 "    const int slices = 0;\n    const int wg")]),
+    ("no producer copies", [(
+        "        mbar_expect_tx(&full[stage], SLOT);\n"
+        "        bulk_load(ring + stage * SLOT, src, SLOT, &full[stage]);",
+        "        mbar_arrive(&full[stage]);")]),
+    ("no head_front wgmma", [(
+        "wgmma_rs<N>(d, a[kk], smem_desc(w + kk * 256, 128, KD * 16));",
+        "d[0] += (float)a[kk][0];")]),
+    ("no GN statistics", [(
+        "  const float inv_n = 1.f / (float)(NPOS * GS);",
+        "  return;\n  const float inv_n = 1.f / (float)(NPOS * GS);")]),
+    ("no 3x3 conv (copies, products)", [(
+        "constexpr int SA = 9 * C / KDA; ", "constexpr int SA = 0; ")]),
+    ("no fc6/fc7 GEMM", [(
+        "    if ((rc = launch_fc(args, s)) != 0) return rc;\n", "")]),
 ]
 
 
@@ -119,7 +112,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         libs = build(workdir)
         times = {name: [] for name in libs}
-        for rnd in range(2):
+        for rnd in range(3):
             for name, lib in libs.items():
                 rf._kernel = lambda lib=lib: lib
                 times[name].append(time_ms())
