@@ -5,8 +5,10 @@
 Builds the port's five CUDA kernels from this checkout (ROIAlign K1, the
 fused relation head K3, GroupNorm K2, the cross-ROI ROIAlign variants K4 and
 K5), holds each against its plain PyTorch version at the shapes its path
-gives it (K2 on the FCOS tower's P3-P7 with its backward; K4 and K5 on K1's
-proposal cases, with K5's window clamp), drives the paths of the kernels
+gives it (K1 also at its edge cases and on the FCOS-like p3-skew mix, with
+its per-ROI plan against the Python mirror; K2 on the FCOS tower's P3-P7
+with its backward; K4 and K5 on K1's proposal cases, with K5's window
+clamp), drives the paths of the kernels
 that no model runs (FusedGroupNorm over the tower levels; the port's tools
 tune_roialign_v3, ablate_v4 and tune_roi_head at reduced counts), then the
 flagship one-shot detector (Siamese FCOS R-50-FPN,
@@ -145,11 +147,95 @@ def random_rois(n, batch, image_hw, gen, dev):
     return rois.to(dev), valid.to(dev)
 
 
+def edge_case_rois(gen, dev):
+    """K1's edge cases on the query pyramid: (name, rois, levels or None for
+    the FPN rule, valid). One ROI alone; ROIs as wide as a whole P3 row (152
+    cells) at heights of 1 to 100 px, on P3; ROIs wholly outside the level
+    on each side; a batch whose every slot is invalid."""
+    h, w = QUERY_HW
+    n = 64
+    b = torch.randint(0, BATCH, (n, 1), generator=gen).float()
+    y1 = torch.rand(n, 1, generator=gen) * (h - 100)
+    row = torch.cat([b, torch.zeros(n, 1), y1, torch.full((n, 1), float(w)),
+                     y1 + 1 + torch.rand(n, 1, generator=gen) * 99], dim=1)
+    xy = torch.rand(n, 2, generator=gen) * torch.tensor([w, h])
+    wh = 8 + torch.rand(n, 2, generator=gen) * 200
+    shift = torch.zeros(n, 2)
+    shift[0::4, 0] = w + 20 + wh[0::4, 0]                  # right of the level
+    shift[1::4, 0] = -(xy[1::4, 0] + 2 * wh[1::4, 0] + 20)   # left
+    shift[2::4, 1] = h + 20 + wh[2::4, 1]                  # below
+    shift[3::4, 1] = -(xy[3::4, 1] + 2 * wh[3::4, 1] + 20)   # above
+    outside = torch.cat([b, xy + shift, xy + shift + wh], dim=1)
+    one = torch.tensor([[3.0, 100.0, 200.0, 420.0, 350.0]])
+    invalid, _ = random_rois(n, BATCH, QUERY_HW, gen, "cpu")
+    p3 = torch.zeros(n, dtype=torch.int32, device=dev)
+    return [("R=1", one.to(dev), None, None),
+            ("whole P3 row R=64", row.to(dev), p3, None),
+            ("outside R=64", outside.to(dev), None, None),
+            ("all invalid R=64", invalid.to(dev), None, torch.zeros(n, dtype=torch.bool, device=dev))]
+
+
+def k1_bound(feats, rois, levels, valid, out):
+    """K1's bound on these inputs (ms, 'bytes' or 'operations'): the pyramid,
+    ROIs, levels and flags read once and the output written once at the
+    card's memory rate; 2 x 2 samples x 4 corners x (multiply + add) per
+    output value at the fp32 rate."""
+    elt = out.element_size()
+    in_bytes = sum(f.numel() for f in feats) * elt + rois.numel() * 4 + levels.numel() * 4
+    in_bytes += 0 if valid is None else valid.numel()
+    nbytes = in_bytes + out.numel() * elt
+    ops = out.numel() * 4 * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops
+
+
+def k1_compare(ra, name, dtype, args):
+    """K1 against its plain version on ``args``, with its plan's statistics
+    against the Python mirror (``roi_align_plan``). Returns (kernel output,
+    max abs err, metric text, tolerance text, staged bytes)."""
+    feats, rois = args[0], args[1]
+    stats = torch.zeros((rois.shape[0], 2), dtype=torch.int32, device=rois.device)
+    k = ra.multilevel_roi_align_cuda(*args, stats=stats)
+    torch.cuda.synchronize()
+    p = ra.multilevel_roi_align_plain(*args)
+    diff = (k.float() - p.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    rel = float((diff / p.float().abs().clamp(min=1e-6)).max()) if diff.numel() else 0.0
+    if dtype == torch.float32:
+        ok, tol = err <= 1e-5, "abs <= 1e-5"
+        metric = f"max abs err {err:.3e}, max rel err {rel:.3e}"
+    else:
+        ulps = bf16_ulps(k, p) if diff.numel() else 0.0
+        ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
+        metric = f"max abs err {err:.3e}, max rel err {rel:.3e}, {ulps:.2f} bf16 ulp"
+    if not (ok and torch.isfinite(k.float()).all()):
+        raise AssertionError(f"roi_align {name} {dtype}: {metric} (tolerance {tol})")
+    plans = ra.roi_align_plan(*args)
+    want = torch.tensor([[0, 0] if pl is None else [len(pl.items), pl.staged_pixels]
+                         for pl in plans], dtype=torch.int32)
+    got = stats.cpu()
+    if not torch.equal(got, want):
+        i = int((got != want).any(1).nonzero()[0])
+        raise AssertionError(f"roi_align {name} {dtype}: ROI {i}'s kernel plan (items, staged "
+                             f"pixels) {got[i].tolist()} differs from roi_align_plan's "
+                             f"{want[i].tolist()}")
+    staged = int(got[:, 1].sum()) * feats[0].shape[-1] * k.element_size()
+    return k, err, metric, tol, staged
+
+
 def kernel_checks(ra, dev):
     """Phase 3: the ROIAlign kernel against its plain version at the main
-    path's three uses. Returns the headline entry for the kernels line."""
+    path's uses (the proposals at R = 16 000 and 4096, the predictor's
+    1 x 2000, the support 7x7 and the five 1x1 pools), at its edge cases
+    (one ROI, ROIs as wide as a P3 row, ROIs wholly outside, all slots
+    invalid) and on the p3-skew mix timed on fresh inputs; each case's plan
+    statistics against ``roi_align_plan``. Returns {(case, dtype): entry}."""
+    from oneshotdet_tpu_torch.tools import time_fresh_ms
+    from oneshotdet_tpu_torch.tools.tune_roialign_v3 import make_inputs
+
     gen = torch.Generator().manual_seed(3)
-    scales = (0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
+    scales = SCALES_Q
     q_shapes = pyramid_shapes(*QUERY_HW)
     s_shapes = pyramid_shapes(*SUPP_HW)
     log(f"query pyramid {q_shapes}, support pyramid {s_shapes}")
@@ -165,47 +251,52 @@ def kernel_checks(ra, dev):
             rois, valid = random_rois(r, BATCH, QUERY_HW, gen, dev)
             levels = ra.fpn_level_map(rois[:, 1:], 3, 7)
             cases.append((f"proposals 7x7 R={r}", q_feats, rois, levels, (7, 7), scales, valid))
+        rois, valid = random_rois(2000, 1, QUERY_HW, gen, dev)
+        cases.append(("predictor 7x7 1 x 2000", [f[:1] for f in q_feats], rois,
+                      ra.fpn_level_map(rois[:, 1:], 3, 7), (7, 7), scales, valid))
         cases.append(("support 7x7 R=8", s_feats, supp_rois,
                       ra.fpn_level_map(supp_rois[:, 1:], 3, 7), (7, 7), scales, None))
         for lvl in range(5):
             cases.append((f"support 1x1 P{lvl + 3} R=8", [s_feats[lvl]], supp_rois,
                           zero_lv, (1, 1), (scales[lvl],), None))
+        for name, rois, levels, valid in edge_case_rois(gen, dev):
+            levels = ra.fpn_level_map(rois[:, 1:], 3, 7) if levels is None else levels
+            cases.append((name, q_feats, rois, levels, (7, 7), scales, valid))
         for name, feats, rois, levels, out_hw, sc, valid in cases:
             args = (feats, rois, levels, out_hw, sc, 2, valid)
-            k = ra.multilevel_roi_align_cuda(*args)
-            torch.cuda.synchronize()
-            p = ra.multilevel_roi_align_plain(*args)
-            diff = (k.float() - p.float()).abs()
-            err = float(diff.max())
-            rel = float((diff / p.float().abs().clamp(min=1e-6)).max())
-            if dtype == torch.float32:
-                ok, tol = err <= 1e-5, "abs <= 1e-5"
-                metric = f"max abs err {err:.3e}, max rel err {rel:.3e}"
-            else:
-                ulps = bf16_ulps(k, p)
-                ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
-                metric = f"max abs err {err:.3e}, max rel err {rel:.3e}, {ulps:.2f} bf16 ulp"
-            if not ok:
-                raise AssertionError(f"roi_align {name} {dtype}: {metric} (tolerance {tol})")
-            elt = torch.finfo(dtype).bits // 8
-            in_bytes = sum(f.numel() for f in feats) * elt + rois.numel() * 4 + levels.numel() * 4
-            in_bytes += 0 if valid is None else valid.numel()
-            out_bytes = k.numel() * elt
-            ops = k.numel() * 4 * 8                 # 2x2 samples x 4 corners x (mul + add)
-            t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / FP32_OPS_PER_S * 1e3
-            bound = max(t_bytes, t_ops)
+            k, err, metric, tol, staged = k1_compare(ra, name, dtype, args)
+            bound, by, nbytes, ops = k1_bound(feats, rois, levels, valid, k)
             ms = time_ms(lambda: ra.multilevel_roi_align_cuda(*args))
             plain_ms = time_ms(lambda: ra.multilevel_roi_align_plain(*args), reps=20, warmup=1)
             log(f"roi_align {name} {str(dtype)[6:]}: {metric} (tolerance {tol}); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-                f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
-                f"{(in_bytes + out_bytes) / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+                f"({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), kernel at "
+                f"{100 * bound / ms:.1f}% of its bound; staged {staged / 1e6:.1f} MB "
+                f"from L2, plan as roi_align_plan")
             results[(name, dtype)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-            del k, p
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bound_share=bound / ms)
+            del k
         del q_feats, s_feats
+        torch.cuda.empty_cache()
+        # the FCOS-like mix (sides U(8, 110), mostly on P3) at R = 16 000, each
+        # timed call on inputs it has not seen
+        warmup, iters = 1, 5
+        inputs = [make_inputs(500 + i, dev, dtype=dtype, skew="p3")[:3]
+                  for i in range(warmup + 1 + iters)]
+        feats, rois, levels = inputs[-1]
+        args = (feats, rois, levels, (7, 7), scales, 2, None)
+        k, err, metric, tol, staged = k1_compare(ra, "p3-skew R=16000", dtype, args)
+        bound, by, nbytes, ops = k1_bound(feats, rois, levels, None, k)
+        ms = time_fresh_ms(lambda f, r, lv: ra.multilevel_roi_align_cuda(f, r, lv, (7, 7),
+                                                                          scales, 2),
+                           inputs, warmup)
+        log(f"roi_align p3-skew R=16000 {str(dtype)[6:]} (fresh inputs each call): {metric} "
+            f"(tolerance {tol}); kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+            f"{100 * bound / ms:.1f}% of its bound; staged {staged / 1e6:.1f} MB from L2")
+        results[("p3-skew R=16000", dtype)] = dict(max_abs_err=err, ms=ms, bound_ms=bound,
+                                                   bound_by=by, bound_share=bound / ms)
+        del inputs, feats, rois, levels, k
         torch.cuda.empty_cache()
     return results
 
@@ -896,6 +987,12 @@ def main() -> int:
             log(f"ptxas roi_head.cu {kname}: {regs} registers at entry (setmaxnreg: consumers "
                 f"232, producer 40), spill stores {st} B, spill loads {ld} B")
     log(f"ptxas roi_head.cu C7508/C7513 warnings: {warnings or 'none'}")
+    for kname, (regs, st, ld) in ptxas_report(csrc.build_logs.get("roi_align", ""))[0].items():
+        log(f"ptxas roi_align.cu {kname}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+    k1 = ra._kernel()
+    log(f"roi_align.cu: {k1.oneshot_roi_align_blocks_per_sm(1)} resident blocks per SM in bf16, "
+        f"{k1.oneshot_roi_align_blocks_per_sm(0)} in f32 (one ROI per block)")
 
     # -- phase 3: kernels against plain ----------------------------------------
     checks = kernel_checks(ra, dev)
@@ -1022,8 +1119,10 @@ def main() -> int:
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
+        "bound_share": head["bound_share"],
         "bound_by": head["bound_by"],
         "library_ms": None,
+        "p3_skew_fresh_ms": checks[("p3-skew R=16000", torch.bfloat16)]["ms"],
         "card": card,
     }, {
         "name": "roi_head",

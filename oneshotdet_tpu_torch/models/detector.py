@@ -33,6 +33,7 @@ from torch.profiler import record_function
 
 from ..ops.box_coder import BoxCoder
 from ..ops.roi_align import fpn_level_map, multilevel_roi_align, roi_align
+from ..ops.roi_head_fused import check_kernel_widths
 from ..structures.boxes import Boxes, truncate_boxes
 from ..structures.image_batch import ImageBatch
 from .fcos import FCOSModule, compute_locations, fcos_postprocess
@@ -250,6 +251,16 @@ class GeneralizedRCNN(nn.Module):
             box_idx = cls_idx[:, :1].expand(n, regs.shape[-1])
         return merged_logits, torch.gather(regs, 0, box_idx[None])[0]
 
+    def _fcos_head(self, features, supp_pooled):
+        """Fusion and the FCOS head: (locations, logits, bbox_reg, ctrness)."""
+        with record_function("fcos_head"):
+            combined = [f * p.reshape(p.shape[0], 1, 1, -1).permute(0, 3, 1, 2).to(f.dtype)
+                        for f, p in zip(features, supp_pooled)]
+            logits, bbox_reg, ctrness = self.rpn.head(combined)
+        locations = compute_locations([(f.shape[2], f.shape[3]) for f in combined],
+                                      self.config.fpn_strides, device=combined[0].device)
+        return locations, logits, bbox_reg, ctrness
+
     # -- public eval API ------------------------------------------------------
 
     @torch.inference_mode()
@@ -285,7 +296,9 @@ class GeneralizedRCNN(nn.Module):
         supp_7x7: torch.Tensor,             # (B or 1, shot, 7, 7, C)
         target_ids=None,                    # (B,) or a scalar
     ) -> Boxes:
-        """Fusion -> stage 1 -> stage 2 -> postprocess."""
+        """Fusion -> stage 1 -> stage 2 -> postprocess. With RPN_ONLY, the
+        stage-1 proposals (the RPN settings, as the JAX package's
+        ``detect_from_features``)."""
         c = self.config
         b = features[0].shape[0]
         dev = features[0].device
@@ -296,23 +309,14 @@ class GeneralizedRCNN(nn.Module):
             target_ids = torch.as_tensor(target_ids, dtype=torch.int32,
                                          device=dev).reshape(-1).expand(b)
 
-        with record_function("fcos_head"):
-            combined = [f * p.reshape(p.shape[0], 1, 1, -1).permute(0, 3, 1, 2).to(f.dtype)
-                        for f, p in zip(features, supp_pooled)]
-            logits, bbox_reg, ctrness = self.rpn.head(combined)
-        locations = compute_locations([(f.shape[2], f.shape[3]) for f in combined],
-                                      c.fpn_strides, device=dev)
+        stage1 = self._fcos_head(features, supp_pooled)
         with record_function("fcos_postprocess"):
-            if c.rpn_only:
-                return fcos_postprocess(
-                    locations, logits, bbox_reg, ctrness, sizes_wh,
-                    c.fcos_pre_nms_top_n, c.fcos_nms_th,
-                    c.detections_per_img_rpn_only, c.nms_pre_topk,
-                    c.inference_th, c.score_mode, level_topk=c.strict_level_topk)
             proposals = fcos_postprocess(
-                locations, logits, bbox_reg, ctrness, sizes_wh,
+                *stage1, sizes_wh,
                 c.pre_nms_top_n_test, c.rpn_nms_thresh, c.fpn_post_nms_top_n_test,
                 c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk)
+        if c.rpn_only:
+            return proposals
         if c.eval_roi_topk:
             proposals = truncate_boxes(proposals, c.eval_roi_topk)
 
@@ -335,6 +339,16 @@ class GeneralizedRCNN(nn.Module):
         b = images.batch_size
         features = self.backbone_features(images)
         supp_pooled, supp_7x7 = self.compute_support_features(images_supp, b)
+        c = self.config
+        if c.rpn_only:
+            # the FCOS stage-1 settings, as the JAX package's __call__
+            stage1 = self._fcos_head(features, supp_pooled)
+            with record_function("fcos_postprocess"):
+                return fcos_postprocess(
+                    *stage1, images.sizes_wh().to(torch.float32),
+                    c.fcos_pre_nms_top_n, c.fcos_nms_th, c.detections_per_img_rpn_only,
+                    c.nms_pre_topk, c.inference_th, c.score_mode,
+                    level_topk=c.strict_level_topk)
         return self.detect_from_features(features, images.sizes_wh(),
                                          supp_pooled, supp_7x7, target_ids)
 
@@ -389,10 +403,14 @@ def build_detection_model(cfg, device=None,
     """The one-shot detector on ``device`` (default "cuda") in eval mode,
     computing in cfg.TPU.COMPUTE_DTYPE, its weights drawn from ``generator``
     (default: a CPU generator seeded with 0). Load trained weights with
-    ``load_state_dict`` (see ``utils.weights``)."""
+    ``load_state_dict`` (see ``utils.weights``). Raises NotImplementedError
+    off the CPU where the fused head is switched on and its kernel does not
+    take the widths."""
     config = detector_config_from_cfg(cfg)
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.TPU.COMPUTE_DTYPE]
     device = torch.device("cuda" if device is None else device)
+    if config.fused_roi_head and not config.rpn_only and device.type != "cpu":
+        check_kernel_widths(config.out_channels, config.out_channels // 2, config.mlp_head_dim)
     with torch.device("meta"):
         model = GeneralizedRCNN(config, dtype=dtype)
     model = model.to_empty(device=device)

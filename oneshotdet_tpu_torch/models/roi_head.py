@@ -27,8 +27,8 @@ from torch import nn
 
 from ..ops.box_coder import BoxCoder
 from ..ops.nms import nms_keep_mask
-from ..ops.roi_head_fused import (fused_head_applies, fused_roi_head, kernel_operands,
-                                  pack_roi_head_params)
+from ..ops.roi_head_fused import (check_kernel_widths, fused_head_applies, fused_roi_head,
+                                  kernel_operands, pack_roi_head_params)
 from ..structures.boxes import Boxes, clip_to_image
 from .layers import Conv2d, GroupNorm, Linear
 
@@ -102,10 +102,15 @@ class ROIBoxHead(nn.Module):
         ``use_fused`` (the eval path with the fused head switched on) runs
         the fused head where the JAX package's gate takes its kernel:
         resolution 7, one support per image (B != N, B divides N) and a
-        per-image ROI count that is a positive multiple of 8."""
+        per-image ROI count that is a positive multiple of 8. Off the CPU it
+        raises NotImplementedError first where the kernel does not take the
+        head's widths (``check_kernel_widths``)."""
         n, b = roi_feats.shape[0], supp_feats.shape[0]
         if (use_fused and self.resolution == 7 and b != n and n % b == 0
                 and fused_head_applies(n // b)):
+            if roi_feats.device.type != "cpu":
+                check_kernel_widths(self.in_channels, self.in_channels // 2,
+                                    self.fc7.out_features)
             return fused_roi_head(roi_feats, supp_feats,
                                   self._fused_operands(roi_feats.dtype), n // b)
         c = self.in_channels

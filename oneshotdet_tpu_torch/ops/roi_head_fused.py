@@ -90,6 +90,19 @@ TILES = {"c0aT": ("c0a", 64, 64), "c1T": ("c1", 16, 256), "agT": ("ag", 32, 128)
          "fc6T": ("fc6", 64, 256), "fc7T": ("fc7", 64, 256)}
 FC_TILE_N = 256   # hidden must be a multiple of the GEMM's tile width
 A_TILE_ROWS = 128  # the GEMM's A operand: rows padded to whole tiles
+KERNEL_CHANNELS = 256   # the C the kernel takes; its 3x3 conv writes C // 2
+
+
+def check_kernel_widths(in_channels: int, conv_out: int, hidden: int) -> None:
+    """Raise NotImplementedError unless the CUDA kernel takes these widths:
+    C = 256, a 3x3 output of 128 and a hidden width that is a multiple of
+    FC_TILE_N. The plain version (CPU tensors) takes any width."""
+    if not (in_channels == KERNEL_CHANNELS and conv_out == KERNEL_CHANNELS // 2
+            and hidden > 0 and hidden % FC_TILE_N == 0):
+        raise NotImplementedError(
+            f"the fused relation head's CUDA kernel takes C = {KERNEL_CHANNELS}, a 3x3 "
+            f"output of {KERNEL_CHANNELS // 2} and MLP_HEAD_DIM % {FC_TILE_N} == 0, not C = "
+            f"{in_channels}, {conv_out} and {hidden}")
 
 
 def tile_operand(w: torch.Tensor, kd: int, nb: int) -> torch.Tensor:
@@ -106,9 +119,9 @@ def kernel_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict:
     """Packed float32 params -> the operands of one dtype: matrices in
     ``dtype``, biases and GN factors float32, the query and support halves of
     compress_0 apart, cls and box side by side, and the bf16 kernel's
-    pre-tiled weights (``TILES``; fc6's and fc7's only where hidden is a
-    multiple of ``FC_TILE_N``). Operands already of ``dtype`` are returned as
-    they are."""
+    pre-tiled weights (``TILES``; each only where its matrix is whole tiles,
+    so fc6's and fc7's only where hidden is a multiple of ``FC_TILE_N``).
+    Operands already of ``dtype`` are returned as they are."""
     if w.get("dtype") == dtype:
         return w
     c = w["c0"].shape[0] // 2
@@ -130,7 +143,8 @@ def kernel_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict:
     }
     for key, (src, kd, nb) in TILES.items():
         m = ops[src].reshape(-1, ops[src].shape[-1])        # ag: (9 C, C/2), k = C tap + c
-        ops[key] = tile_operand(m, kd, nb) if m.shape[1] % nb == 0 else None
+        whole = m.shape[0] % kd == 0 and m.shape[1] % nb == 0
+        ops[key] = tile_operand(m, kd, nb) if whole else None
     return ops
 
 

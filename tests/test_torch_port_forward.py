@@ -60,6 +60,29 @@ def test_rpn_only_proposals_match_jax(setup):
     assert_same_detections(out, ref)
 
 
+def test_rpn_only_cached_support_proposals_match_jax(setup):
+    """Under RPN_ONLY the cached-support entry point returns the stage-1
+    proposals of the RPN settings (FPN_POST_NMS_TOP_N_TEST = 32 here), as
+    the JAX package's detect_with_support does; only the forward uses the
+    FCOS settings (DETECTIONS_PER_IMG = 50)."""
+    stage1 = {k: v for k, v in setup["state_dict"].items() if not k.startswith("roi_heads.")}
+    jm, pm = port_model(setup, "MODEL.RPN_ONLY", True, "TEST.DETECTIONS_PER_IMG", 50,
+                        state_dict=stage1)
+    variables = {"params": {k: v for k, v in setup["variables"]["params"].items()
+                            if k != "roi_head"},
+                 "constants": setup["variables"]["constants"]}
+    jq, js = setup["jax"]
+    q, s = setup["port"]
+    j_pooled, j_s7 = jm.apply(variables, js, 2,
+                              method=lambda m, b, n: m.compute_support_features(b, n))
+    ref = jm.apply(variables, jq, j_pooled, j_s7,
+                   method=lambda m, b, p, s7: m.detect_with_support(b, p, s7))
+    pooled, s7 = pm.compute_support_features(s, 2)
+    out = pm.detect_with_support(q, pooled, s7)
+    assert tuple(ref.xyxy.shape) == out.xyxy.shape == (2, 32, 4)
+    assert_same_detections(out, ref)
+
+
 def test_detect_with_cached_support_matches_forward(setup):
     _, pm = port_model(setup)
     q, s = setup["port"]

@@ -31,6 +31,7 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.ops.group_norm, oneshotdet_tpu_torch.ops.roi_align_v3\n"
         "import oneshotdet_tpu_torch.ops.roi_align_v4, oneshotdet_tpu_torch.tools.tune_roi_head\n"
         "import oneshotdet_tpu_torch.tools.tune_roialign_v3, oneshotdet_tpu_torch.tools.ablate_v4\n"
+        "import oneshotdet_tpu_torch.tools.ablate_roi_align\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -51,7 +52,8 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/ops/roi_align_v4.py",
                  "oneshotdet_tpu_torch/tools/tune_roialign_v3.py",
                  "oneshotdet_tpu_torch/tools/ablate_v4.py",
-                 "oneshotdet_tpu_torch/tools/tune_roi_head.py"):
+                 "oneshotdet_tpu_torch/tools/tune_roi_head.py",
+                 "oneshotdet_tpu_torch/tools/ablate_roi_align.py"):
         assert path in names
 
 

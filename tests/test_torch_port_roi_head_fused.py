@@ -138,3 +138,56 @@ def test_cpu_tensors_never_launch_and_kernel_wrapper_refuses_them(two_images):
     assert rf.fused_roi_head_launches == before
     with pytest.raises(ValueError, match="CUDA"):
         rf.fused_roi_head_cuda(t(roi), t(supp), w, 16)
+
+
+@pytest.mark.parametrize("widths, ok", [((256, 128, 1024), True), ((256, 128, 512), True),
+                                        ((128, 64, 1024), False), ((256, 128, 1000), False),
+                                        ((256, 64, 1024), False)])
+def test_kernel_width_check(widths, ok):
+    """The rule both sites share: C = 256, a 3x3 output of 128, MLP_HEAD_DIM
+    a multiple of the kernel's GEMM tile."""
+    if ok:
+        rf.check_kernel_widths(*widths)
+    else:
+        with pytest.raises(NotImplementedError, match="fused relation head"):
+            rf.check_kernel_widths(*widths)
+
+
+@pytest.mark.parametrize("overrides", [("MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 128),
+                                       ("MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 1000)],
+                         ids=["C128", "hidden1000"])
+def test_fused_head_widths_refused_at_build_off_the_cpu(overrides, monkeypatch):
+    """With the opt-in on, a model for the card whose widths the kernel does
+    not take is refused when it is built, before any CUDA call; a CPU model
+    and a model without the opt-in build."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from torch_port_common import small_cfgs
+
+    _, cfg = small_cfgs(*overrides)
+    monkeypatch.setenv("ONESHOT_PALLAS_ROI_HEAD", "1")
+    with pytest.raises(NotImplementedError, match="fused relation head"):
+        build_detection_model(cfg, device="cuda")
+    assert build_detection_model(cfg, device="cpu").config.fused_roi_head
+    monkeypatch.delenv("ONESHOT_PALLAS_ROI_HEAD")
+    assert not build_detection_model(cfg, device="meta").config.fused_roi_head
+
+
+def test_fused_gate_refuses_other_widths_off_the_cpu():
+    """ROIBoxHead's gate raises before any work on tensors off the CPU (here
+    meta tensors) whose widths the kernel does not take; on the CPU the
+    plain fused path runs at any width."""
+    rng = np.random.RandomState(7)
+    head = ROIBoxHead(in_channels=64, representation_size=256)
+    with torch.no_grad():
+        for p in head.parameters():
+            p.copy_(torch.from_numpy(rng.randn(*p.shape).astype(np.float32) * 0.05))
+    roi, supp = t(rng.randn(16, 7, 7, 64).astype(np.float32)), t(rng.randn(2, 7, 7, 64).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="fused relation head"):
+        head.to("meta")(roi.to("meta"), supp.to("meta"), use_fused=True)
+    head = ROIBoxHead(in_channels=64, representation_size=256)
+    with torch.no_grad():
+        for p in head.parameters():
+            p.copy_(torch.from_numpy(rng.randn(*p.shape).astype(np.float32) * 0.05))
+    fused, _ = head(roi, supp, use_fused=True)
+    ref, _ = head(roi, supp)
+    torch.testing.assert_close(fused, ref, atol=ATOL, rtol=0)
