@@ -10,12 +10,14 @@ its per-ROI plan against the Python mirror; K2 on the FCOS tower's P3-P7
 with its backward; K4 and K5 on K1's proposal cases, with K5's window
 clamp), drives the paths of the kernels
 that no model runs (FusedGroupNorm over the tower levels; the port's tools
-tune_roialign_v3, ablate_v4 and tune_roi_head at reduced counts), then the
-flagship one-shot detector (Siamese FCOS R-50-FPN,
-configs/oneshot_fcos_r50.yaml, bf16, random weights from a seed) through its
-entry points -- the streaming predictor, the batch-8 832x1216 eval forward at
-512 and 2000 proposals per image, each with the unfused and the fused head,
-and the eval engine (per-batch, cached-support and multi-class steps, and
+tune_roialign_v3, ablate_v4, tune_roi_head and, for K3's float32 route,
+ablate_roi_head at reduced counts), then the flagship one-shot detector
+(Siamese FCOS R-50-FPN, configs/oneshot_fcos_r50.yaml, bf16, random weights
+from a seed) through its entry points -- the streaming predictor, the
+batch-8 832x1216 eval forward at 512 and 2000 proposals per image, each with
+the unfused and the fused head, the same forward at 2000 in float32 with
+both heads (K3's 3xTF32 route; their detections must pair up), and the eval
+engine (per-batch, cached-support and multi-class steps, and
 inference() with the COCO evaluator) -- and checks small float32 forwards on
 the card against the same model on the CPU. Every kernel's launch count is
 set to 0 before each path and read after it. Any failure raises and exits
@@ -42,14 +44,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
+TF32_OPS_PER_S = 494.7e12     # H100 SXM, TF32 tensor cores, dense
 KERNEL_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align.cu"
 KERNEL_REPLACES = "oneshotdet_tpu/ops/pallas_roi_align.py:249"
 HEAD_SOURCE = "oneshotdet_tpu_torch/csrc/roi_head.cu"
 HEAD_REPLACES = "oneshotdet_tpu/ops/pallas_roi_head.py:226"
-# fused head vs its plain version: both run float32 chains and differ in the
-# order of the sums (f32); in bf16 an intermediate can round to the
-# neighbouring bf16 value (outputs of order 1)
+# fused head vs its plain version: both run float32-accurate chains (the
+# kernel's as 3xTF32 products) and differ in the order of the sums (f32); in
+# bf16 an intermediate can round to the neighbouring bf16 value (outputs of
+# order 1)
 HEAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the float32 flagship forward, fused head against unfused: the share of
+# detections that pair up (random weights leave near-ties at the top-k cut)
+F32_MIN_MATCH = 0.95
 # (R, ROIs per image): the two cells, the predictor's frame, a 3-image tail
 HEAD_CASES = ((16000, 2000), (4096, 512), (2000, 2000), (24, 8))
 GN_SOURCE = "oneshotdet_tpu_torch/csrc/group_norm.cu"
@@ -366,14 +373,24 @@ def head_checks(dev):
                 unfused_ms = time_ms(lambda: head(x, supp), reps=reps)
             nbytes, flops = head_work(r, b, ops)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S) * 1e3
+            if dtype == torch.bfloat16:
+                t_ops, ops_by, ops_text = flops / BF16_OPS_PER_S * 1e3, "operations", ""
+            else:
+                # float32-accurate products: as FP32 FMA, or as three TF32
+                # tensor-core products each (3xTF32); the smaller bounds
+                t_fma = flops / FP32_OPS_PER_S * 1e3
+                t_3x = 3 * flops / TF32_OPS_PER_S * 1e3
+                t_ops = min(t_fma, t_3x)
+                ops_by = "3xtf32 ops" if t_3x <= t_fma else "fma ops"
+                ops_text = (f"; FMA bound {t_fma:.4f} ms (67 TFLOP/s), 3xTF32 bound "
+                            f"{t_3x:.4f} ms (3 x ops at 494.7 TFLOP/s)")
             bound = max(t_bytes, t_ops)
-            by = "bytes" if t_bytes >= t_ops else "operations"
+            by = "bytes" if t_bytes >= t_ops else ops_by
             log(f"roi_head {name}: max abs err {err:.3e} at output scale {scale:.3f} "
                 f"({rel:.2e} of it; tolerance {tol} abs); support swap moves logits by "
                 f"{swap:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused ROIBoxHead "
                 f"(cuBLAS/cuDNN) {unfused_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
-                f"{nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} TFLOP), kernel at "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} TFLOP{ops_text}), kernel at "
                 f"{100 * bound / ms:.1f}% of its bound, {unfused_ms / ms:.2f}x the unfused head")
             results[(r, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                        unfused_ms=unfused_ms, bound_ms=bound, bound_by=by,
@@ -611,12 +628,16 @@ def tool_runs():
     """Phase 3e: the port's card tools at reduced counts, each with every
     kernel's launch count set to 0 just before and read just after.
     Returns {tool: {kernel: launches}}."""
-    from oneshotdet_tpu_torch.tools import ablate_v4, tune_roi_head, tune_roialign_v3
+    from oneshotdet_tpu_torch.tools import (ablate_roi_head, ablate_v4, accuracy_roi_head,
+                                            tune_roi_head, tune_roialign_v3)
 
     runs = (("tune_roialign_v3", tune_roialign_v3, ["--iters", "2", "--warmup", "1",
                                                      "--blocks", "16"]),
             ("ablate_v4", ablate_v4, ["--iters", "2", "--warmup", "1", "--rounds", "1"]),
-            ("tune_roi_head", tune_roi_head, ["--iters", "2", "--warmup", "1"]))
+            ("tune_roi_head", tune_roi_head, ["--iters", "2", "--warmup", "1"]),
+            ("ablate_roi_head", ablate_roi_head, ["--dtype", "float32", "--rois", "16000",
+                                                  "--rounds", "1", "--reps", "3"]),
+            ("accuracy_roi_head", accuracy_roi_head, ["--rois", "4096"]))
     launches = {}
     for name, tool, argv in runs:
         reset_launches()
@@ -759,7 +780,8 @@ STAGES = ("query_backbone", "support_backbone", "support_pool", "fcos_head",
 def profile_forward(model, images, supps, label):
     """One eval forward under torch.profiler: device time of each stage range
     of the detector, the device's busy share of the forward's wall time, and
-    the kernels that take the most device time."""
+    the kernels that take the most device time. Returns {stage: device span
+    ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -772,7 +794,7 @@ def profile_forward(model, images, supps, label):
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     if busy_ms == 0:
         log(f"profile {label}: torch.profiler recorded no device time")
-        return
+        return {}
     log(f"profile {label}: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     # each stage's range on the device timeline, first kernel to last,
@@ -788,6 +810,7 @@ def profile_forward(model, images, supps, label):
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  kernel {ms:8.2f} ms  {name[:110]}")
+    return spans
 
 
 def check_detections(dets, batch, capacity, sizes_wh):
@@ -805,6 +828,96 @@ def check_detections(dets, batch, capacity, sizes_wh):
         raise AssertionError("no detections")
     if not bool(((scores >= 0) & (scores <= 1)).all()):
         raise AssertionError("scores outside [0, 1]")
+
+
+def head_device_ms(model, images, supps):
+    """Device time of one forward's relation head: CUDA events recorded on
+    the stream just before and after the head's call, so the time runs from
+    the head's first kernel to its last (gaps included) however far the host
+    runs ahead of the card."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    inner = model._roi_head_multi_shot
+
+    def timed(*args):
+        start.record()
+        out = inner(*args)
+        end.record()
+        return out
+
+    model._roi_head_multi_shot = timed
+    try:
+        model(images, supps)
+    finally:
+        del model._roi_head_multi_shot
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def f32_forward_checks(cfg_path, dev, images, supps, card, iters=2):
+    """Phase 5b: the flagship at full width in float32 (TPU.COMPUTE_DTYPE
+    float32, TF32 off; batch 8, 832x1216 queries, 416x416 supports, 2000
+    proposals per image, so R = 16 000), with the unfused head and with K3's
+    float32 route: 0 and 1 K3 launch per forward, ms/batch, peak memory, one
+    profiled forward's stage spans, the head's device time by CUDA events
+    (``head_device_ms``), and the share of the fused run's
+    detections that pair up with the unfused run's (score rtol 5e-4, box rtol
+    1e-3; at least F32_MIN_MATCH). Returns ({cell: K3 launches}, {cell:
+    launches of every kernel}, {cell: entry})."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.ops import roi_head_fused as rf
+
+    c = default_cfg.clone()
+    c.merge_from_file(cfg_path)
+    c.merge_from_list(["TPU.COMPUTE_DTYPE", "float32"])
+    model = build_detection_model(c, device=dev, generator=torch.Generator().manual_seed(1))
+    head_launches, paths, results, dets = {}, {}, {}, {}
+    for fused in (False, True):
+        cell = "full 2000/img f32, fused head" if fused else "full 2000/img f32"
+        model.config = dataclasses.replace(model.config, fused_roi_head=fused)
+        model(images, supps)                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = model(images, supps)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        paths[f"{cell}, {iters} forwards"] = read_launches()
+        head_launches[cell] = rf.fused_roi_head_launches
+        if rf.fused_roi_head_launches != (iters if fused else 0):
+            raise AssertionError(f"{cell}: {rf.fused_roi_head_launches} roi_head launches in "
+                                 f"{iters} forwards")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        capacity = min(c.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+                       c.TPU.EVAL_ROI_TOPK or c.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST)
+        check_detections(out, BATCH, capacity, images.sizes_wh())
+        dets[fused] = [(out.xyxy[i].float().cpu().numpy()[v], out.get_field("scores")[i].float()
+                        .cpu().numpy()[v]) for i, v in enumerate(out.valid.cpu().numpy())]
+        log(f"eval forward {cell}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} float32, "
+            f"{dt * 1e3:.1f} ms/batch, {BATCH / dt:.1f} img/s, peak memory {peak:.2f} GiB, "
+            f"{int(out.valid.sum())} detections [{card}]")
+        spans = profile_forward(model, images, supps, cell)
+        head_ms = head_device_ms(model, images, supps)
+        log(f"  relation head {'(K3) ' if fused else '(layers) '}by CUDA events around its call: "
+            f"{head_ms:.2f} ms [{card}]")
+        results[cell] = dict(ms_per_batch=dt * 1e3, peak_gib=peak,
+                             roi_head_span_ms=spans.get("roi_head"), roi_head_event_ms=head_ms)
+        del out
+    counts = [max(len(a[0]), len(b[0])) for a, b in zip(dets[True], dets[False])]
+    shares = [match_fraction(a, b) for a, b in zip(dets[True], dets[False])]
+    share = sum(f * n for f, n in zip(shares, counts)) / max(1, sum(counts))
+    log(f"float32 forward, fused head vs unfused: {100 * share:.2f}% of {sum(counts)} detections "
+        f"pair up (per image min {100 * min(shares):.2f}%; score rtol 5e-4, box rtol 1e-3; "
+        f"required >= {100 * F32_MIN_MATCH:.0f}%)")
+    if share < F32_MIN_MATCH:
+        raise AssertionError(f"float32 forward: only {share:.4f} of the fused head's detections "
+                             f"match the unfused head's")
+    results["full 2000/img f32, fused head"]["match_fraction"] = share
+    del model
+    torch.cuda.empty_cache()
+    return head_launches, paths, results
 
 
 class SyntheticEpisodes:
@@ -983,7 +1096,8 @@ def main() -> int:
         log(f"nvcc {name}.cu:\n{text.strip()}")
     kernels_ptx, warnings = ptxas_report(csrc.build_logs.get("roi_head", ""))
     for kname, (regs, st, ld) in kernels_ptx.items():
-        if "head_front_bf16" in kname or "fc_gemm_bf16" in kname:
+        if any(k in kname for k in ("head_front_bf16", "fc_gemm_bf16", "head_front_tf32",
+                                    "fc_gemm_tf32")):
             log(f"ptxas roi_head.cu {kname}: {regs} registers at entry (setmaxnreg: consumers "
                 f"232, producer 40), spill stores {st} B, spill loads {ld} B")
     log(f"ptxas roi_head.cu C7508/C7513 warnings: {warnings or 'none'}")
@@ -1090,6 +1204,9 @@ def main() -> int:
             profile_forward(model, images, supps, cell)
         del model, dets
         torch.cuda.empty_cache()
+    f32_heads, f32_paths, f32_cells = f32_forward_checks(flagship, dev, images, supps, card)
+    head_launches.update(f32_heads)
+    paths.update(f32_paths)
     del images, supps
 
     # -- phase 6: the eval engine, fused head ------------------------------------
@@ -1106,6 +1223,7 @@ def main() -> int:
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
+    k3f = head_checks_result[(16000, torch.float32)]
     kernels = [{
         "name": "roi_align",
         "route": "cuda",
@@ -1141,6 +1259,16 @@ def main() -> int:
         "bound_share": k3["bound_share"],
         "bound_by": k3["bound_by"],
         "library_ms": None,
+        "max_abs_err_f32": k3f["max_abs_err"],
+        "ms_f32": k3f["ms"],
+        "plain_ms_f32": k3f["plain_ms"],
+        "bound_ms_f32": k3f["bound_ms"],
+        "bound_by_f32": k3f["bound_by"],
+        "bound_share_f32": k3f["bound_share"],
+        "unfused_head_ms_f32": k3f["unfused_ms"],
+        "ms_f32_r4096": head_checks_result[(4096, torch.float32)]["ms"],
+        "unfused_head_ms_f32_r4096": head_checks_result[(4096, torch.float32)]["unfused_ms"],
+        "f32_forward": f32_cells,
         "card": card,
     }]
     k2 = gn_checks[("relu", torch.bfloat16)]

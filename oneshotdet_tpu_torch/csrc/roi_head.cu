@@ -20,8 +20,9 @@
 // Bound. 34.8 M multiply-adds per ROI (compress 6.4 + 6.4, 3x3 14.5, fc6 6.4,
 // fc7 1.0) against 25 KB of bf16 input: far above the H100's ~295 flops per
 // byte, so the head is bound by tensor-core operations (bf16: 1.12 ms at
-// R = 16 000 at 989 TFLOP/s; fp32 has no tensor-core path at parity: 16.6 ms
-// at 67 TFLOP/s).
+// R = 16 000 at 989 TFLOP/s). fp32 at float32 accuracy takes three TF32
+// products per product (3xTF32, below): 6.75 ms at R = 16 000 at
+// 494.7 TFLOP/s, under the 16.6 ms of the same work as FP32 FMA at 67 TFLOP/s.
 //
 // bf16 design, four launches on the caller's stream:
 //   1. head_front_bf16: G = 2 ROIs per block, one consumer warpgroup each
@@ -49,8 +50,28 @@
 //      row) and pre-tiled B in flight, two consumer warpgroups of 64 rows on
 //      wgmma m64n256k16, a bias + ReLU + bf16 epilogue.
 //   3. predictor: one warp per ROI for the two small output layers.
-// fp32 uses FMA loops (no TF32): one block per ROI for the front, 64 x 64
-// tiles for fc6/fc7, the same predictor.
+// fp32 design (3xTF32 on wgmma), the same four launches:
+//   Every product a @ w runs on the tensor cores as wgmma .tf32 with float32
+//   accumulators, in three passes: v = hi + lo with hi = v rounded to tf32
+//   (cvt.rna) and lo = v - hi, and a @ w = a_lo w_hi + a_hi w_lo + a_hi w_hi,
+//   the small cross terms first (CUTLASS's 3xTF32 order); only a_lo w_lo, of
+//   relative size 2^-22, is dropped. The weights are split by the wrapper:
+//   each slice is its hi tile followed by its lo tile (TILES' *S entries).
+//   The activations are the register operand (A) and are split in registers.
+//   1. head_front_tf32: G = 2 ROIs per block and the producer warp and ring
+//      of the bf16 design, with 16 KB slices (hi | lo) in a 5-slot ring.
+//      A float32 ROI tile takes 65 KB, so per ROI there is one 64 x 260
+//      float32 region: X, then the 9x9 grid of half the channels (the 3x3
+//      conv runs as two products of depth 9 C/2), then the output tile.
+//      The normalized compress_0 chunk never leaves the registers: its
+//      accumulator fragments are compress_1's A fragments, which reads each
+//      8-column block in the order 0 2 4 6 1 3 5 7, and the wrapper permutes
+//      compress_1's rows to match.
+//   2. fc_gemm_tf32 (fc6, then fc7): fc_gemm_bf16's persistent form with
+//      128 x 128 tiles, 16-deep stages (A 8 KB, B hi | lo 16 KB), A tiled by
+//      a_tile_offset_f32 and split in registers; the tensor cores sum 64 of
+//      K at a time, and the threads add these partial sums in float32.
+//   3. predictor_kernel<float>.
 // The wrapper (oneshotdet_tpu_torch/ops/roi_head_fused.py) checks shapes,
 // dtypes, devices and contiguity and allocates the outputs and scratch; this
 // file launches and returns cudaGetLastError() after each launch.
@@ -74,35 +95,34 @@ constexpr float EPS = 1e-5f;
 constexpr float SLOPE = 0.2f;
 
 // Mirrors `struct HeadArgs` in oneshotdet_tpu_torch/ops/roi_head_fused.py.
-// The *T operands are the bf16 path's pre-tiled weights (tile_operand there).
+// The *T operands are the route's pre-tiled weights (tile_operand there):
+// bf16 tiles (TILES' *T entries), or float32 hi | lo tile pairs (*S).
+// Matrices: compress_0's query half (C, 2C); compress_1 (2C, C); the 3x3 conv
+// (9 C, C/2), k = C tap + c, taps in (ky, kx) order; fc6 (49 C/2, hidden),
+// rows in (p, q, c) order; fc7 (hidden, hidden).
 struct HeadArgs {
   const void* x;      // (R, 7, 7, C) T
   const void* yb;     // (B, 49, 2C) T: support half of compress_0 plus its bias
-  const void* c0a;    // (C, 2C) T: query half of compress_0
-  const void* c0aT;   // its 64 x 64 tiles, column-block major
+  const void* c0aT;   // bf16 64 x 64 tiles, column-block major; f32 32 x 64
   const float* gn0g;
   const float* gn0b;
-  const void* c1;     // (2C, C) T
-  const void* c1T;    // its 16 x 256 tiles
+  const void* c1T;    // bf16 16 x 256 tiles; f32 8 x 256, rows permuted
   const float* c1b;
   const float* gn1g;
   const float* gn1b;
-  const void* ag;     // (9, C, C/2) T, taps in (ky, kx) order
-  const void* agT;    // (9 C, C/2) tiled 32 x 128
+  const void* agT;    // bf16 32 x 128 tiles; f32 16 x 128 by channel half
   const float* agb;
   const float* gng;
   const float* gnb;
-  const void* fc6;    // (49 C/2, hidden) T, rows in (p, q, c) order
-  const void* fc6T;   // its 64 x 256 tiles, column-block major
+  const void* fc6T;   // bf16 64 x 256 tiles, column-block major; f32 16 x 128
   const float* fc6b;
-  const void* fc7;    // (hidden, hidden) T
-  const void* fc7T;   // its 64 x 256 tiles
+  const void* fc7T;   // as fc6T
   const float* fc7b;
   const void* pred;   // (hidden, ncls + nreg4) T: cls_score | bbox_pred
   const float* predb;
-  void* a;            // scratch (R, 49 C/2) T; bf16: tiled (a_tile_offset), rows
-                      // padded to a multiple of 128
-  void* f6;           // scratch (R, hidden) T; bf16: tiled, as a
+  void* a;            // scratch (R, 49 C/2) T, tiled (a_tile_offset or
+                      // a_tile_offset_f32), rows padded to a multiple of 128
+  void* f6;           // scratch (R, hidden) T, tiled, as a
   void* f7;           // scratch (R, hidden) T
   float* logits;      // (R, ncls)
   float* deltas;      // (R, nreg4)
@@ -839,268 +859,567 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) fc_gemm_bf16(
 }
 
 // ---------------------------------------------------------------------------
-// fp32 head_front: one block of 256 threads per ROI, FMA products on weights
-// read from global memory, GroupNorm through a float32 staging tile S.
+// fp32 route: 3xTF32 products on wgmma (see the design notes at the top).
 
-constexpr int F_THREADS = 256;
-constexpr int F_CHUNK = 128;        // compress_0 columns per pass
-constexpr int F_LDX = C + 8;        // X, and H (the 9x9 grid) over it
-constexpr int F_LDS = F_CHUNK + 8;  // S: 64 x 128 float32 staging, normalized in place
-constexpr int F_OFF_S = (GRID_ROWS * F_LDX * 4 + 127) / 128 * 128;
-constexpr int F_BYTES = F_OFF_S + ROWS * F_LDS * 4;
-static_assert(F_BYTES <= 232448 - 1024, "fp32 head_front exceeds shared memory");
-
-// A 64 x N float32 accumulator tile over the block's 256 threads: thread t
-// owns rows 4 (t / 16) .. +3 and columns t % 16 + 16 j. acc += A (64 x K in
-// shared memory; a_at(k) points at row 0, column k; row stride lda) @ B
-// (K x N, row-major, global memory).
+// wgmma m64nNk8, A (64 x 8 tf32) from registers, B (8 x N tf32, K-major)
+// from shared memory, f32 accumulators in the layout of wgmma_rs (d = A B
+// + d, or d = A B where acc is 0). Thread t
+// of warp w holds A rows 16 w + (t % 32) / 4 (+ 8 in a[1], a[3]) and columns
+// t % 4 (+ 4 in a[2], a[3]): ldmatrix.x4 of b16 pairs at wgmma_rs's lane
+// addresses yields exactly this fragment from 16-byte rows of 4 floats.
 template <int N>
-struct AccF32 {
-  static constexpr int NJ = N / 16;
-  float v[4][NJ];
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t desc, int acc);
 
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) v[i][j] = 0.f;
-  }
-  template <typename APtr>
-  __device__ void mma(APtr a_at, int lda, const float* __restrict__ B, int ldb, int K) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-    for (int k = 0; k < K; ++k) {
-      const float* a_rows = a_at(k) + ty * 4 * lda;
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = a_rows[i * lda];
-      const float* b = B + (int64_t)k * ldb + tx;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float bv = __ldg(b + 16 * j);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i][j] = fmaf(a[i], bv, v[i][j]);
-      }
-    }
-  }
-  // columns c0 .. c0 + 127 of the tile into S (columns 0 .. 127)
-  __device__ void store_cols(float* S, int lds, int c0) const {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = tx + 16 * j - c0;
-      if (col < 0 || col >= 128) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) S[(ty * 4 + i) * lds + col] = v[i][j];
-    }
-  }
-};
+#define D8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// Row of position p (0..48, p = 7 y + x) in the staging buffers: compact
-// (row p), or the 3x3 conv's output tile, whose row m' is grid row m' + 10.
-struct CompactRow {
-  __device__ int operator()(int p) const { return p; }
-};
-struct ConvOutRow {
-  __device__ int operator()(int p) const { return (p / 7) * 9 + p % 7; }
-};
-struct GridRow {  // position p in the zero-bordered 9x9 grid
-  __device__ int operator()(int p) const { return (p / 7) * 9 + p % 7 + 10; }
-};
-
-// GroupNorm statistics of S's NCOLS columns (groups of GS) over the 49
-// positions: mean and 1 / sqrt(var + eps), one warp per group, two passes.
-template <int NCOLS, int GS, typename RowOf>
-__device__ void group_stats(const float* S, int lds, RowOf row_of, float* mean_s,
-                            float* rstd_s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int n = NPOS * GS;
-  for (int g = warp; g < NCOLS / GS; g += F_THREADS / 32) {
-    const float* col = S + g * GS;
-    float sum = 0.f;
-    for (int i = lane; i < n; i += 32) sum += col[row_of(i / GS) * lds + i % GS];
-    const float mean = warp_sum(sum) / (float)n;
-    float sq = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float d = col[row_of(i / GS) * lds + i % GS] - mean;
-      sq += d * d;
-    }
-    const float var = warp_sum(sq) / (float)n;
-    if (lane == 0) {
-      mean_s[g] = mean;
-      rstd_s[g] = 1.f / sqrtf(var + EPS);
-    }
-  }
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t* a, uint64_t desc,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
-// dst[dst_row(p)][c] = leaky((S[src_row(p)][c] - mean) * rstd * gamma + beta)
-template <int NCOLS, int GS, typename SrcRow, typename DstRow>
-__device__ void gn_leaky_store(const float* S, int lds, SrcRow src_row,
-                               const float* __restrict__ gamma, const float* __restrict__ beta,
-                               const float* mean_s, const float* rstd_s, float* dst, int ldd,
-                               DstRow dst_row) {
-  for (int i = threadIdx.x; i < NPOS * NCOLS; i += F_THREADS) {
-    const int p = i / NCOLS, c = i % NCOLS, g = c / GS;
-    dst[(int64_t)dst_row(p) * ldd + c] =
-        leaky((S[src_row(p) * lds + c] - mean_s[g]) * rstd_s[g] * gamma[c] + beta[c]);
-  }
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float* d, const uint32_t* a, uint64_t desc,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
-__global__ void __launch_bounds__(F_THREADS, 1) head_front_f32(HeadArgs args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* X = reinterpret_cast<float*>(smem);
-  float* H = X;  // written once X is no longer read
-  float* S = reinterpret_cast<float*>(smem + F_OFF_S);
-  __shared__ float mean_s[32], rstd_s[32];
-
-  const int tid = threadIdx.x;
-  const int r = blockIdx.x;
-  const int img = r / args.per_image;
-  const float* c0a = static_cast<const float*>(args.c0a);
-  const float* c1 = static_cast<const float*>(args.c1);
-  const float* ag = static_cast<const float*>(args.ag);
-
-  // X <- the ROI's 49 rows (rows 49..63 zero)
-  {
-    constexpr int VPR = C * 4 / 16;  // 16-byte vectors per row
-    const uint4* src =
-        reinterpret_cast<const uint4*>(static_cast<const float*>(args.x) + (int64_t)r * NPOS * C);
-    for (int i = tid; i < ROWS * VPR; i += F_THREADS) {
-      const int row = i / VPR, v = i - row * VPR;
-      const uint4 val = row < NPOS ? src[row * VPR + v] : make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(smem + row * F_LDX * 4 + v * 16) = val;
-    }
-  }
-  __syncthreads();
-
-  // compress_0 by 128-column chunks, each normalized (in S) and fed to compress_1
-  AccF32<C> h1;
-  h1.zero();
-  const float* yb = static_cast<const float*>(args.yb) + (int64_t)img * NPOS * C2;
-  for (int chunk = 0; chunk < C2 / F_CHUNK; ++chunk) {
-    {
-      AccF32<F_CHUNK> h0;
-      h0.zero();
-      h0.mma([&](int k) { return X + k; }, F_LDX, c0a + chunk * F_CHUNK, C2, C);
-      h0.store_cols(S, F_LDS, 0);
-    }
-    __syncthreads();
-    for (int i = tid; i < NPOS * F_CHUNK; i += F_THREADS) {
-      const int p = i / F_CHUNK, c = i - p * F_CHUNK;
-      S[p * F_LDS + c] += yb[p * C2 + chunk * F_CHUNK + c];
-    }
-    __syncthreads();
-    group_stats<F_CHUNK, 16>(S, F_LDS, CompactRow(), mean_s, rstd_s);
-    __syncthreads();
-    gn_leaky_store<F_CHUNK, 16>(S, F_LDS, CompactRow(), args.gn0g + chunk * F_CHUNK,
-                                args.gn0b + chunk * F_CHUNK, mean_s, rstd_s, S, F_LDS,
-                                CompactRow());
-    for (int i = tid; i < (ROWS - NPOS) * F_CHUNK; i += F_THREADS)
-      S[(NPOS + i / F_CHUNK) * F_LDS + i % F_CHUNK] = 0.f;
-    __syncthreads();
-    h1.mma([&](int k) { return S + k; }, F_LDS, c1 + (int64_t)chunk * F_CHUNK * C, C, F_CHUNK);
-    __syncthreads();  // S is read to the end before it is written again
-  }
-
-  // compress_1, by halves of 128 columns (whole GN1 groups): + bias, GN1,
-  // leaky, into the zero-bordered 9x9 grid H
-  {
-    uint4* h = reinterpret_cast<uint4*>(H);
-    for (int i = tid; i < GRID_ROWS * F_LDX * 4 / 16; i += F_THREADS)
-      h[i] = make_uint4(0, 0, 0, 0);
-  }
-  for (int half = 0; half < 2; ++half) {
-    h1.store_cols(S, F_LDS, half * 128);
-    __syncthreads();
-    for (int i = tid; i < NPOS * 128; i += F_THREADS) {
-      const int p = i / 128, c = i % 128;
-      S[p * F_LDS + c] += args.c1b[half * 128 + c];
-    }
-    __syncthreads();
-    group_stats<128, C / 32>(S, F_LDS, CompactRow(), mean_s, rstd_s);
-    __syncthreads();
-    gn_leaky_store<128, C / 32>(S, F_LDS, CompactRow(), args.gn1g + half * 128,
-                                args.gn1b + half * 128, mean_s, rstd_s, H + half * 128, F_LDX,
-                                GridRow());
-    __syncthreads();
-  }
-
-  // 3x3 conv C -> C/2 over output grid rows 10..73 as one product of depth
-  // 9 C: tap (ky, kx) = k / C reads grid row m + 9 (ky - 1) + (kx - 1)
-  {
-    AccF32<CA> acc;
-    acc.zero();
-    acc.mma([&](int k) {
-              const int tap = k / C;
-              return H + (10 + 9 * (tap / 3 - 1) + tap % 3 - 1) * F_LDX + k % C;
-            },
-            F_LDX, ag, CA, 9 * C);
-    acc.store_cols(S, F_LDS, 0);
-  }
-  __syncthreads();
-  for (int i = tid; i < NPOS * CA; i += F_THREADS) {
-    const int p = i / CA, c = i - p * CA;
-    S[ConvOutRow()(p) * F_LDS + c] += args.agb[c];
-  }
-  __syncthreads();
-  group_stats<CA, CA / 32>(S, F_LDS, ConvOutRow(), mean_s, rstd_s);
-  __syncthreads();
-  gn_leaky_store<CA, CA / 32>(S, F_LDS, ConvOutRow(), args.gng, args.gnb, mean_s, rstd_s,
-                              static_cast<float*>(args.a) + (int64_t)r * NPOS * CA, CA,
-                              CompactRow());
+template <>
+__device__ __forceinline__ void wgmma_tf32<256>(float* d, const uint32_t* a, uint64_t desc,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80),
+        D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
+#undef D8
 
-// out[M, N] = relu(A[M, K] @ B[K, N] + bias) in fp32 FMA; N % 64 == 0,
-// K % 16 == 0. 64 x 64 block tile, 4 x 4 outputs per thread.
-constexpr int FBM = 64, FBN = 64, FBK = 16;
-
-__global__ void __launch_bounds__(F_THREADS) gemm_bias_relu_f32(
-    const float* __restrict__ A, const float* __restrict__ B, const float* __restrict__ bias,
-    float* __restrict__ out, int M, int N, int K) {
-  __shared__ float As[FBK][FBM + 4];  // transposed: As[k][m]
-  __shared__ __align__(16) float Bs[FBK][FBN];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-    {
-      const int am = tid >> 2, ak = (tid & 3) * 4;
-      const float4 a = m0 + am < M
-          ? *reinterpret_cast<const float4*>(A + (int64_t)(m0 + am) * K + k0 + ak)
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-      As[ak][am] = a.x;
-      As[ak + 1][am] = a.y;
-      As[ak + 2][am] = a.z;
-      As[ak + 3][am] = a.w;
-      const int bk = tid >> 4, bn = (tid & 15) * 4;
-      *reinterpret_cast<float4*>(&Bs[bk][bn]) =
-          *reinterpret_cast<const float4*>(B + (int64_t)(k0 + bk) * N + n0 + bn);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FBK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+// A float32 A fragment as tf32 hi (round to nearest, ties away: cvt.rna, low
+// 13 bits cleared) and lo = v - hi (exact; wgmma reads its top 19 bits).
+struct SplitFrag {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ void split_tf32(const uint32_t (&raw)[4], SplitFrag& f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-    const int gn = n0 + tx * 4;
-    float4 v;
-    v.x = fmaxf(acc[i][0] + bias[gn], 0.f);
-    v.y = fmaxf(acc[i][1] + bias[gn + 1], 0.f);
-    v.z = fmaxf(acc[i][2] + bias[gn + 2], 0.f);
-    v.w = fmaxf(acc[i][3] + bias[gn + 3], 0.f);
-    *reinterpret_cast<float4*>(out + (int64_t)gm * N + gn) = v;
+    uint32_t h;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(__uint_as_float(raw[i])));
+    h &= 0xffffe000u;
+    f.hi[i] = h;
+    f.lo[i] = __float_as_uint(__uint_as_float(raw[i]) - __uint_as_float(h));
+  }
+}
+
+// d += a @ b (d = a @ b where acc is 0) for one 8-deep block in three TF32
+// products, cross terms first; b_hi and b_lo: descriptors of B's hi and lo
+// tiles.
+template <int N>
+__device__ __forceinline__ void mma3(float* d, const SplitFrag& f, uint64_t b_hi, uint64_t b_lo,
+                                     int acc) {
+  wgmma_tf32<N>(d, f.lo, b_hi, acc);
+  wgmma_tf32<N>(d, f.hi, b_lo, 1);
+  wgmma_tf32<N>(d, f.hi, b_hi, 1);
+}
+
+// Float32 tiles of the front: rows of C + 4 (or C/2 + 4) floats, which puts
+// ldmatrix's 8 rows of 16 bytes in distinct banks.
+constexpr int T_LDX = C + 4;                  // X row stride, floats
+constexpr int T_HALF = C / 2;                 // grid channels: the 3x3 conv by halves
+constexpr int T_LDG = T_HALF + 4;             // grid row stride
+constexpr int T_LDO = CA + 4;                 // output tile row stride
+constexpr int T_TILE = 8192;                  // bytes of one hi (or lo) weight tile
+constexpr int T_SLOT = 2 * T_TILE;            // a slice: its hi tile, then its lo tile
+constexpr int T_STAGES = 5;                   // slices in the ring
+constexpr int TKD0 = T_TILE / (4 * CH);       // 32: depth of a compress_0 slice
+constexpr int TKD1 = T_TILE / (4 * C);        // 8: of a compress_1 slice
+constexpr int TKDA = T_TILE / (4 * CA);       // 16: of a 3x3 slice
+constexpr int TS0 = C / TKD0;                 // slices of one compress_0 chunk
+constexpr int TS1 = CH / TKD1;                // slices of compress_1 that one chunk feeds
+constexpr int TSA = 9 * T_HALF / TKDA;        // slices of one half of the 3x3 conv
+constexpr int T_SLICES = NCHUNK * (TS0 + TS1) + 2 * TSA;
+constexpr int T_X_BYTES = ROWS * T_LDX * 4;   // per ROI: X, then the grid, then the output
+constexpr int T_OFF_RING = G * T_X_BYTES;
+constexpr int T_OFF_BAR = T_OFF_RING + T_STAGES * T_SLOT;
+constexpr int T_OFF_PARAMS = (T_OFF_BAR + (2 * T_STAGES + G + 1) * 8 + 127) / 128 * 128;
+constexpr int T_OFF_STATS = T_OFF_PARAMS + PARAM_FLOATS * 4;
+constexpr int T_FRONT_BYTES = T_OFF_STATS + G * STATS_FLOATS * 4;
+static_assert(T_FRONT_BYTES <= 232448, "tf32 head_front exceeds shared memory");
+static_assert(GRID_ROWS * T_LDG * 4 <= T_X_BYTES, "grid does not fit in X");
+static_assert(NPOS * T_LDO * 4 <= T_X_BYTES, "output tile does not fit in X");
+static_assert(T_X_BYTES % 128 == 0, "unaligned regions");
+static_assert(TS0 % 2 == 0 && TS1 % 2 == 0 && TSA % 2 == 0, "products run slices in pairs");
+
+// fc6 / fc7 (tf32): 128 x 128 output tiles, 16-deep stages; A tiled as
+// a_tile_offset's layout with 16 floats (four 16-byte chunks) a row, chunk c
+// of row r at c ^ ((r / 2) % 4): ldmatrix's 8 rows of a chunk then fall in
+// distinct banks. The tensor cores' float32 sums of tf32 products truncate,
+// which over K = 6272 leaves fc6 biased by ~1e-5 of its outputs: each group
+// of T_PROMOTE stages is summed on its own on the tensor cores and then added
+// to the thread's float32 total in registers (round to nearest), which the
+// 64 x 128 tile a warpgroup holds leaves room for.
+constexpr int TBM = 128, TBN = 128, TBK = 16;
+constexpr int TA_BYTES = TBM * TBK * 4;
+constexpr int TB_BYTES = TBN * TBK * 4;       // one of B's hi and lo tiles
+constexpr int T_GSTAGE = TA_BYTES + 2 * TB_BYTES;
+constexpr int T_GSTAGES = 8;
+constexpr int T_PROMOTE = 4;                  // stages summed on the tensor cores at a time
+constexpr int T_GEMM_BYTES = T_GSTAGES * T_GSTAGE + 2 * T_GSTAGES * 8;
+static_assert(T_GEMM_BYTES <= 232448, "tf32 fc GEMM exceeds shared memory");
+static_assert(TBM == GBM, "fc6's A rows are padded to GBM for both routes");
+
+__device__ __forceinline__ int64_t a_tile_offset_f32(int row, int col, int ksteps) {
+  const int rr = row % TBM;
+  return (((int64_t)(row / TBM) * ksteps + col / TBK) * TBM + rr) * TBK +
+         ((((col % TBK) >> 2) ^ ((rr >> 1) & 3)) << 2) + (col & 3);
+}
+
+// d (64 x N) += A @ B over the next NSL slices of the ring, one commit group
+// per 8-deep block (two alternating fragment sets). a_frag(kb, raw) loads
+// the raw float32 A fragment of the product's block kb. A slice is released
+// (lane 0 of each warp arrives on its empty barrier) once the next slice's
+// first block is issued and its own products are done. kUnroll: unroll
+// every slice (a_frag indexes registers by kb).
+template <int N, int KD, int NSL, bool kUnroll, typename AFrag>
+__device__ __forceinline__ void tf32_product(float* d, AFrag a_frag, int& slice,
+                                             const unsigned char* ring, uint64_t* full,
+                                             uint64_t* empty) {
+  constexpr int KB = KD / 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) fence_reg(d[i]);
+  auto block = [&](int i, int kk, SplitFrag& f) {
+    const int stage = slice % T_STAGES;
+    if (kk == 0) mbar_wait(&full[stage], (slice / T_STAGES) & 1);
+    uint32_t raw[4];
+    a_frag(i * KB + kk, raw);
+    split_tf32(raw, f);
+    wgmma_fence();
+    const unsigned char* w = ring + stage * T_SLOT + kk * 256;
+    mma3<N>(d, f, smem_desc(w, 128, KD * 32), smem_desc(w + T_TILE, 128, KD * 32), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) fence_reg(d[e]);
+    wgmma_wait<1>();
+    if (kk == 0 && i > 0 && lane == 0) mbar_arrive(&empty[(slice + T_STAGES - 1) % T_STAGES]);
+    if (kk == KB - 1) ++slice;
+  };
+  SplitFrag f0, f1;
+  auto pair = [&](int i) {
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) block(i, kk, (kk & 1) ? f1 : f0);
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) block(i + 1, kk, ((KB + kk) & 1) ? f1 : f0);
+  };
+  if constexpr (kUnroll) {
+#pragma unroll
+    for (int i = 0; i < NSL; i += 2) pair(i);
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < NSL; i += 2) pair(i);
+  }
+  if constexpr (NSL > 0) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) fence_reg(d[e]);
+    if (lane == 0) mbar_arrive(&empty[(slice + T_STAGES - 1) % T_STAGES]);
+  }
+}
+
+// d <- leaky((d - mean) * rstd * gamma + beta) in place, every row.
+template <int N, int GS>
+__device__ __forceinline__ void tile_gn_regs(float* d, const float* st, const float* gamma,
+                                             const float* beta) {
+  using TGr = TileGroups<N, GS>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int g = TGr::group(j, lane), col = 8 * j + 2 * (lane & 3);
+    const float m = st[128 + g], rs = st[160 + g];
+    const float2 ga = *reinterpret_cast<const float2*>(gamma + col);
+    const float2 be = *reinterpret_cast<const float2*>(beta + col);
+    d[4 * j] = leaky((d[4 * j] - m) * rs * ga.x + be.x);
+    d[4 * j + 1] = leaky((d[4 * j + 1] - m) * rs * ga.y + be.y);
+    d[4 * j + 2] = leaky((d[4 * j + 2] - m) * rs * ga.x + be.x);
+    d[4 * j + 3] = leaky((d[4 * j + 3] - m) * rs * ga.y + be.y);
+  }
+}
+
+// The producer's slice s: compress_0 chunk by chunk (its TS0 slices, then the
+// TS1 slices of compress_1 that the chunk feeds), then the 3x3 conv's, the
+// first channel half's taps, then the second's.
+__device__ __forceinline__ const unsigned char* slice_source_tf32(const HeadArgs& args, int s) {
+  constexpr int PER_CHUNK = TS0 + TS1;
+  if (s < NCHUNK * PER_CHUNK) {
+    const int chunk = s / PER_CHUNK, i = s % PER_CHUNK;
+    return i < TS0
+        ? static_cast<const unsigned char*>(args.c0aT) + (int64_t)(chunk * TS0 + i) * T_SLOT
+        : static_cast<const unsigned char*>(args.c1T) + (int64_t)(chunk * TS1 + i - TS0) * T_SLOT;
+  }
+  return static_cast<const unsigned char*>(args.agT) + (int64_t)(s - NCHUNK * PER_CHUNK) * T_SLOT;
+}
+
+// One consumer warpgroup: ROI r's whole front in float32, from its input
+// tile to its row of `a`.
+__device__ __forceinline__ void front_consumer_tf32(const HeadArgs& args, unsigned char* smem,
+                                                    const unsigned char* ring, uint64_t* full,
+                                                    uint64_t* empty, uint64_t* xbar,
+                                                    uint64_t* pbar) {
+  const int g = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int bar = 1 + g;
+  const int r_raw = blockIdx.x * G + g;
+  const bool live = r_raw < args.rois;
+  const int r = live ? r_raw : args.rois - 1;
+  const int img = r / args.per_image;
+  unsigned char* xh = smem + g * T_X_BYTES;      // X, then the grid, then the output tile
+  float* st = reinterpret_cast<float*>(smem + T_OFF_STATS) + g * STATS_FLOATS;
+  const int r0 = 16 * warp + (lane >> 2);
+  const int a_row = 16 * warp + (lane & 15), a_half = (lane >> 4) * 16;
+  const float* P = reinterpret_cast<const float*>(smem + T_OFF_PARAMS);
+
+  // X: the producer copies the ROI's 49 rows; rows 49..63 are zero
+  for (int i = t; i < (ROWS - NPOS) * (C / 4); i += 128)
+    *reinterpret_cast<uint4*>(xh + (NPOS + (i >> 6)) * T_LDX * 4 + (i & 63) * 16) =
+        make_uint4(0, 0, 0, 0);
+  mbar_wait(&xbar[g], 0);
+  mbar_wait(pbar, 0);
+  wg_sync(bar);
+
+  int slice = 0;
+  float h1[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) h1[i] = 0.f;
+  const float* yb = static_cast<const float*>(args.yb) + (int64_t)img * NPOS * C2;
+  const uint32_t x_lane = smem_u32(xh) + a_row * T_LDX * 4 + a_half;
+#pragma unroll 1
+  for (int chunk = 0; chunk < NCHUNK; ++chunk) {
+    float h0[CH / 2];
+#pragma unroll
+    for (int i = 0; i < CH / 2; ++i) h0[i] = 0.f;
+    tf32_product<CH, TKD0, TS0, false>(
+        h0, [&](int kb, uint32_t(&raw)[4]) { ldmatrix_x4(raw, x_lane + kb * 32); }, slice, ring,
+        full, empty);
+    // + the support half, GN0, leaky, in place
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j) {
+      const int col = chunk * CH + 8 * j + 2 * (lane & 3);
+      if (r0 < NPOS) {
+        const float2 y = *reinterpret_cast<const float2*>(yb + r0 * C2 + col);
+        h0[4 * j] += y.x;
+        h0[4 * j + 1] += y.y;
+      }
+      if (r0 + 8 < NPOS) {
+        const float2 y = *reinterpret_cast<const float2*>(yb + (r0 + 8) * C2 + col);
+        h0[4 * j + 2] += y.x;
+        h0[4 * j + 3] += y.y;
+      }
+    }
+    tile_group_stats<CH, 16>(h0, r0 < NPOS, r0 + 8 < NPOS, st, bar);
+    tile_gn_regs<CH, 16>(h0, st, P + P_GN0G + chunk * CH, P + P_GN0B + chunk * CH);
+    // the chunk's accumulator fragments are compress_1's A fragments: block
+    // kb's columns 2q and 2q + 1 of rows r0, r0 + 8 (q = lane % 4) stand at
+    // A columns q and q + 4 (c1T's rows are permuted to match)
+    tf32_product<C, TKD1, TS1, true>(
+        h1,
+        [&](int kb, uint32_t(&raw)[4]) {
+          raw[0] = __float_as_uint(h0[4 * kb]);
+          raw[1] = __float_as_uint(h0[4 * kb + 2]);
+          raw[2] = __float_as_uint(h0[4 * kb + 1]);
+          raw[3] = __float_as_uint(h0[4 * kb + 3]);
+        },
+        slice, ring, full, empty);
+  }
+
+  // compress_1: + bias, GN1, leaky, in place
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 b = *reinterpret_cast<const float2*>(P + P_C1B + col);
+    h1[4 * j] += b.x;
+    h1[4 * j + 1] += b.y;
+    h1[4 * j + 2] += b.x;
+    h1[4 * j + 3] += b.y;
+  }
+  tile_group_stats<C, C / 32>(h1, r0 < NPOS, r0 + 8 < NPOS, st, bar);  // X is read to the end
+  tile_gn_regs<C, C / 32>(h1, st, P + P_GN1G, P + P_GN1B);
+  float* Hg = reinterpret_cast<float*>(xh);
+  // zero border of the 9x9 grid (x or y = 0 or 8) and rows 81..83, once:
+  // the interior stores of both halves leave it
+  for (int i = t; i < 35 * (T_HALF / 4); i += 128) {
+    const int k = i >> 5;
+    const int row = k < 9 ? k : k < 18 ? 63 + k : k < 25 ? (k - 17) * 9 : k < 32 ? (k - 24) * 9 + 8
+                                                                                  : 49 + k;
+    *reinterpret_cast<uint4*>(xh + row * T_LDG * 4 + (i & 31) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  // 3x3 conv C -> C/2 over output grid rows 10..73, by channel halves: in
+  // each, block kb (k = 8 kb) is tap k / (C/2), channel k % (C/2), at grid
+  // row m + 10 + 9 (ky - 1) + (kx - 1)
+  float acc[CA / 2];
+#pragma unroll
+  for (int i = 0; i < CA / 2; ++i) acc[i] = 0.f;
+  const uint32_t g_lane = smem_u32(xh) + (a_row + 10) * T_LDG * 4 + a_half;
+  auto grid_frag = [&](int kb, uint32_t(&raw)[4]) {
+    const int tap = kb >> 4, c = (kb & 15) * 8;
+    ldmatrix_x4(raw, g_lane + ((9 * (tap / 3 - 1) + tap % 3 - 1) * T_LDG + c) * 4);
+  };
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    // the half's channels into the grid interior (row (p / 7) 9 + p % 7 + 10)
+#pragma unroll
+    for (int j = 16 * half; j < 16 * half + 16; ++j) {
+      const int col = 8 * j + 2 * (lane & 3) - T_HALF * half;
+      if (r0 < NPOS)
+        *reinterpret_cast<float2*>(Hg + ((r0 / 7) * 9 + r0 % 7 + 10) * T_LDG + col) =
+            make_float2(h1[4 * j], h1[4 * j + 1]);
+      if (r0 + 8 < NPOS)
+        *reinterpret_cast<float2*>(Hg + (((r0 + 8) / 7) * 9 + (r0 + 8) % 7 + 10) * T_LDG + col) =
+            make_float2(h1[4 * j + 2], h1[4 * j + 3]);
+    }
+    wg_sync(bar);
+    tf32_product<CA, TKDA, TSA, false>(acc, grid_frag, slice, ring, full, empty);
+    wg_sync(bar);  // the half is read to the end before the next is stored
+  }
+#pragma unroll
+  for (int j = 0; j < CA / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 b = *reinterpret_cast<const float2*>(P + P_AGB + col);
+    acc[4 * j] += b.x;
+    acc[4 * j + 1] += b.y;
+    acc[4 * j + 2] += b.x;
+    acc[4 * j + 3] += b.y;
+  }
+  // output tile row m is position (m / 9, m % 9) where m % 9 < 7
+  const bool c0 = r0 < 63 && r0 % 9 < 7, c1 = r0 + 8 < 63 && (r0 + 8) % 9 < 7;
+  tile_group_stats<CA, CA / 32>(acc, c0, c1, st, bar);
+  tile_gn_regs<CA, CA / 32>(acc, st, P + P_GNG, P + P_GNB);
+  float* O = reinterpret_cast<float*>(xh);
+#pragma unroll
+  for (int j = 0; j < CA / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    if (c0)
+      *reinterpret_cast<float2*>(O + ((r0 / 9) * 7 + r0 % 9) * T_LDO + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (c1)
+      *reinterpret_cast<float2*>(O + (((r0 + 8) / 9) * 7 + (r0 + 8) % 9) * T_LDO + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  wg_sync(bar);
+  if (live) {  // into fc6's A, tiled (a_tile_offset_f32); k = 128 p + c
+    float* dst = static_cast<float*>(args.a);
+    for (int i = t; i < NPOS * (CA / 4); i += 128)
+      *reinterpret_cast<uint4*>(dst + a_tile_offset_f32(r, 4 * i, NPOS * CA / TBK)) =
+          *reinterpret_cast<const uint4*>(xh + (i >> 5) * T_LDO * 4 + (i & 31) * 16);
+  }
+}
+
+__global__ void __launch_bounds__(FRONT_THREADS, 1) head_front_tf32(const HeadArgs args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem + T_OFF_RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T_OFF_BAR);
+  uint64_t* empty = full + T_STAGES;
+  uint64_t* xbar = empty + T_STAGES;  // consumer g's input rows have landed
+  uint64_t* pbar = xbar + G;          // the parameters have landed
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * G);
+    }
+    for (int i = 0; i < G; ++i) mbar_init(&xbar[i], 1);
+    mbar_init(pbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * G) {  // the producer: warp 4 G
+    setmaxnreg_dec<40>();
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x - 128 * G >= 32) return;
+    float* params = reinterpret_cast<float*>(smem + T_OFF_PARAMS);
+    if (lane == 0) {
+      mbar_expect_tx(pbar, PARAM_FLOATS * 4);
+      bulk_load(params + P_GN0G, args.gn0g, C2 * 4, pbar);
+      bulk_load(params + P_GN0B, args.gn0b, C2 * 4, pbar);
+      bulk_load(params + P_GN1G, args.gn1g, C * 4, pbar);
+      bulk_load(params + P_GN1B, args.gn1b, C * 4, pbar);
+      bulk_load(params + P_C1B, args.c1b, C * 4, pbar);
+      bulk_load(params + P_GNG, args.gng, CA * 4, pbar);
+      bulk_load(params + P_GNB, args.gnb, CA * 4, pbar);
+      bulk_load(params + P_AGB, args.agb, CA * 4, pbar);
+      for (int g = 0; g < G; ++g) mbar_expect_tx(&xbar[g], NPOS * C * 4);
+    }
+    __syncwarp();
+    for (int i = lane; i < G * NPOS; i += 32) {
+      const int g = i / NPOS, row = i % NPOS;
+      const int r = min((int)blockIdx.x * G + g, args.rois - 1);
+      bulk_load(smem + g * T_X_BYTES + row * T_LDX * 4,
+                static_cast<const float*>(args.x) + ((int64_t)r * NPOS + row) * C, C * 4,
+                &xbar[g]);
+    }
+    if (lane == 0) {
+      for (int s = 0; s < T_SLICES; ++s) {
+        const int stage = s % T_STAGES;
+        if (s >= T_STAGES) mbar_wait(&empty[stage], (s / T_STAGES - 1) & 1);
+        mbar_expect_tx(&full[stage], T_SLOT);
+        bulk_load(ring + stage * T_SLOT, slice_source_tf32(args, s), T_SLOT, &full[stage]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    front_consumer_tf32(args, smem, ring, full, empty, xbar, pbar);
+  }
+}
+
+// fp32 fc6 / fc7: out[M, N] = relu(A[M, K] @ B[K, N] + bias) in 3xTF32, B
+// pre-tiled (TBK x TBN hi and lo tile pairs, column-block major), A in the
+// tiled layout of a_tile_offset_f32, out tiled so too (fc6) or row-major
+// (fc7). fc_gemm_bf16's persistent form; each stage is two bulk copies, A's
+// 8 KB and B's hi | lo 16 KB.
+template <bool kTiledOut>
+__global__ void __launch_bounds__(GEMM_THREADS, 1) fc_gemm_tf32(
+    const float* __restrict__ A, const float* __restrict__ Bs, const float* __restrict__ bias,
+    float* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T_GSTAGES * T_GSTAGE);
+  uint64_t* empty = full + T_GSTAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T_GSTAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles_n = N / TBN, ksteps = K / TBK;
+  const int tiles = (M + TBM - 1) / TBM * tiles_n;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 256) {  // the producer: one thread of warp 8
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int mb = tile / tiles_n, nb = tile % tiles_n;
+        for (int kb = 0; kb < ksteps; ++kb, ++it) {
+          const int stage = it % T_GSTAGES;
+          if (it >= T_GSTAGES) mbar_wait(&empty[stage], (it / T_GSTAGES - 1) & 1);
+          unsigned char* sa = smem + stage * T_GSTAGE;
+          mbar_expect_tx(&full[stage], T_GSTAGE);
+          bulk_load(sa, A + ((int64_t)mb * ksteps + kb) * TBM * TBK, TA_BYTES, &full[stage]);
+          bulk_load(sa + TA_BYTES, Bs + ((int64_t)nb * ksteps + kb) * 2 * TBN * TBK,
+                    2 * TB_BYTES, &full[stage]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+    // ldmatrix row of this lane and its 16-byte chunk within a block before
+    // the swizzle
+    const int a_row = 64 * wg + 16 * warp + (lane & 15), a_chunk = lane >> 4;
+    float acc[TBN / 2], tot[TBN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * TBM, n0 = tile % tiles_n * TBN;
+#pragma unroll
+      for (int i = 0; i < TBN / 2; ++i) {
+        acc[i] = 0.f;
+        tot[i] = 0.f;
+        fence_reg(acc[i]);
+      }
+      auto block = [&](int kb, int kk, SplitFrag& f, int keep) {
+        const int stage = it % T_GSTAGES;
+        if (kk == 0) mbar_wait(&full[stage], (it / T_GSTAGES) & 1);
+        const unsigned char* sa = smem + stage * T_GSTAGE;
+        uint32_t raw[4];
+        ldmatrix_x4(raw, smem_u32(sa) + a_row * TBK * 4 +
+                             (((2 * kk + a_chunk) ^ ((a_row >> 1) & 3)) << 4));
+        split_tf32(raw, f);
+        wgmma_fence();
+        const unsigned char* b = sa + TA_BYTES + kk * 256;
+        mma3<TBN>(acc, f, smem_desc(b, 128, TBK * 32), smem_desc(b + TB_BYTES, 128, TBK * 32),
+                  keep);
+        wgmma_commit();
+#pragma unroll
+        for (int e = 0; e < TBN / 2; ++e) fence_reg(acc[e]);
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kk == 0 && kb > 0 && lane == 0) mbar_arrive(&empty[(it + T_GSTAGES - 1) % T_GSTAGES]);
+        if (kk == 1) ++it;
+      };
+      SplitFrag f0, f1;
+#pragma unroll 1
+      for (int kb = 0; kb < ksteps; ++kb) {
+        block(kb, 0, f0, kb % T_PROMOTE != 0);   // a group starts its own sum
+        block(kb, 1, f1, 1);
+        if (kb % T_PROMOTE == T_PROMOTE - 1) {
+          wgmma_wait<0>();
+#pragma unroll
+          for (int e = 0; e < TBN / 2; ++e) {
+            fence_reg(acc[e]);
+            tot[e] += acc[e];
+            fence_reg(acc[e]);
+          }
+        }
+      }
+      if (lane == 0) mbar_arrive(&empty[(it + T_GSTAGES - 1) % T_GSTAGES]);
+      // epilogue: + bias, ReLU (the producer already fills the next tile's stages)
+      const int row = m0 + 64 * wg + 16 * warp + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < TBN / 8; ++j) {
+        const int c = n0 + 8 * j + 2 * (lane & 3);
+        const float2 b = *reinterpret_cast<const float2*>(bias + c);
+        const float2 v0 = make_float2(fmaxf(tot[4 * j] + b.x, 0.f), fmaxf(tot[4 * j + 1] + b.y, 0.f));
+        const float2 v1 =
+            make_float2(fmaxf(tot[4 * j + 2] + b.x, 0.f), fmaxf(tot[4 * j + 3] + b.y, 0.f));
+        if (kTiledOut) {
+          *reinterpret_cast<float2*>(out + a_tile_offset_f32(row, c, N / TBK)) = v0;
+          *reinterpret_cast<float2*>(out + a_tile_offset_f32(row + 8, c, N / TBK)) = v1;
+        } else {
+          if (row < M) *reinterpret_cast<float2*>(out + (int64_t)row * N + c) = v0;
+          if (row + 8 < M) *reinterpret_cast<float2*>(out + (int64_t)(row + 8) * N + c) = v1;
+        }
+      }
+    }
   }
 }
 
@@ -1144,24 +1463,66 @@ int launch_front_bf16(const HeadArgs& args, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <bool kTiledOut>
-int launch_gemm_bf16(const void* a, const void* bt, const float* bias, void* out, int m, int n,
-                     int k, cudaStream_t s) {
+// The current device's SM count (the persistent GEMMs' grid), or 0 and the
+// error in *err.
+int sm_count(cudaError_t* err) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
+    *err = cudaGetDevice(&dev);
+    if (*err == cudaSuccess)
+      *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err != cudaSuccess) return 0;
   }
-  cudaError_t e = cudaFuncSetAttribute(fc_gemm_bf16<kTiledOut>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_BYTES);
+  return sms;
+}
+
+template <bool kTiledOut>
+int launch_gemm_bf16(const void* a, const void* bt, const float* bias, void* out, int m, int n,
+                     int k, cudaStream_t s) {
+  cudaError_t e = cudaSuccess;
+  const int sms = sm_count(&e);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(fc_gemm_bf16<kTiledOut>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_BYTES);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (m + GBM - 1) / GBM * (n / GBN);
   fc_gemm_bf16<kTiledOut><<<tiles < sms ? tiles : sms, GEMM_THREADS, GEMM_BYTES, s>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(bt), bias, static_cast<bf16*>(out), m,
       n, k);
   return (int)cudaGetLastError();
+}
+
+int launch_front_tf32(const HeadArgs& args, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(head_front_tf32,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T_FRONT_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  head_front_tf32<<<(args.rois + G - 1) / G, FRONT_THREADS, T_FRONT_BYTES, s>>>(args);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTiledOut>
+int launch_gemm_tf32(const void* a, const void* bs, const float* bias, void* out, int m, int n,
+                     int k, cudaStream_t s) {
+  cudaError_t e = cudaSuccess;
+  const int sms = sm_count(&e);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(fc_gemm_tf32<kTiledOut>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, T_GEMM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (m + TBM - 1) / TBM * (n / TBN);
+  fc_gemm_tf32<kTiledOut><<<tiles < sms ? tiles : sms, GEMM_THREADS, T_GEMM_BYTES, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(bs), bias, static_cast<float*>(out),
+      m, n, k);
+  return (int)cudaGetLastError();
+}
+
+int launch_fc_tf32(const HeadArgs& args, cudaStream_t s) {
+  int rc = launch_gemm_tf32<true>(args.a, args.fc6T, args.fc6b, args.f6, args.rois, args.hidden,
+                                  NPOS * CA, s);
+  if (rc != 0) return rc;
+  return launch_gemm_tf32<false>(args.f6, args.fc7T, args.fc7b, args.f7, args.rois, args.hidden,
+                                 args.hidden, s);
 }
 
 // fc6 (tiled out, fc7's A) then fc7 (row-major out, the predictor's input),
@@ -1195,21 +1556,10 @@ int oneshot_roi_head_forward(const void* argp, void* stream) {
     if ((rc = launch_fc(args, s)) != 0) return rc;
     predictor_kernel<bf16><<<(m + 7) / 8, 256, 0, s>>>(args);
   } else if (args.dtype == 0) {
-    if (hid % FBN != 0 || k6 % FBK != 0 || hid % FBK != 0) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(head_front_f32,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    head_front_f32<<<m, F_THREADS, F_BYTES, s>>>(args);
-    if ((rc = (int)cudaGetLastError()) != 0) return rc;
-    const dim3 grid(hid / FBN, (m + FBM - 1) / FBM);
-    gemm_bias_relu_f32<<<grid, F_THREADS, 0, s>>>(
-        static_cast<const float*>(args.a), static_cast<const float*>(args.fc6), args.fc6b,
-        static_cast<float*>(args.f6), m, hid, k6);
-    if ((rc = (int)cudaGetLastError()) != 0) return rc;
-    gemm_bias_relu_f32<<<grid, F_THREADS, 0, s>>>(
-        static_cast<const float*>(args.f6), static_cast<const float*>(args.fc7), args.fc7b,
-        static_cast<float*>(args.f7), m, hid, hid);
-    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    if (hid % TBN != 0 || k6 % (TBK * T_PROMOTE) != 0 || hid % (TBK * T_PROMOTE) != 0)
+      return (int)cudaErrorInvalidValue;
+    if ((rc = launch_front_tf32(args, s)) != 0) return rc;
+    if ((rc = launch_fc_tf32(args, s)) != 0) return rc;
     predictor_kernel<float><<<(m + 7) / 8, 256, 0, s>>>(args);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -73,7 +73,7 @@ class ROIBoxHead(nn.Module):
         c = in_channels
         self.in_channels = c
         self.resolution = resolution
-        self._fused_cache = None
+        self._fused_cache = {}         # dtype -> (parameter key, operands)
         self.compress_dim_conv = nn.Sequential(
             Conv2d(2 * c, 2 * c, 1), GroupNorm(32, 2 * c, eps=1e-5), nn.LeakyReLU(0.2),
             Conv2d(2 * c, c, 1), GroupNorm(32, c, eps=1e-5), nn.LeakyReLU(0.2),
@@ -86,12 +86,15 @@ class ROIBoxHead(nn.Module):
         self.predictor = FPNPredictor(representation_size, num_classes, num_bbox_reg)
 
     def _fused_operands(self, dtype: torch.dtype):
-        """Kernel operands of the current parameters, packed once and packed
-        again after any of them changes (load_state_dict, in-place edits)."""
-        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._fused_cache is None or self._fused_cache[0] != key:
-            self._fused_cache = (key, kernel_operands(pack_roi_head_params(self), dtype))
-        return self._fused_cache[1]
+        """Kernel operands of the current parameters for ``dtype``, packed
+        once per dtype and packed again after any parameter changes
+        (load_state_dict, in-place edits)."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        cached = self._fused_cache.get(dtype)
+        if cached is None or cached[0] != key:
+            cached = (key, kernel_operands(pack_roi_head_params(self), dtype))
+            self._fused_cache[dtype] = cached
+        return cached[1]
 
     def forward(self, roi_feats: torch.Tensor, supp_feats: torch.Tensor,
                 use_fused: bool = False):

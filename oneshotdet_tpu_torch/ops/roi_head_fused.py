@@ -83,14 +83,32 @@ def pack_roi_head_params(head) -> Dict[str, torch.Tensor]:
     }
 
 
-# Depth and width of the tiles of each pre-tiled operand, as the bf16 kernel
-# reads them (csrc/roi_head.cu: KD0, KD1, KDA; GBK x GBN): one 8 KB weight
-# slice of head_front, or one B tile of the fc6/fc7 GEMM.
+# The pre-tiled weights of each route, as its kernel reads them
+# (csrc/roi_head.cu): key -> (matrix, tile depth, tile width). bf16 (*T):
+# one 8 KB weight slice of head_front (KD0, KD1, KDA) or one GBK x GBN B tile
+# of the fc6/fc7 GEMM. float32 (*S, 3xTF32): each tile is a hi | lo pair
+# (``tile_operand_split``) of one 16 KB slice (TKD0, TKD1, TKDA) or one
+# TBK x TBN B stage; compress_1's rows and the 3x3's taps in the kernel's
+# order (``tf32_tile_source``).
 TILES = {"c0aT": ("c0a", 64, 64), "c1T": ("c1", 16, 256), "agT": ("ag", 32, 128),
-         "fc6T": ("fc6", 64, 256), "fc7T": ("fc7", 64, 256)}
+         "fc6T": ("fc6", 64, 256), "fc7T": ("fc7", 64, 256),
+         "c0aS": ("c0a", 32, 64), "c1S": ("c1", 8, 256), "agS": ("ag", 16, 128),
+         "fc6S": ("fc6", 16, 128), "fc7S": ("fc7", 16, 128)}
+# the tiles each route's kernel reads, in HeadArgs' order (c0aT, c1T, agT,
+# fc6T, fc7T)
+ROUTE_TILES = {torch.bfloat16: ("c0aT", "c1T", "agT", "fc6T", "fc7T"),
+               torch.float32: ("c0aS", "c1S", "agS", "fc6S", "fc7S")}
 FC_TILE_N = 256   # hidden must be a multiple of the GEMM's tile width
 A_TILE_ROWS = 128  # the GEMM's A operand: rows padded to whole tiles
+F32_A_TILE_K = 16  # ... and in float32 cut into blocks of 16 columns
 KERNEL_CHANNELS = 256   # the C the kernel takes; its 3x3 conv writes C // 2
+# head_front_tf32 feeds each normalized compress_0 block of 8 columns to
+# compress_1 straight from its accumulator registers, where a thread's A
+# columns q and q + 4 hold accumulator columns 2q and 2q + 1: A column k of a
+# block is accumulator column A_FRAG_COLUMNS[k], and compress_1's rows are
+# taken in that order.
+A_FRAG_COLUMNS = (0, 2, 4, 6, 1, 3, 5, 7)
+TF32_MASK = -(1 << 13)   # 0xffffe000: the 19 bits of a tf32 in a float32
 
 
 def check_kernel_widths(in_channels: int, conv_out: int, hidden: int) -> None:
@@ -115,20 +133,97 @@ def tile_operand(w: torch.Tensor, kd: int, nb: int) -> torch.Tensor:
     return t.permute(3, 0, 4, 1, 5, 2).contiguous().reshape(-1)
 
 
-def kernel_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict:
+def tile_operand_tf32(w: torch.Tensor, kd: int, nb: int) -> torch.Tensor:
+    """(K, N) float32 -> the 1-D sequence of their kd x nb tiles, column
+    block major, each in wgmma's no-swizzle K-major core-matrix order for
+    tf32 (a core matrix is 8 columns of 4 rows): element (k, n) of a tile at
+    (n // 8) kd 8 + (k // 4) 32 + (n % 8) 4 + k % 4."""
+    k, n = w.shape
+    t = w.reshape(k // kd, kd // 4, 4, n // nb, nb // 8, 8)   # kb, kh, kl, nb, nh, nl
+    return t.permute(3, 0, 4, 1, 5, 2).contiguous().reshape(-1)
+
+
+def _as_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous().view(torch.int32)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to tf32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32; the low 13 bits are zero. Finite inputs."""
+    bits = _as_bits(t)
+    sign = bits & (-(1 << 31))
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & TF32_MASK
+    return (sign | mag).view(torch.float32)
+
+
+def tf32_truncate(t: torch.Tensor) -> torch.Tensor:
+    """The tf32 value the tensor cores read from a float32 operand: its low
+    13 bits dropped."""
+    return (_as_bits(t) & TF32_MASK).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32_round(t) and lo = t - hi: hi + lo == t exactly."""
+    hi = tf32_round(t)
+    return hi, t.to(torch.float32) - hi
+
+
+def tile_operand_split(w: torch.Tensor, kd: int, nb: int) -> torch.Tensor:
+    """(K, N) float32 -> its kd x nb tiles as in ``tile_operand_tf32``, each
+    tile of hi followed by the same tile of lo (``split_tf32``)."""
+    hi, lo = (tile_operand_tf32(v, kd, nb).reshape(-1, kd * nb) for v in split_tf32(w))
+    return torch.stack([hi, lo], dim=1).reshape(-1)
+
+
+def a_tile_offset_f32(row: torch.Tensor, col: torch.Tensor, ksteps: int) -> torch.Tensor:
+    """Where the float32 route keeps element (row, col) of fc6's and fc7's A
+    operand (csrc/roi_head.cu a_tile_offset_f32): 128 x 16 blocks, row-block
+    major, each row-major with 16-byte chunk c of row r at c ^ (r / 2 % 4)."""
+    rr, kb = row % A_TILE_ROWS, F32_A_TILE_K
+    return ((((row // A_TILE_ROWS) * ksteps + col // kb) * A_TILE_ROWS + rr) * kb
+            + ((((col % kb) >> 2) ^ ((rr >> 1) & 3)) << 2) + (col & 3))
+
+
+def untile_f32_rows(tiled: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The first ``rows`` rows of a float32 A operand in the layout of
+    ``a_tile_offset_f32`` with ``cols`` columns, as a (rows, cols) matrix."""
+    r = torch.arange(rows, device=tiled.device)[:, None]
+    c = torch.arange(cols, device=tiled.device)[None, :]
+    return tiled.reshape(-1)[a_tile_offset_f32(r, c, cols // F32_A_TILE_K)]
+
+
+def tf32_tile_source(ops: Dict, key: str) -> torch.Tensor:
+    """The (K, N) matrix that the float32 tiles ``key`` hold, rows in the
+    order head_front_tf32 reads them: compress_1's rows within each block of
+    8 in ``A_FRAG_COLUMNS`` order; the 3x3 conv's rows by channel half, then
+    tap, then channel (k = 9 (C/2) half + (C/2) tap + c)."""
+    src = ops[TILES[key][0]]
+    if key == "c1S":
+        order = torch.arange(src.shape[0]).reshape(-1, 8)[:, list(A_FRAG_COLUMNS)].reshape(-1)
+        return src[order]
+    if key == "agS":
+        taps, c, ca = src.shape
+        return src.reshape(taps, 2, c // 2, ca).permute(1, 0, 2, 3).reshape(taps * c, ca)
+    return src.reshape(-1, src.shape[-1])
+
+
+def kernel_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype,
+                    tiles: bool = True) -> Dict:
     """Packed float32 params -> the operands of one dtype: matrices in
     ``dtype``, biases and GN factors float32, the query and support halves of
-    compress_0 apart, cls and box side by side, and the bf16 kernel's
-    pre-tiled weights (``TILES``; each only where its matrix is whole tiles,
-    so fc6's and fc7's only where hidden is a multiple of ``FC_TILE_N``).
-    Operands already of ``dtype`` are returned as they are."""
-    if w.get("dtype") == dtype:
+    compress_0 apart, cls and box side by side, and, with ``tiles``, the
+    pre-tiled weights that this dtype's kernel reads (``ROUTE_TILES``; each
+    only where its matrix is whole tiles, so fc6's and fc7's only where
+    hidden is a multiple of ``FC_TILE_N``). Operands already of ``dtype``
+    (with tiles, if asked) are returned as they are."""
+    if w.get("dtype") == dtype and (w.get("tiled") or not tiles):
         return w
     c = w["c0"].shape[0] // 2
     mat = lambda t: t.to(dtype).contiguous()
     vec = lambda t: t.to(torch.float32).contiguous()
     ops = {
         "dtype": dtype,
+        "tiled": tiles,
         "ncls": w["cls"].shape[1],
         "c0a": mat(w["c0"][:c]), "c0s": mat(w["c0"][c:]), "c0b": vec(w["c0b"]),
         "gn0g": vec(w["gn0g"]), "gn0b": vec(w["gn0b"]),
@@ -141,10 +236,14 @@ def kernel_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict:
         "pred": mat(torch.cat([w["cls"], w["box"]], dim=1)),
         "predb": vec(torch.cat([w["clsb"], w["boxb"]])),
     }
-    for key, (src, kd, nb) in TILES.items():
-        m = ops[src].reshape(-1, ops[src].shape[-1])        # ag: (9 C, C/2), k = C tap + c
+    for key in ROUTE_TILES.get(dtype, ()) if tiles else ():
+        _, kd, nb = TILES[key]
+        split = dtype == torch.float32
+        m = tf32_tile_source(ops, key) if split else ops[TILES[key][0]].reshape(
+            -1, ops[TILES[key][0]].shape[-1])                 # ag: (9 C, C/2), k = C tap + c
         whole = m.shape[0] % kd == 0 and m.shape[1] % nb == 0
-        ops[key] = tile_operand(m, kd, nb) if whole else None
+        ops[key] = None if not whole else (
+            tile_operand_split(m, kd, nb) if split else tile_operand(m, kd, nb))
     return ops
 
 
@@ -168,18 +267,13 @@ def _gn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tenso
     return (d * torch.rsqrt(var + EPS)).reshape(r, s, ch) * gamma + beta
 
 
-def fused_roi_head_plain(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict,
-                         per_image: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch fused head (any device): the kernel's arithmetic."""
+def head_front_chain(roi_feats, supp_7x7, ops, per_image, mm):
+    """Steps 1-4 on ``ops`` with the product ``mm(a, w)`` (float32 out):
+    ``a`` (R, 49 C/2) in the input dtype, (p, q, c) order."""
     dtype = roi_feats.dtype
-    ops = kernel_operands(w, dtype)
     r, c = roi_feats.shape[0], roi_feats.shape[-1]
     b = supp_7x7.shape[0]
     f32 = torch.float32
-
-    def mm(a, m):
-        return a.to(dtype).to(f32) @ m.to(f32)
-
     yb = support_half(supp_7x7, ops).to(f32)
     h = mm(roi_feats.reshape(b, per_image, 49, c), ops["c0a"]) + yb[:, None]
     h = _leaky(_gn(h.reshape(r, 49, 2 * c), ops["gn0g"], ops["gn0b"]))
@@ -189,18 +283,61 @@ def fused_roi_head_plain(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dic
     for tap in range(9):
         ky, kx = divmod(tap, 3)
         acc = acc + mm(grid[:, ky:ky + 7, kx:kx + 7].reshape(r, 49, c), ops["ag"][tap])
-    a = _leaky(_gn(acc, ops["gng"], ops["gnb"])).to(dtype)
-    f = torch.relu(mm(a.reshape(r, -1), ops["fc6"]) + ops["fc6b"])
+    return _leaky(_gn(acc, ops["gng"], ops["gnb"])).to(dtype).reshape(r, -1)
+
+
+def _head_chain(roi_feats, supp_7x7, ops, per_image, mm):
+    """The head's chain on ``ops`` with the product ``mm(a, w)`` (float32
+    out) for compress_0's query half, compress_1, the 3x3 taps, fc6 and fc7;
+    the predictor is a float32 product."""
+    dtype = roi_feats.dtype
+    a = head_front_chain(roi_feats, supp_7x7, ops, per_image, mm)
+    f = torch.relu(mm(a, ops["fc6"]) + ops["fc6b"])
     f = torch.relu(mm(f, ops["fc7"]) + ops["fc7b"])
-    out = mm(f, ops["pred"]) + ops["predb"]
+    out = f.to(dtype).float() @ ops["pred"].float() + ops["predb"]
     return out[:, :ops["ncls"]], out[:, ops["ncls"]:]
+
+
+def fused_roi_head_plain(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict,
+                         per_image: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch fused head (any device): the kernel's arithmetic,
+    with the products' inputs rounded to the input dtype and float32 sums."""
+    dtype = roi_feats.dtype
+
+    def mm(a, m):
+        return a.to(dtype).to(torch.float32) @ m.to(torch.float32)
+
+    return _head_chain(roi_feats, supp_7x7, kernel_operands(w, dtype, tiles=False),
+                       per_image, mm)
+
+
+def mm_3xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A plain mirror of the float32 kernel's product (for the tests):
+    a @ w as a_lo w_hi + a_hi w_lo + a_hi w_hi, in that order, with hi and lo
+    from ``split_tf32`` and each lo truncated to tf32 where the tensor cores
+    read it; each product's terms are exact in float32 and summed in
+    float32."""
+    a_hi, a_lo = split_tf32(a)
+    w_hi, w_lo = split_tf32(w)
+    a_lo, w_lo = tf32_truncate(a_lo), tf32_truncate(w_lo)
+    return (a_lo @ w_hi + a_hi @ w_lo) + a_hi @ w_hi
+
+
+def fused_roi_head_tf32_mirror(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict,
+                               per_image: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 head with the kernel's 3xTF32 products (``mm_3xtf32``),
+    for the tests: float32 inputs only."""
+    if roi_feats.dtype != torch.float32:
+        raise ValueError("the 3xTF32 mirror takes float32 inputs")
+    return _head_chain(roi_feats, supp_7x7,
+                       kernel_operands(w, torch.float32, tiles=False), per_image, mm_3xtf32)
 
 
 class _HeadArgs(ctypes.Structure):
     # mirrors `struct HeadArgs` in csrc/roi_head.cu
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "x", "yb", "c0a", "c0aT", "gn0g", "gn0b", "c1", "c1T", "c1b", "gn1g", "gn1b",
-        "ag", "agT", "agb", "gng", "gnb", "fc6", "fc6T", "fc6b", "fc7", "fc7T", "fc7b",
+        "x", "yb", "c0aT", "gn0g", "gn0b", "c1T", "c1b", "gn1g", "gn1b",
+        "agT", "agb", "gng", "gnb", "fc6T", "fc6b", "fc7T", "fc7b",
         "pred", "predb",
         "a", "f6", "f7", "logits", "deltas")] + [(n, ctypes.c_int) for n in (
         "rois", "per_image", "hidden", "ncls", "nreg4", "dtype")]
@@ -228,8 +365,11 @@ def _check(cond: bool, msg: str):
 
 
 def fused_roi_head_cuda(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict,
-                        per_image: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raises on any input it does not take."""
+                        per_image: int, scratch: Dict = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel; raises on any input it does not take. A
+    ``scratch`` dict receives the kernel's intermediates: ``a`` (fc6's input)
+    and ``f6`` in the tiled layout (float32: ``untile_f32_rows``), ``f7``
+    row-major."""
     global fused_roi_head_launches
     dev = roi_feats.device
     _check(dev.type == "cuda", "roi_feats must be a CUDA tensor")
@@ -248,8 +388,11 @@ def fused_roi_head_cuda(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict
     _check(ops["fc6"].shape == (49 * 128, hidden) and hidden % FC_TILE_N == 0,
            f"fc6 {tuple(ops['fc6'].shape)} must be (6272, hidden), hidden % {FC_TILE_N} == 0")
     _check(npred <= MAX_PRED, f"{npred} predictor outputs (at most {MAX_PRED})")
-    # the bf16 kernel bulk-copies the input rows, the GN parameters and the
-    # weight tiles: 16-byte aligned sources
+    tiles = ROUTE_TILES[dtype]
+    _check(all(ops.get(k) is not None for k in tiles),
+           f"operands {tiles} (kernel_operands with tiles) must be present")
+    # the kernels bulk-copy the input rows, the GN parameters and the weight
+    # tiles: 16-byte aligned sources
     _check(roi_feats.data_ptr() % 16 == 0, "roi_feats must be 16-byte aligned")
     for k, v in ops.items():
         if isinstance(v, torch.Tensor):
@@ -261,17 +404,19 @@ def fused_roi_head_cuda(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict
     if r == 0:
         return logits, deltas
     yb = support_half(supp_7x7, ops).contiguous()
-    # bf16: fc6's and fc7's A operands are tiled in blocks of 128 rows
+    # fc6's and fc7's A operands are tiled in blocks of 128 rows
     rows = -(-r // A_TILE_ROWS) * A_TILE_ROWS
     a = torch.empty((rows, 49 * 128), dtype=dtype, device=dev)
     f6 = torch.empty((rows, hidden), dtype=dtype, device=dev)
     f7 = torch.empty((r, hidden), dtype=dtype, device=dev)
+    if scratch is not None:
+        scratch.update(a=a, f6=f6, f7=f7)
 
+    c0, c1, ag, fc6, fc7 = tiles
     args = _HeadArgs(
         roi_feats.data_ptr(), yb.data_ptr(), *(ops[k].data_ptr() for k in (
-            "c0a", "c0aT", "gn0g", "gn0b", "c1", "c1T", "c1b", "gn1g", "gn1b", "ag", "agT",
-            "agb", "gng", "gnb", "fc6", "fc6T", "fc6b", "fc7", "fc7T", "fc7b", "pred",
-            "predb")),
+            c0, "gn0g", "gn0b", c1, "c1b", "gn1g", "gn1b", ag, "agb", "gng", "gnb",
+            fc6, "fc6b", fc7, "fc7b", "pred", "predb")),
         a.data_ptr(), f6.data_ptr(), f7.data_ptr(), logits.data_ptr(), deltas.data_ptr(),
         r, per_image, hidden, ncls, npred - ncls, _DTYPE_CODE[dtype])
     lib = _kernel()

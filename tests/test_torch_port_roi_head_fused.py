@@ -11,33 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from oneshotdet_tpu.models.roi_head import ROIBoxHeadNet
 from oneshotdet_tpu.ops.pallas_roi_head import _pick_t, pallas_roi_head, roi_head_params_from_module
 from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead
 from oneshotdet_tpu_torch.ops import roi_head_fused as rf
-from oneshotdet_tpu_torch.utils.weights import state_dict_from_flax
-from torch_port_common import random_tree, t
+from torch_port_common import relation_head_setup as _setup, t
 
 # Both sides run float32 chains (JAX at HIGHEST precision); only the order of
 # the sums differs, on outputs of order 1.
 ATOL = 1e-4
-
-
-def _setup(b, p, seed=0):
-    """Seeded flax params of the head, the port's head loaded with them, and
-    (B * P, 7, 7, 256) ROI and (B, 7, 7, 256) support features."""
-    rng = np.random.RandomState(seed)
-    roi = rng.randn(b * p, 7, 7, 256).astype(np.float32)
-    supp = rng.randn(b, 7, 7, 256).astype(np.float32)
-    net = ROIBoxHeadNet(in_channels=256, num_classes=2, num_bbox_reg=2)
-    shapes = jax.eval_shape(lambda: net.init(jax.random.PRNGKey(0), jnp.asarray(roi),
-                                             jnp.asarray(supp)))
-    params = random_tree(shapes["params"], rng)
-    head = ROIBoxHead()
-    prefix = "roi_heads.box."
-    head.load_state_dict({k[len(prefix):]: v for k, v in state_dict_from_flax(
-        {"params": {"roi_head": params}}).items()}, strict=True)
-    return params, head, roi, supp
 
 
 @pytest.fixture(scope="module")

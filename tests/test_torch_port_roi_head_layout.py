@@ -1,5 +1,5 @@
-"""Layouts the bf16 fused-head kernel (oneshotdet_tpu_torch/csrc/roi_head.cu)
-relies on, checked on the CPU: the pre-tiled weights of ``kernel_operands``
+"""Layouts the bf16 route of the fused-head kernel
+(oneshotdet_tpu_torch/csrc/roi_head.cu) relies on, checked on the CPU: the pre-tiled weights of ``kernel_operands``
 unpack exactly to ``pack_roi_head_params``'s matrices, the kernel's blocks of
 G ROIs never span two images at any per-image count the gate admits, and the
 ctypes mirror of ``struct HeadArgs`` matches the C struct field for field.
@@ -50,9 +50,14 @@ def _source(w, key):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("key", sorted(rf.TILES))
+@pytest.mark.parametrize("key", sorted(rf.ROUTE_TILES[torch.bfloat16]))
 def test_tiled_operands_unpack_to_the_packed_matrices(packed, key, dtype):
+    """The bf16 kernel's tiles; float32 operands carry none of them (the
+    float32 kernel reads its own, tests/test_torch_port_roi_head_tf32.py)."""
     ops = rf.kernel_operands(packed, dtype)
+    if dtype == torch.float32:
+        assert ops.get(key) is None
+        return
     want = _source(packed, key).to(dtype)
     src, kd, nb = rf.TILES[key]
     tiled = ops[key]

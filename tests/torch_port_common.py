@@ -100,6 +100,27 @@ def t(x, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a if dtype is None else a.astype(dtype)))
 
 
+def relation_head_setup(b, p, seed=0):
+    """Seeded flax params of the relation head, the port's ``ROIBoxHead``
+    loaded with them, and (B * P, 7, 7, 256) ROI and (B, 7, 7, 256) support
+    features (numpy float32)."""
+    from oneshotdet_tpu.models.roi_head import ROIBoxHeadNet
+    from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead
+
+    rng = np.random.RandomState(seed)
+    roi = rng.randn(b * p, 7, 7, 256).astype(np.float32)
+    supp = rng.randn(b, 7, 7, 256).astype(np.float32)
+    net = ROIBoxHeadNet(in_channels=256, num_classes=2, num_bbox_reg=2)
+    shapes = jax.eval_shape(lambda: net.init(jax.random.PRNGKey(0), jnp.asarray(roi),
+                                             jnp.asarray(supp)))
+    params = random_tree(shapes["params"], rng)
+    head = ROIBoxHead()
+    prefix = "roi_heads.box."
+    head.load_state_dict({k[len(prefix):]: v for k, v in state_dict_from_flax(
+        {"params": {"roi_head": params}}).items()}, strict=True)
+    return params, head, roi, supp
+
+
 def make_setup():
     """Seeded inputs and weights for both packages: batch 2, 64x64 queries,
     32x32 supports, the flagship config at test capacities."""
