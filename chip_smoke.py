@@ -7,11 +7,13 @@ fused relation head K3, GroupNorm K2, the cross-ROI ROIAlign variants K4 and
 K5), holds each against its plain PyTorch version at the shapes its path
 gives it (K1 also at its edge cases and on the FCOS-like p3-skew mix, with
 its per-ROI plan against the Python mirror; K2 on the FCOS tower's P3-P7
-with its backward; K4 and K5 on K1's proposal cases, with K5's window
-clamp), drives the paths of the kernels
-that no model runs (FusedGroupNorm over the tower levels; the port's tools
-tune_roialign_v3, ablate_v4, tune_roi_head and, for K3's float32 route,
-ablate_roi_head at reduced counts), then the flagship one-shot detector
+and at narrower channel widths, with its backward, its arrival counters over
+back-to-back calls, two streams and two CUDA graphs, and its per-launch
+device times; K4 and K5 on K1's proposal cases, with K5's window clamp),
+drives the paths of the kernels that no model runs (FusedGroupNorm over the
+tower levels; the port's tools tune_roialign_v3, ablate_v4, tune_roi_head,
+ablate_roi_head for K3's float32 route, accuracy_roi_head and
+ablate_group_norm at reduced counts), then the flagship one-shot detector
 (Siamese FCOS R-50-FPN, configs/oneshot_fcos_r50.yaml, bf16, random weights
 from a seed) through its entry points -- the streaming predictor, the
 batch-8 832x1216 eval forward at 512 and 2000 proposals per image, each with
@@ -410,39 +412,157 @@ def gn_library(x, gamma, beta, act):
     return torch.nn.functional.leaky_relu(y, 0.2) if act == "leaky" else y
 
 
+def group_norm_vs_library(gn, x, gamma, beta):
+    """K2 (ReLU) and F.group_norm + ReLU on x: ms of one call on an idle card
+    (median of 50, the host's part included) and per call over 40 calls back
+    to back. Returns [K2 one call, library one call, K2 back to back,
+    library back to back]."""
+    from oneshotdet_tpu_torch.tools import time_fresh_ms
+
+    k2 = lambda v: gn.group_norm_act_cuda(v, gamma, beta, 32, 1e-5, "relu", 0.2)
+    lib = lambda v: gn_library(v, gamma, beta, "relu")
+    times = [time_ms(lambda: k2(x), reps=50, warmup=5), time_ms(lambda: lib(x), reps=50, warmup=5),
+             time_fresh_ms(k2, [(x,)] * 42, 1), time_fresh_ms(lib, [(x,)] * 42, 1)]
+    log(f"group_norm {tuple(x.shape)} {str(x.dtype)[6:]} relu vs F.group_norm+relu: one call "
+        f"{times[0]:.4f} vs {times[1]:.4f} ms, back to back {times[2]:.4f} vs {times[3]:.4f} "
+        f"ms/call [{card_line()}]")
+    return times
+
+
+def group_norm_counter_checks(gn, dev, gamma, beta, gen):
+    """K2's arrival counters, on the tower's P4 (66 runs an image), each
+    result equal to the first call's: 200 calls back to back on one stream;
+    100 on each of two streams at once; two CUDA graphs, each capturing one
+    call (both on torch's one capture stream), replayed 3 times on two
+    streams at once. Every stream's counters read 0 after, and the captures
+    add none to them (a graph's call takes counters of its own)."""
+    h, w = pyramid_shapes(*QUERY_HW)[1]
+    xs = [torch.randn(BATCH, h, w, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(2)]
+    refs = [gn.group_norm_act_cuda(x, gamma, beta, 32, 1e-5, "relu")[0] for x in xs]
+    cur = torch.cuda.current_stream(dev)
+    zeros = lambda: torch.zeros((), dtype=torch.int64, device=dev)
+    bad = zeros()
+    for i in range(200):
+        bad += (gn.group_norm_act_cuda(xs[i % 2], gamma, beta, 32, 1e-5, "relu")[0]
+                != refs[i % 2]).sum()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+
+    def on_both_streams(rounds, call, tally):
+        for s in streams:
+            s.wait_stream(cur)
+        for _ in range(rounds):
+            for k, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    tally[k] += (call(k) != refs[k]).sum()
+        for s in streams:
+            cur.wait_stream(s)
+
+    side_bad = [zeros(), zeros()]
+    on_both_streams(100, lambda k: gn.group_norm_act_cuda(xs[k], gamma, beta, 32, 1e-5,
+                                                          "relu")[0], side_bad)
+    eager_buffers = len(gn._counters)
+    graphs, g_outs = [torch.cuda.CUDAGraph() for _ in range(2)], []
+    for k, graph in enumerate(graphs):
+        with torch.cuda.graph(graph):
+            g_outs.append(gn.group_norm_act_cuda(xs[k], gamma, beta, 32, 1e-5, "relu")[0])
+    graph_bad = [zeros(), zeros()]
+
+    def replay(k):
+        graphs[k].replay()
+        return g_outs[k]
+
+    on_both_streams(3, replay, graph_bad)
+    torch.cuda.synchronize()
+    keys = {(xs[0].device.index, s.cuda_stream) for s in streams + [cur]}
+    left = {k: int(counters.abs().sum()) for k, counters in gn._counters.items()}
+    counts = (int(bad), [int(v) for v in side_bad], [int(v) for v in graph_bad])
+    log(f"group_norm counters: 200 back-to-back calls, 2 streams x 100 at once, 2 graphs x 3 "
+        f"replays on 2 streams at once, on {tuple(xs[0].shape)} bf16: elements differing from "
+        f"the first call {counts}; stream counter buffers {eager_buffers} before the captures, "
+        f"{len(gn._counters)} after, their sums {left}")
+    if (counts != (0, [0, 0], [0, 0]) or any(left.values()) or not keys <= set(left)
+            or len(gn._counters) != eager_buffers):
+        raise AssertionError(f"group_norm counters: {counts}, {left}")
+    del xs, refs, g_outs, graphs
+
+
+def group_norm_case(gn, x, gamma, beta, groups, act, name):
+    """K2 against its plain version on x: f32 within 1e-4 abs, bf16 within 1
+    bf16 ulp, the statistics within 1e-4 (abs for the mean, relative for
+    inv); raises otherwise. Returns (max abs err, metric text, tolerance)."""
+    k, k_mean, k_inv = gn.group_norm_act_cuda(x, gamma, beta, groups, 1e-5, act, 0.2)
+    torch.cuda.synchronize()
+    p, p_mean, p_inv = gn.group_norm_act_plain(x, gamma, beta, groups, 1e-5, act, 0.2)
+    err = float((k.float() - p.float()).abs().max())
+    stat_err = max(float((k_mean - p_mean).abs().max()),
+                   float(((k_inv - p_inv) / p_inv).abs().max()))
+    if x.dtype == torch.float32:
+        ok, tol, metric = err <= 1e-4, "abs <= 1e-4", f"max abs err {err:.3e}"
+    else:
+        ulps = bf16_ulps(k, p)
+        ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
+        metric = f"max abs err {err:.3e}, {ulps:.2f} bf16 ulp"
+    metric += f", statistics {stat_err:.2e}"
+    if not (ok and stat_err <= 1e-4):
+        raise AssertionError(f"group_norm {name}: {metric} (tolerance {tol})")
+    return err, metric, tol
+
+
+# (C, groups, (B, H, W)) of K2's cases off the tower's C = 256: the kernels'
+# narrower thread widths (4 channels: C = 68, 260, 1028; 2 channels: C = 66,
+# 2046), so bf16 loads of 8 and 4 bytes and f32 loads of 16 and 8 bytes; more
+# than 256 threads a block (C = 1028, 2046: the 1024-thread build); C = 2040
+# (8 channels, 255 threads); odd maps, down to one row
+GN_WIDTH_CASES = [(66, 33, (3, 13, 19)), (66, 6, (1, 1, 1)), (68, 17, (3, 7, 5)),
+                  (260, 13, (2, 21, 1)), (1028, 4, (3, 5, 3)), (2046, 31, (2, 9, 7)),
+                  (2046, 66, (1, 1, 1)), (2040, 34, (3, 3, 11))]
+
+
+def group_norm_width_checks(gn, dev, gen):
+    """K2 against its plain version at GN_WIDTH_CASES, f32 and bf16, each
+    activation, input mean 0.5."""
+    for c, groups, (b, h, w) in GN_WIDTH_CASES:
+        gamma = (1.0 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+        beta = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        x32 = torch.randn(b, h, w, c, generator=gen) + 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dev, dtype)
+            cpt = gn.kernel_plan(x, gamma, beta, groups)[3]
+            for act in (None, "relu", "leaky"):
+                name = f"{tuple(x.shape)} G={groups} {str(dtype)[6:]} act={act}"
+                _, metric, tol = group_norm_case(gn, x, gamma, beta, groups, act, name)
+                log(f"group_norm {name}, {cpt} channels a thread, {c // cpt} threads a row: "
+                    f"{metric} (tolerance {tol})")
+
+
 def group_norm_checks(dev):
     """Phase 3c: the GroupNorm kernels (K2) against their plain version on the
     FCOS tower's shapes (batch 8, P3-P7 of 832x1216, C = 256), f32 and bf16,
-    for no activation, ReLU and LeakyReLU(0.2); one P3 case at input mean 100;
-    the backward through GroupNormAct with the kernels' forward against
-    autograd of the plain forward. Times at P3 of the kernels, the plain
-    version and F.group_norm. Returns {(act, dtype): entry} at P3."""
+    for no activation, ReLU and LeakyReLU(0.2); P3 at input mean 100 in both
+    dtypes; the arrival counters (group_norm_counter_checks); the kernels'
+    other channel widths (group_norm_width_checks); the backward
+    through GroupNormAct with the kernels' forward against autograd of the
+    plain forward. Times at P3 of the kernels, the plain version and
+    F.group_norm, and ablate_group_norm's per-launch device times on fresh
+    inputs (ReLU); K2 against F.group_norm + ReLU at every level
+    (group_norm_vs_library). Returns {(act, dtype): entry} at P3 and
+    "vs_library_by_level"."""
     from oneshotdet_tpu_torch.ops import group_norm as gn
+    from oneshotdet_tpu_torch.tools import ablate_group_norm
 
     gen = torch.Generator().manual_seed(13)
+    dev_gen = torch.Generator(device=dev).manual_seed(29)
     gamma = (1.0 + 0.1 * torch.randn(256, generator=gen)).to(dev)
     beta = (0.1 * torch.randn(256, generator=gen)).to(dev)
-    results = {}
+    results, levels = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for lvl, (h, w) in enumerate(pyramid_shapes(*QUERY_HW)):
             x = torch.randn(BATCH, h, w, 256, generator=gen).to(dev, dtype)
             for act in (None, "relu", "leaky"):
-                k, k_mean, k_inv = gn.group_norm_act_cuda(x, gamma, beta, 32, 1e-5, act, 0.2)
-                torch.cuda.synchronize()
-                p, p_mean, p_inv = gn.group_norm_act_plain(x, gamma, beta, 32, 1e-5, act, 0.2)
-                err = float((k.float() - p.float()).abs().max())
-                stat_err = max(float((k_mean - p_mean).abs().max()),
-                               float(((k_inv - p_inv) / p_inv).abs().max()))
                 name = f"P{lvl + 3} {tuple(x.shape)} {str(dtype)[6:]} act={act}"
-                if dtype == torch.float32:
-                    ok, tol, metric = err <= 1e-4, "abs <= 1e-4", f"max abs err {err:.3e}"
-                else:
-                    ulps = bf16_ulps(k, p)
-                    ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
-                    metric = f"max abs err {err:.3e}, {ulps:.2f} bf16 ulp"
-                metric += f", statistics {stat_err:.2e}"
-                if not (ok and stat_err <= 1e-4):
-                    raise AssertionError(f"group_norm {name}: {metric} (tolerance {tol})")
+                err, metric, tol = group_norm_case(gn, x, gamma, beta, 32, act, name)
+                if act == "relu":
+                    levels[f"P{lvl + 3} {str(dtype)[6:]}"] = group_norm_vs_library(gn, x, gamma, beta)
                 if lvl != 0:
                     log(f"group_norm {name}: {metric} (tolerance {tol})")
                     continue
@@ -457,18 +577,37 @@ def group_norm_checks(dev):
                     f"bound {bound:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
                 results[(act, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                              library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
+                if act == "relu":
+                    # each launch's device time, on inputs no call has read
+                    n = max(62, -(-200_000_000 // (x.numel() * x.element_size())))
+                    x_all = torch.randn(n, *x.shape, generator=dev_gen, device=dev).to(dtype)
+                    r = ablate_group_norm.measure(gn, x_all, gamma, beta, 20)
+                    log("group_norm " + ablate_group_norm.report(name, r, card_line()))
+                    results[(act, dtype)].update(per_launch_ms=r["per_launch"],
+                                                 back_to_back_ms=r["b2b_ms"],
+                                                 host_ms=r["host_ms"])
+                    del x_all
+                    torch.cuda.empty_cache()
             del x
     # input mean 100: E[x^2] ~ 1e4, so two f32 summation orders of the one-pass
     # variance differ by ~1e-3 and the outputs by ~1e-2 (the formula's
     # conditioning, shared with the JAX package)
     h, w = pyramid_shapes(*QUERY_HW)[0]
-    x = (torch.randn(BATCH, h, w, 256, generator=gen) + 100.0).to(dev)
-    k = gn.group_norm_act_cuda(x, gamma, beta)[0]
-    torch.cuda.synchronize()
-    err = float((k - gn.group_norm_act_plain(x, gamma, beta)[0]).abs().max())
-    log(f"group_norm P3 float32 input mean 100: max abs err {err:.3e} (tolerance 3e-2 abs)")
-    if not err <= 3e-2:
-        raise AssertionError(f"group_norm at input mean 100: max abs err {err:.3e}")
+    x100 = torch.randn(BATCH, h, w, 256, generator=gen) + 100.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x100.to(dev, dtype)
+        k = gn.group_norm_act_cuda(x, gamma, beta)[0]
+        torch.cuda.synchronize()
+        p = gn.group_norm_act_plain(x, gamma, beta)[0]
+        err = float((k.float() - p.float()).abs().max())
+        log(f"group_norm P3 {str(dtype)[6:]} input mean 100: max abs err {err:.3e}, "
+            f"{bf16_ulps(k, p):.2f} bf16 ulp (tolerance 3e-2 abs)")
+        if not err <= 3e-2:
+            raise AssertionError(f"group_norm at input mean 100: max abs err {err:.3e}")
+    del x100, x, k, p
+    group_norm_counter_checks(gn, dev, gamma, beta, gen)
+    group_norm_width_checks(gn, dev, gen)
+    results["vs_library_by_level"] = levels
     # backward: f32, P4, LeakyReLU
     h, w = pyramid_shapes(*QUERY_HW)[1]
     x = torch.randn(BATCH, h, w, 256, generator=gen).to(dev)
@@ -628,8 +767,8 @@ def tool_runs():
     """Phase 3e: the port's card tools at reduced counts, each with every
     kernel's launch count set to 0 just before and read just after.
     Returns {tool: {kernel: launches}}."""
-    from oneshotdet_tpu_torch.tools import (ablate_roi_head, ablate_v4, accuracy_roi_head,
-                                            tune_roi_head, tune_roialign_v3)
+    from oneshotdet_tpu_torch.tools import (ablate_group_norm, ablate_roi_head, ablate_v4,
+                                            accuracy_roi_head, tune_roi_head, tune_roialign_v3)
 
     runs = (("tune_roialign_v3", tune_roialign_v3, ["--iters", "2", "--warmup", "1",
                                                      "--blocks", "16"]),
@@ -637,7 +776,8 @@ def tool_runs():
             ("tune_roi_head", tune_roi_head, ["--iters", "2", "--warmup", "1"]),
             ("ablate_roi_head", ablate_roi_head, ["--dtype", "float32", "--rois", "16000",
                                                   "--rounds", "1", "--reps", "3"]),
-            ("accuracy_roi_head", accuracy_roi_head, ["--rois", "4096"]))
+            ("accuracy_roi_head", accuracy_roi_head, ["--rois", "4096"]),
+            ("ablate_group_norm", ablate_group_norm, ["--reps", "10"]))
     launches = {}
     for name, tool, argv in runs:
         reset_launches()
@@ -1272,6 +1412,7 @@ def main() -> int:
         "card": card,
     }]
     k2 = gn_checks[("relu", torch.bfloat16)]
+    k2f = gn_checks[("relu", torch.float32)]
     kernels.append({
         "name": "group_norm",
         "route": "cuda",
@@ -1288,6 +1429,15 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
         "library": "torch.nn.functional.group_norm + relu",
+        "per_launch_ms": k2["per_launch_ms"],
+        "back_to_back_ms": k2["back_to_back_ms"],
+        "host_ms": k2["host_ms"],
+        "ms_f32": k2f["ms"],
+        "per_launch_ms_f32": k2f["per_launch_ms"],
+        "back_to_back_ms_f32": k2f["back_to_back_ms"],
+        "bound_ms_f32": k2f["bound_ms"],
+        "library_ms_f32": k2f["library_ms"],
+        "vs_library_by_level": gn_checks["vs_library_by_level"],
         "card": card,
     })
     for name, source, replaces, tool in (("roi_align_v3", V3_SOURCE, V3_REPLACES, "tune_roialign_v3"),

@@ -21,8 +21,9 @@ package's ``_gn_bwd`` in plain PyTorch (it is plain jnp there too).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,7 +32,19 @@ group_norm_launches = 0
 
 _ACT_CODE = {None: 0, "relu": 1, "leaky": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_TARGET_BLOCKS = 528      # moments blocks to aim for: 4 per SM of an H100
+_TARGET_BLOCKS = 528      # blocks a launch aims for: 4 per SM of an H100
+_THREADS = 256            # threads a block aims for
+# rows each lane takes at least, where the map allows (2 measured faster than
+# 4 at P6/P7 of the tower, where a map has few rows, and slower at P5)
+_MIN_LANE_ROWS = 2
+_MAX_BATCH = 65535        # the grid's second axis
+# per (device index, stream handle): the int32 arrival counters, one per
+# image up to _MAX_BATCH, zeroed at allocation and left at 0 by the kernels.
+# Calls on one stream run in order, so they share them; they are never
+# replaced. A call made while its stream is captured into a CUDA graph takes
+# counters of its own from the graph's memory instead (_arrival_counters).
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+_forward_fn = None
 
 
 def _act(y: torch.Tensor, act: Optional[str], slope: float) -> torch.Tensor:
@@ -57,16 +70,30 @@ def _bshape(x: torch.Tensor):
     return (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
 
 
+def channels_per_thread(channels: int) -> int:
+    """Channels a kernel thread owns in a row: 8 where C allows (one 16-byte
+    vector of bf16, two of f32), else 4 or 2. It depends on C alone, so the
+    kernels sum bf16 and f32 inputs in the same order."""
+    for cpt in (8, 4, 2):
+        if channels % cpt == 0:
+            return cpt
+    return 1
+
+
+@functools.lru_cache(maxsize=256)
 def moments_layout(batch: int, spatial: int, channels: int):
-    """How the kernels sum the moments: ``(splits, rows, lanes)``. Each image's
-    ``spatial`` rows are cut into ``splits`` runs of ``rows`` (about
-    ``_TARGET_BLOCKS`` blocks in all, at least 16 rows each); within a run,
-    ``lanes`` partial sums take every ``lanes``-th row."""
-    splits = max(1, min(math.ceil(_TARGET_BLOCKS / batch), spatial // 16))
+    """How the kernels cut the rows: ``(splits, rows, lanes, cpt)``. A thread
+    owns ``cpt`` channels (``channels_per_thread``), ``C / cpt`` threads
+    cover a row and a block of about ``_THREADS`` threads reads ``lanes``
+    rows at once. Each image's ``spatial`` rows are cut into ``splits`` runs
+    of ``rows`` (about ``_TARGET_BLOCKS`` blocks in all, at least
+    ``_MIN_LANE_ROWS`` rows a lane where the map has them); within a run,
+    lane ``l`` takes the rows ``l, l + lanes, ...``."""
+    cpt = channels_per_thread(channels)
+    lanes = max(1, _THREADS // (channels // cpt))
+    splits = max(1, min(math.ceil(_TARGET_BLOCKS / batch), spatial // (_MIN_LANE_ROWS * lanes)))
     rows = math.ceil(spatial / splits)
-    pairs = channels // 2
-    lanes = 1 if pairs >= 256 else max(1, 256 // max(pairs, 1))
-    return math.ceil(spatial / rows), rows, lanes
+    return math.ceil(spatial / rows), rows, lanes, cpt
 
 
 def _seq_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -83,15 +110,16 @@ def group_norm_act_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5
     ``(y, mean_c, inv_c)`` with per-(image, channel) float32 statistics.
 
     The sums run in the kernels' order (``moments_layout``: each lane's rows
-    in turn, then the lanes, the runs and the group's channels), one add at a
-    time, and every division is a true one, so the kernels equal this
+    in turn, then the lanes of a run, then the runs in order as the image's
+    last block adds them, then the group's channels), one add at a time in
+    float32, and every division is a true one, so the kernels equal this
     version bit for bit."""
     _check_args(x, gamma, beta, num_groups, act)
     b, c = x.shape[0], x.shape[-1]
     cpg = c // num_groups
     xf = x.reshape(b, -1, c).to(torch.float32)
     spatial = xf.shape[1]
-    splits, rows, lanes = moments_layout(b, spatial, c)
+    splits, rows, lanes, _ = moments_layout(b, spatial, c)
     steps = -(-rows // lanes)
     # zero rows at the end of each run add nothing to its sums
     xr = torch.nn.functional.pad(xf, (0, 0, 0, splits * rows - spatial)).reshape(b, splits, rows, c)
@@ -108,7 +136,12 @@ def group_norm_act_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5
     count = torch.full((1,), float(spatial * cpg), dtype=torch.float32, device=x.device)
     g1 = _seq_sum(s1.reshape(b, num_groups, cpg), 2) / count
     g2 = _seq_sum(s2.reshape(b, num_groups, cpg), 2) / count
-    inv = 1.0 / torch.sqrt(torch.clamp(g2 - g1 * g1, min=0.0) + eps)
+    eps_f = torch.full((1,), eps, dtype=torch.float32, device=x.device)
+    # the float64 root rounded to float32 is the correctly rounded float32
+    # root, as the kernel's sqrtf gives; torch's float32 sqrt on the CPU can
+    # be one ulp off
+    var = torch.clamp(g2 - g1 * g1, min=0.0) + eps_f
+    inv = 1.0 / torch.sqrt(var.double()).float()
     mean_c = g1.repeat_interleave(cpg, dim=1)
     inv_c = inv.repeat_interleave(cpg, dim=1)
     shape = _bshape(x)
@@ -117,18 +150,25 @@ def group_norm_act_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5
     return _act(y, act, slope).to(x.dtype), mean_c, inv_c
 
 
-def _kernel():
-    from .. import csrc
-
-    lib = csrc.load("group_norm")
+def bind(lib: ctypes.CDLL):
+    """(forward, error_string) of a library built from csrc/group_norm.cu."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.oneshot_group_norm_forward
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, i, i, i, i, f, i, f, p, p, p, i, i, i, p, p, p, p]
-        fn.restype = ctypes.c_int
-        lib.oneshot_group_norm_error_string.argtypes = [ctypes.c_int]
-        lib.oneshot_group_norm_error_string.restype = ctypes.c_char_p
-    return lib
+    fn.argtypes = [p, i, i, ctypes.c_longlong, i, i, f, i, f, p, p, i, i, i, i,
+                   p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    lib.oneshot_group_norm_error_string.argtypes = [ctypes.c_int]
+    lib.oneshot_group_norm_error_string.restype = ctypes.c_char_p
+    return fn, lib.oneshot_group_norm_error_string
+
+
+def _kernel():
+    global _forward_fn
+    if _forward_fn is None:
+        from .. import csrc
+
+        _forward_fn = bind(csrc.load("group_norm"))
+    return _forward_fn
 
 
 def _check(cond: bool, msg: str):
@@ -136,43 +176,71 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"group_norm kernel: {msg}")
 
 
-def group_norm_act_cuda(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
-                        act: Optional[str] = None, slope: float = 0.2):
-    """Launch the CUDA kernels (moments, statistics, normalize); returns
-    ``(y, mean_c, inv_c)``. Raises on any input they do not take."""
-    global group_norm_launches
+def kernel_plan(x, gamma, beta, num_groups: int = 32, act: Optional[str] = None):
+    """The kernels' checks of their arguments other than the device, made
+    before any launch: returns ``moments_layout`` for ``x`` or raises
+    ValueError on an input the kernels do not take."""
     _check_args(x, gamma, beta, num_groups, act)
-    dev = x.device
-    _check(dev.type == "cuda", "x must be a CUDA tensor")
     _check(x.dtype in _DTYPE_CODE, f"dtype {x.dtype} (float32 or bfloat16)")
     _check(x.is_contiguous(), "x must be contiguous channels-last (B, ..., C)")
     b, c = x.shape[0], x.shape[-1]
     spatial = x.numel() // max(b * c, 1)
     _check(c % 2 == 0 and c <= 2048, f"channel count {c} must be even and <= 2048")
     _check(b >= 1 and spatial >= 1, "empty input")
+    _check(b <= _MAX_BATCH, f"batch {b} above {_MAX_BATCH} (the grid's second axis)")
     _check(b * spatial * c < 2 ** 62, "input too large")
-    gamma = gamma.to(device=dev, dtype=torch.float32).contiguous()
-    beta = beta.to(device=dev, dtype=torch.float32).contiguous()
-    _check(x.data_ptr() % (2 * x.element_size()) == 0 and gamma.data_ptr() % 8 == 0
-           and beta.data_ptr() % 8 == 0, "x, gamma and beta must be aligned to channel pairs")
-    splits, rows, lanes = moments_layout(b, spatial, c)
-    partial = torch.empty((b, splits, 2, c), dtype=torch.float32, device=dev)
-    mean_c = torch.empty((b, c), dtype=torch.float32, device=dev)
-    inv_c = torch.empty((b, c), dtype=torch.float32, device=dev)
+    layout = moments_layout(b, spatial, c)
+    nbytes = min(16, layout[3] * x.element_size())
+    _check(x.data_ptr() % nbytes == 0, f"x must be aligned to {nbytes} bytes (one load vector)")
+    return layout
+
+
+def _arrival_counters(dev: torch.device, stream: int, batch: int) -> torch.Tensor:
+    """Zeroed arrival counters for a call on ``stream``: the stream's own
+    (``_counters``), or, while the stream is being captured into a CUDA
+    graph, ``batch`` new ones zeroed by the graph at each replay, so that
+    no two graphs, nor a graph and the eager calls, share counters."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(batch, dtype=torch.int32, device=dev)
+    key = (dev.index, stream)
+    counters = _counters.get(key)
+    if counters is None:
+        counters = _counters[key] = torch.zeros(_MAX_BATCH, dtype=torch.int32, device=dev)
+    return counters
+
+
+def group_norm_act_cuda(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
+                        act: Optional[str] = None, slope: float = 0.2):
+    """Launch the CUDA kernels (moments with the statistics, then
+    normalize) on the current stream, with that stream's arrival counters;
+    returns ``(y, mean_c, inv_c)``. Raises on any input they do not take."""
+    global group_norm_launches
+    dev = x.device
+    _check(dev.type == "cuda", "x must be a CUDA tensor")
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return group_norm_act_cuda(x, gamma, beta, num_groups, eps, act, slope)
+    splits, rows, lanes, cpt = kernel_plan(x, gamma, beta, num_groups, act)
+    if gamma.dtype != torch.float32 or gamma.device != dev or not gamma.is_contiguous():
+        gamma = gamma.to(device=dev, dtype=torch.float32).contiguous()
+    if beta.dtype != torch.float32 or beta.device != dev or not beta.is_contiguous():
+        beta = beta.to(device=dev, dtype=torch.float32).contiguous()
+    b, c = x.shape[0], x.shape[-1]
+    spatial = x.numel() // (b * c)
+    stats = torch.empty((2, b, c), dtype=torch.float32, device=dev)   # mean_c, inv_c
     y = torch.empty_like(x)
-    lib = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.oneshot_group_norm_forward(
-            x.data_ptr(), _DTYPE_CODE[x.dtype], b, spatial, c, num_groups, float(eps),
-            _ACT_CODE[act], float(slope), gamma.data_ptr(), beta.data_ptr(),
-            partial.data_ptr(), splits, rows, lanes, mean_c.data_ptr(), inv_c.data_ptr(),
-            y.data_ptr(), stream)
+    fn, error_string = _kernel()
+    partial = torch.empty(b * splits * 2 * c, dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    counters = _arrival_counters(dev, stream, b)
+    rc = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], b, spatial, c, num_groups, float(eps),
+            _ACT_CODE[act], float(slope), gamma.data_ptr(), beta.data_ptr(), cpt, splits, rows,
+            lanes, partial.data_ptr(), counters.data_ptr(), stats.data_ptr(),
+            stats.data_ptr() + 4 * b * c, y.data_ptr(), stream)
     if rc != 0:
-        err = lib.oneshot_group_norm_error_string(rc).decode()
-        raise RuntimeError(f"group_norm kernel launch failed: {err} ({rc})")
+        raise RuntimeError(f"group_norm kernel launch failed: {error_string(rc).decode()} ({rc})")
     group_norm_launches += 1
-    return y, mean_c, inv_c
+    return y, stats[0], stats[1]
 
 
 def group_norm_act_backward(x, gamma, beta, mean_c, inv_c, dy, num_groups, act, slope):

@@ -133,16 +133,113 @@ def test_cpu_tensors_never_launch_and_kernel_wrapper_refuses_them():
         FusedGroupNorm(64, act="gelu")
 
 
-@pytest.mark.parametrize("batch, spatial, channels",
-                         [(8, 104 * 152, 256), (8, 7 * 10, 256), (1, 3, 64), (64, 4096, 2048)])
+@pytest.mark.parametrize("act", ACTS, ids=str)
+def test_plain_matches_jax_pallas_kernels_at_narrow_vectors(interpret, act):
+    """C = 66 takes the kernels' narrowest thread width (2 channels); 6
+    groups of 11 channels."""
+    x, gamma, beta = _inputs(11, shape=(3, 13, 19, 66), mean=0.5)
+    ref_y, ref_mean, ref_inv = (np.asarray(v) for v in _gn_pallas(
+        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), 6, 1e-5, act, 0.2))
+    y, mean_c, inv_c = gn.group_norm_act_plain(*_t(x, gamma, beta), 6, 1e-5, act, 0.2)
+    np.testing.assert_allclose(y.numpy(), ref_y, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(mean_c.numpy(), ref_mean, atol=1e-5, rtol=1e-6)
+    np.testing.assert_allclose(inv_c.numpy(), ref_inv, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, offset", [(torch.bfloat16, 1), (torch.bfloat16, 4),
+                                           (torch.float32, 2)], ids=["bf16+2B", "bf16+8B", "f32+8B"])
+def test_kernel_refuses_misaligned_x_before_any_launch(dtype, offset):
+    """An x whose data pointer is not aligned to the kernels' 16-byte load
+    vectors (C = 64) is refused by the argument checks that run before any
+    launch; the same values at an aligned address pass them."""
+    x, gamma, beta = _t(*_inputs(10))
+    buf = torch.zeros(x.numel() + offset, dtype=dtype)
+    misaligned = buf[offset:].view(x.shape)
+    misaligned.copy_(x)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 != 0
+    before = gn.group_norm_launches
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        gn.kernel_plan(misaligned, gamma, beta, 32, "relu")
+    assert gn.group_norm_launches == before
+    assert gn.kernel_plan(x.to(dtype), gamma, beta, 32, "relu") == gn.moments_layout(2, 24 * 32, 64)
+    # C = 66 loads 2 channels at a time: 4-byte (bf16) or 8-byte (f32) alignment is enough
+    x66, g66, b66 = _t(*_inputs(10, shape=(2, 5, 66)))
+    buf = torch.zeros(x66.numel() + 2, dtype=dtype)
+    assert gn.kernel_plan(buf[2:].view(x66.shape), g66, b66, 6)[3] == 2
+
+
+LAYOUT_SPATIAL = [1, 3 * 5, 7 * 10, 13 * 19, 104 * 152]
+
+
+@pytest.mark.parametrize("channels", [64, 256, 66, 260, 1028, 2046])
+@pytest.mark.parametrize("spatial", LAYOUT_SPATIAL)
+@pytest.mark.parametrize("batch", [1, 3, 8])
 def test_moments_layout_covers_every_row(batch, spatial, channels):
-    splits, rows, lanes = gn.moments_layout(batch, spatial, channels)
+    splits, rows, lanes, cpt = gn.moments_layout(batch, spatial, channels)
     assert splits * rows >= spatial > (splits - 1) * rows
-    assert rows >= min(16, spatial)
-    assert 1 <= (channels // 2) * lanes <= 1024
+    assert rows >= min(spatial, gn._MIN_LANE_ROWS * lanes)
+    assert 1 <= splits <= -(-gn._TARGET_BLOCKS // batch)
+    # 8 channels a thread (16-byte vectors in bf16 and f32) where C allows,
+    # else 4 or 2
+    assert cpt == {64: 8, 256: 8, 66: 2, 260: 4, 1028: 4, 2046: 2}[channels]
+    threads = channels // cpt * lanes
+    assert threads <= gn._THREADS if lanes > 1 else threads <= 1024
+    assert threads > gn._THREADS // 2 or lanes == 1
 
 
-def test_plain_statistics_follow_the_kernel_order():
+def _mirror_statistics(x, groups, eps=1e-5):
+    """The kernels' statistics in numpy float32, one add at a time: each
+    lane's rows of a run, then the lanes (gn_moments' partial sums), then
+    the runs in order and each group's channels in order (the image's last
+    block)."""
+    b, s, c = x.shape
+    splits, rows, lanes, _ = gn.moments_layout(b, s, c)
+    partial = np.zeros((b, splits, 2, c), np.float32)
+    for sp in range(splits):
+        for lane in range(lanes):
+            a = np.zeros((b, c), np.float32)
+            q = np.zeros((b, c), np.float32)
+            for row in range(sp * rows + lane, min(s, (sp + 1) * rows), lanes):
+                v = x[:, row]
+                a = a + v
+                q = q + v * v
+            partial[:, sp, 0] = partial[:, sp, 0] + a
+            partial[:, sp, 1] = partial[:, sp, 1] + q
+    s1 = np.zeros((b, c), np.float32)
+    s2 = np.zeros((b, c), np.float32)
+    for sp in range(splits):
+        s1 = s1 + partial[:, sp, 0]
+        s2 = s2 + partial[:, sp, 1]
+    cpg = c // groups
+    g1 = np.zeros((b, groups), np.float32)
+    g2 = np.zeros((b, groups), np.float32)
+    for i in range(cpg):
+        g1 = g1 + s1.reshape(b, groups, cpg)[:, :, i]
+        g2 = g2 + s2.reshape(b, groups, cpg)[:, :, i]
+    count = np.float32(s * cpg)
+    m, m2 = g1 / count, g2 / count
+    inv = np.float32(1) / np.sqrt(np.maximum(m2 - m * m, np.float32(0)) + np.float32(eps))
+    return np.repeat(m, cpg, axis=1), np.repeat(inv, cpg, axis=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("channels, groups", [(64, 32), (256, 32), (66, 6)],
+                         ids=["C64", "C256", "C66"])
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (13, 19)], ids=["1x1", "3x5", "13x19"])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_plain_statistics_follow_the_kernel_order(batch, hw, channels, groups, dtype):
+    """The plain version's statistics equal, bit for bit, the numpy mirror
+    of the kernels' summation order, bf16 inputs summed as their float32
+    values in the same order."""
+    x, gamma, beta = _inputs(9, shape=(batch, *hw, channels), mean=0.3)
+    xt = torch.from_numpy(x).to(dtype)
+    _, mean_c, inv_c = gn.group_norm_act_plain(xt, *_t(gamma, beta), groups, 1e-5)
+    want_mean, want_inv = _mirror_statistics(xt.float().numpy().reshape(batch, -1, channels), groups)
+    np.testing.assert_array_equal(mean_c.numpy(), want_mean)
+    np.testing.assert_array_equal(inv_c.numpy(), want_inv)
+
+
+def test_plain_statistics_match_float64():
     """Summed in the kernels' order, the statistics still equal a float64
     reduction to float32 rounding."""
     x, gamma, beta = _inputs(9, shape=(3, 50, 70, 64), mean=0.3)
