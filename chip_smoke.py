@@ -9,7 +9,10 @@ gives it (K1 also at its edge cases and on the FCOS-like p3-skew mix, with
 its per-ROI plan against the Python mirror; K2 on the FCOS tower's P3-P7
 and at narrower channel widths, with its backward, its arrival counters over
 back-to-back calls, two streams and two CUDA graphs, and its per-launch
-device times; K4 and K5 on K1's proposal cases, with K5's window clamp),
+device times; K4 and K5 bit for bit on K1's proposal and edge cases, the
+predictor's 1 x 2000, the p3-skew mix on fresh inputs and one case per vector
+width, with their block sort against slab_blocks, two launches per call and
+K5's window clamp),
 drives the paths of the kernels that no model runs (FusedGroupNorm over the
 tower levels; the port's tools tune_roialign_v3, ablate_v4, tune_roi_head,
 ablate_roi_head for K3's float32 route, accuracy_roi_head and
@@ -661,38 +664,51 @@ def fused_group_norm_path(dev):
     return counts
 
 
-def roi_variant_work(v4, feats, rois, levels, valid):
-    """Each variant's own operation count on these inputs: K4 multiplies and
-    adds 4 x 4 x-taps then 4 y-taps per output value; K5 as the JAX kernel
-    writes it (dense stage A over the level's rows, then the 64-column
-    window) and as the CUDA kernel runs it (the non-zero rows of each output
-    row times the window columns that lie in the level and carry weight)."""
+def roi_variant_work(feats, rois, levels, valid):
+    """Each variant's operations on these inputs, from the taps its kernel
+    lists (``v3_roi_taps``, ``v4_roi_taps``: the spec's non-zero weights): K4
+    multiplies and adds its x taps per y tap, then its y taps; K5 its rows per
+    window column, then its columns. Also K5 as the JAX kernel writes it
+    (dense stage A over the level's rows, then the 64-column window)."""
     from oneshotdet_tpu_torch.ops import roi_align_v3 as v3
+    from oneshotdet_tpu_torch.ops import roi_align_v4 as v4
 
-    r, c = rois.shape[0], feats[0].shape[-1]
-    ok = v3.live_rois(rois, levels, valid, feats[0].shape[0], len(feats))
-    wy, wx, x0 = v4.window_operands(feats, rois, levels, (7, 7), SCALES_Q, 2, ok)
-    heights = torch.tensor([f.shape[1] for f in feats], device=rois.device)[levels.long()]
-    widths = torch.tensor([f.shape[2] for f in feats], device=rois.device)[levels.long()]
-    k4 = 2 * r * 49 * 20 * c
+    c = feats[0].shape[-1]
+    ok = v3.live_rois(rois, levels, valid, feats[0].shape[0], len(feats)).cpu()
+    (_, _, ny), (_, _, nx) = v3.v3_roi_taps(feats, rois, levels, (7, 7), SCALES_Q, 2, ok)
+    k4 = 2 * c * float((ny[:, :, None] * (nx[:, None, :] + 1)).sum())
+    _, (_, _, ny), (_, _, nx) = v4.v4_roi_taps(feats, rois, levels, (7, 7), SCALES_Q, 2, ok)
+    k5 = 2 * c * float((nx[:, None, :] * (ny[:, :, None] + 1)).sum())
+    heights = torch.tensor([f.shape[1] for f in feats])[levels.long().cpu().clamp(0, 4)]
     k5_dense = 2 * c * float((ok * (7 * heights * 64 + 7 * 64 * 7)).sum())
-    rows = (wy != 0).sum(-1)                                           # (R, 7)
-    cols = (((wx != 0).any(1)) & (x0[:, None] + torch.arange(64, device=rois.device)
-                                  < widths[:, None])).sum(-1)          # (R,)
-    k5 = 2 * c * float((cols[:, None] * (rows + 7)).sum())
-    return k4, k5_dense, k5
+    return k4, k5, k5_dense
 
+
+def roi_variant_launches(fn, calls=3):
+    """(launches per call, {kernel: device ms per call}) by torch.profiler over
+    ``calls`` calls of ``fn`` (``ablate_v4.kernel_ms``)."""
+    from oneshotdet_tpu_torch.tools.ablate_v4 import kernel_ms
+
+    rows, launches = kernel_ms(fn, [()] * calls)
+    return launches, {r[0].split("(")[0].replace("void ", ""): r[3] for r in rows}
 
 
 def roi_variant_checks(ra, dev):
     """Phase 3d: the cross-ROI ROIAlign kernels K4 (v3) and K5 (v4) against
-    their plain versions on K1's proposal cases (R = 16 000 and 4096 random
-    ROIs on the batch-8 832x1216 pyramid, 10% invalid), f32 1e-5 abs and bf16
-    1 ulp; that K5 clamps ROIs wider than 56 cells (differs from K1) and, in
-    f32, equals K1 on ROIs up to 48 cells wide. Returns {(name, R, dtype):
-    entry}."""
+    their plain versions, bit for bit (tolerance 0), in f32 and bf16: on K1's
+    proposal cases (R = 16 000 and 4096 random ROIs on the batch-8 832x1216
+    pyramid, 10% invalid), K1's edge cases (``edge_case_rois``), the
+    predictor's 1 x 2000, the p3-skew mix at R = 16 000 on fresh inputs, and
+    one small case for each vector width the kernels are built for (C = 66
+    and 68); in each case the block sort on the card equals ``slab_blocks``.
+    At R = 16 000 and 4096 each call must make 2 launches (the sort and the
+    body, torch.profiler); K5 must clamp ROIs wider than 56 cells (differ
+    from K1) and, in f32, equal K1 on ROIs up to 48 cells wide. Returns
+    {(name, case, dtype): entry}."""
     from oneshotdet_tpu_torch.ops import roi_align_v3 as v3
     from oneshotdet_tpu_torch.ops import roi_align_v4 as v4
+    from oneshotdet_tpu_torch.tools import time_fresh_ms
+    from oneshotdet_tpu_torch.tools.tune_roialign_v3 import make_inputs
 
     gen = torch.Generator().manual_seed(19)
     q_shapes = pyramid_shapes(*QUERY_HW)
@@ -701,65 +717,118 @@ def roi_variant_checks(ra, dev):
                 ("roi_align_v4", v4.multilevel_roi_align_v4_cuda,
                  v4.multilevel_roi_align_v4_plain))
     results = {}
+
+    def compare(case, dtype, args):
+        """Both kernels and the sort against their plain versions on args;
+        returns {name: kernel output}."""
+        feats, rois, levels, valid = args[0], args[1], args[2], args[6]
+        b, n_levels = feats[0].shape[0], len(feats)
+        if rois.shape[0]:
+            ok = v3.live_rois(rois, levels, valid, b, n_levels)
+            want = v3.slab_blocks(rois, levels, ok, b, n_levels, v3.ROIS_PER_BLOCK)
+            got = v3.slab_sort_cuda(rois, levels, valid, b, n_levels, v3.ROIS_PER_BLOCK)
+            if not (torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])):
+                raise AssertionError(f"block sort {case} differs from slab_blocks")
+        outs = {}
+        for name, cuda_fn, plain_fn in variants:
+            k = cuda_fn(*args)
+            torch.cuda.synchronize()
+            p = plain_fn(*args)
+            err = float((k.float() - p.float()).abs().max()) if k.numel() else 0.0
+            if not (torch.equal(k, p) and torch.isfinite(k.float()).all()):
+                raise AssertionError(f"{name} {case} {dtype}: max abs err {err} against the "
+                                     f"plain version (tolerance 0, bit for bit)")
+            outs[name] = k
+            results.setdefault((name, case, dtype), {})["max_abs_err"] = err
+        vec = v3.vector_elems(feats[0].shape[-1], dtype, [f.data_ptr() for f in feats])
+        log(f"roi_align_v3/v4 {case} {str(dtype)[6:]}: both equal their plain versions bit for "
+            f"bit (vectors of {vec} channels); block sort as slab_blocks")
+        return outs
+
     for dtype in (torch.float32, torch.bfloat16):
+        elt = torch.finfo(dtype).bits // 8
         feats = [torch.randn(BATCH, h, w, 256, generator=gen).to(dev, dtype) for h, w in q_shapes]
         for r in (16000, 4096):
+            case = f"R={r}"
             rois, valid = random_rois(r, BATCH, QUERY_HW, gen, dev)
             levels = ra.fpn_level_map(rois[:, 1:], 3, 7)
             args = (feats, rois, levels, (7, 7), SCALES_Q, 2, valid)
             k1 = ra.multilevel_roi_align_cuda(*args)
-            elt = torch.finfo(dtype).bits // 8
             nbytes = (sum(f.numel() for f in feats) * elt + rois.numel() * 4 + levels.numel() * 4
                       + valid.numel() + k1.numel() * elt)
-            k4_ops, k5_dense_ops, k5_ops = roi_variant_work(v4, feats, rois, levels, valid)
+            k4_ops, k5_ops, k5_dense_ops = roi_variant_work(feats, rois, levels, valid)
+            outs = compare(case, dtype, args)
+            k = outs["roi_align_v4"]
+            scale_r = torch.tensor(SCALES_Q, device=dev)[levels.long()]
+            span = torch.clamp((rois[:, 3] - rois[:, 1]) * scale_r, min=1.0)
+            wide, narrow = valid & (span > 56), valid & (span <= 48)
+            gap_wide = float((k[wide].float() - k1[wide].float()).abs().max())
+            gap_narrow = float((k[narrow].float() - k1[narrow].float()).abs().max())
+            # K5 and K1 sum in other orders: in bf16, outputs near zero can
+            # round apart by more than one ulp, so f32 alone
+            narrow_ok = dtype == torch.bfloat16 or gap_narrow <= 1e-5
+            log(f"roi_align_v4 {case} {str(dtype)[6:]}: vs K1, {int(wide.sum())} ROIs wider "
+                f"than 56 cells differ by up to {gap_wide:.4f} (the window clamp), "
+                f"{int(narrow.sum())} up to 48 cells by {gap_narrow:.3e}")
+            if not (gap_wide > 0.1 and narrow_ok):
+                raise AssertionError(f"roi_align_v4 {case}: window clamp not as expected "
+                                     f"({gap_wide}, {gap_narrow})")
+            del outs, k, k1
             for name, cuda_fn, plain_fn in variants:
-                k = cuda_fn(*args)
-                torch.cuda.synchronize()
-                p = plain_fn(*args)
-                err = float((k.float() - p.float()).abs().max())
-                if dtype == torch.float32:
-                    ok, tol, metric = err <= 1e-5, "abs <= 1e-5", f"max abs err {err:.3e}"
-                else:
-                    ulps = bf16_ulps(k, p)
-                    ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
-                    metric = f"max abs err {err:.3e}, {ulps:.2f} bf16 ulp"
-                if not ok:
-                    raise AssertionError(f"{name} R={r} {dtype}: {metric} (tolerance {tol})")
-                if name == "roi_align_v4":
-                    scale_r = torch.tensor(SCALES_Q, device=dev)[levels.long()]
-                    span = torch.clamp((rois[:, 3] - rois[:, 1]) * scale_r, min=1.0)
-                    wide, narrow = valid & (span > 56), valid & (span <= 48)
-                    gap_wide = float((k[wide].float() - k1[wide].float()).abs().max())
-                    gap_narrow = float((k[narrow].float() - k1[narrow].float()).abs().max())
-                    # K5 and K1 sum in other orders: in bf16, outputs near zero
-                    # can round apart by more than one ulp, so f32 alone
-                    narrow_ok = dtype == torch.bfloat16 or gap_narrow <= 1e-5
-                    log(f"roi_align_v4 R={r} {str(dtype)[6:]}: vs K1, {int(wide.sum())} ROIs wider "
-                        f"than 56 cells differ by up to {gap_wide:.4f} (the window clamp), "
-                        f"{int(narrow.sum())} up to 48 cells by {gap_narrow:.3e}")
-                    if not (gap_wide > 0.1 and narrow_ok):
-                        raise AssertionError(f"roi_align_v4 R={r}: window clamp not as expected "
-                                             f"({gap_wide}, {gap_narrow})")
                 own_ops = k4_ops if name == "roi_align_v3" else k5_ops
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = own_ops / FP32_OPS_PER_S * 1e3
                 bound = max(t_bytes, t_ops)
                 by = "bytes" if t_bytes >= t_ops else "operations"
+                n_launch, per_launch = roi_variant_launches(lambda: cuda_fn(*args))
+                if n_launch != 2:
+                    raise AssertionError(f"{name} {case} {dtype}: {n_launch} launches per call "
+                                         f"({per_launch}), expected 2 (sort and body)")
                 ms = time_ms(lambda: cuda_fn(*args), reps=10)
                 plain_ms = time_ms(lambda: plain_fn(*args), reps=3, warmup=1)
                 ops_text = (f"{own_ops / 1e9:.2f} GFLOP" if name == "roi_align_v3" else
                             f"{own_ops / 1e9:.2f} GFLOP non-zero, {k5_dense_ops / 1e9:.1f} "
                             f"GFLOP dense as the TPU kernel writes it")
-                log(f"{name} R={r} {str(dtype)[6:]}: {metric} (tolerance {tol}); kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
-                    f"{nbytes / 1e6:.1f} MB as K1; own work {ops_text})")
-                results[(name, r, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                 bound_ms=bound, bound_by=by, gflop=own_ops / 1e9)
-                del k, p
+                launch_text = ", ".join(f"{kn} {v:.4f} ms" for kn, v in per_launch.items())
+                log(f"{name} {case} {str(dtype)[6:]}: 0 error (bit for bit); kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB "
+                    f"as K1; own work {ops_text}), kernel at {100 * bound / ms:.1f}% of its "
+                    f"bound; {n_launch:.0f} launches per call: {launch_text}")
+                results[(name, case, dtype)].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, bound_share=bound / ms,
+                    gflop=own_ops / 1e9, launches_per_call=n_launch, per_launch_ms=per_launch)
                 torch.cuda.empty_cache()
-            del k1
+        rois, valid = random_rois(2000, 1, QUERY_HW, gen, dev)
+        compare("predictor 1 x 2000", dtype, ([f[:1] for f in feats], rois,
+                                              ra.fpn_level_map(rois[:, 1:], 3, 7), (7, 7),
+                                              SCALES_Q, 2, valid))
+        for case, rois, levels, valid in edge_case_rois(gen, dev):
+            levels = ra.fpn_level_map(rois[:, 1:], 3, 7) if levels is None else levels
+            compare(case, dtype, (feats, rois, levels, (7, 7), SCALES_Q, 2, valid))
         del feats
         torch.cuda.empty_cache()
+        # the FCOS-like mix at R = 16 000, each timed call on inputs it has not seen
+        warmup, iters = 1, 5
+        inputs = [make_inputs(600 + i, dev, dtype=dtype, skew="p3")[:3]
+                  for i in range(warmup + 1 + iters)]
+        feats, rois, levels = inputs[-1]
+        compare("p3-skew R=16000", dtype, (feats, rois, levels, (7, 7), SCALES_Q, 2, None))
+        bound = (sum(f.numel() for f in feats) * elt + rois.numel() * 4 + levels.numel() * 4
+                 + rois.shape[0] * 49 * 256 * elt) / HBM_BYTES_PER_S * 1e3
+        for name, cuda_fn, _ in variants:
+            ms = time_fresh_ms(lambda f, r, lv: cuda_fn(f, r, lv, (7, 7), SCALES_Q, 2), inputs,
+                               warmup)
+            log(f"{name} p3-skew R=16000 {str(dtype)[6:]} (fresh inputs each call, back to back): "
+                f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), {100 * bound / ms:.1f}% of it")
+            results[(name, "p3-skew R=16000", dtype)].update(ms=ms, bound_ms=bound)
+        del inputs, feats, rois, levels
+        torch.cuda.empty_cache()
+        # one case for each vector width: C = 66 takes 2 channels a lane, 68 takes 4
+        for c in (66, 68):
+            f2 = [torch.randn(2, h, w, c, generator=gen).to(dev, dtype) for h, w in q_shapes]
+            rois, valid = random_rois(500, 2, QUERY_HW, gen, dev)
+            compare(f"C={c} R=500", dtype, (f2, rois, ra.fpn_level_map(rois[:, 1:], 3, 7),
+                                            (7, 7), SCALES_Q, 2, valid))
     return results
 
 
@@ -772,7 +841,8 @@ def tool_runs():
 
     runs = (("tune_roialign_v3", tune_roialign_v3, ["--iters", "2", "--warmup", "1",
                                                      "--blocks", "16"]),
-            ("ablate_v4", ablate_v4, ["--iters", "2", "--warmup", "1", "--rounds", "1"]),
+            ("ablate_v4", ablate_v4, ["--reps", "2", "--rois", "4096", "--dtypes", "bfloat16",
+                                      "--mixes", "p3-skew", "--variants"]),
             ("tune_roi_head", tune_roi_head, ["--iters", "2", "--warmup", "1"]),
             ("ablate_roi_head", ablate_roi_head, ["--dtype", "float32", "--rois", "16000",
                                                   "--rounds", "1", "--reps", "3"]),
@@ -1244,6 +1314,10 @@ def main() -> int:
     for kname, (regs, st, ld) in ptxas_report(csrc.build_logs.get("roi_align", ""))[0].items():
         log(f"ptxas roi_align.cu {kname}: {regs} registers, spill stores {st} B, "
             f"spill loads {ld} B")
+    for src in ("roi_align_v3", "roi_align_v4"):
+        for kname, (regs, st, ld) in ptxas_report(csrc.build_logs.get(src, ""))[0].items():
+            log(f"ptxas {src}.cu {kname}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
     k1 = ra._kernel()
     log(f"roi_align.cu: {k1.oneshot_roi_align_blocks_per_sm(1)} resident blocks per SM in bf16, "
         f"{k1.oneshot_roi_align_blocks_per_sm(0)} in f32 (one ROI per block)")
@@ -1442,7 +1516,8 @@ def main() -> int:
     })
     for name, source, replaces, tool in (("roi_align_v3", V3_SOURCE, V3_REPLACES, "tune_roialign_v3"),
                                          ("roi_align_v4", V4_SOURCE, V4_REPLACES, "tune_roialign_v3")):
-        v = variant_checks[(name, 16000, torch.bfloat16)]
+        v = variant_checks[(name, "R=16000", torch.bfloat16)]
+        vf = variant_checks[(name, "R=16000", torch.float32)]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1452,13 +1527,21 @@ def main() -> int:
             "launches_by_path": {label: n[name] for label, n in paths.items()},
             "shape": "batch-8 832x1216 pyramid, C=256, R=16000 rois, 7x7, bf16",
             "max_abs_err": v["max_abs_err"],
-            "tolerance": "1 bf16 ulp (f32 cases: 1e-5 abs)",
+            "tolerance": "0 (bit for bit, f32 and bf16, every case)",
             "ms": v["ms"],
             "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"],
+            "bound_share": v["bound_share"],
             "library_ms": None,
             "gflop": v["gflop"],
+            "launches_per_call": v["launches_per_call"],
+            "per_launch_ms": v["per_launch_ms"],
+            "ms_r4096": variant_checks[(name, "R=4096", torch.bfloat16)]["ms"],
+            "p3_skew_fresh_ms": variant_checks[(name, "p3-skew R=16000", torch.bfloat16)]["ms"],
+            "ms_f32": vf["ms"],
+            "bound_ms_f32": vf["bound_ms"],
+            "p3_skew_fresh_ms_f32": variant_checks[(name, "p3-skew R=16000", torch.float32)]["ms"],
             "card": card,
         })
     for k in kernels[2:]:

@@ -3,8 +3,9 @@
 Each ``<name>.cu`` in this directory is compiled at first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/oneshotdet_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``. The library file name carries a hash of the source, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here is
+``ctypes``. The library file name carries a hash of the source and of the
+headers of this directory that it includes, so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing here is
 imported or built when the package is imported.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -60,6 +62,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (_SRC_DIR / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'^#include "([\w.]+)"', src, re.M):
+        src += (_SRC_DIR / header.decode()).read_bytes()
     digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

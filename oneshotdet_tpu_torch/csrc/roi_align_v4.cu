@@ -2,13 +2,12 @@
 // fp32 or bf16 in and out, float32 accumulation.
 //
 // Replaces oneshotdet_tpu/ops/pallas_roi_align_v4.py::
-// pallas_multilevel_roi_align_v4 (the Pallas TPU kernel). The wrapper
-// (oneshotdet_tpu_torch/ops/roi_align_v4.py) builds, as the JAX package does
-// outside its kernel, dense interpolation weights per ROI: rows wy
-// (R, pooled_h, slab_h) over the level's height, columns wx (R, pooled_w, 64)
-// over a 64-column window from x0 (R,) whose out-of-window corners clamp to
-// the window's edge; invalid slots have zero weights. It sorts the slots into
-// blocks of t ROIs that share one (image, level) map. This kernel computes
+// pallas_multilevel_roi_align_v4 (the Pallas TPU kernel). The spec
+// (oneshotdet_tpu_torch/ops/roi_align_v4.py::window_operands) gives each ROI
+// dense interpolation weights: rows wy (pooled_h, slab_h) over the level's
+// height, columns wx (pooled_w, 64) over a 64-column window from x0 whose
+// out-of-window corners clamp to the window's edge; zeros for slots that are
+// not live. The function is
 //   A[p, w, c]   = sum_h wy[r, p, h] * F0[b, h, x0 + w, c]        (stage A, rows)
 //   out[p, q, c] = sum_w wx[r, q, w] * A[p, w, c]                 (stage B, columns)
 // with F0 the level zero-padded on the right: a window column at or past the
@@ -16,203 +15,201 @@
 // clamp for ROIs wider than 56 cells, and its zero padding on narrow levels.
 //
 // Bound. As roi_align.cu: at least one read of the pyramid and one write of
-// the output, plus the dense weights the wrapper writes and this kernel
-// reads once (~4 * (slab_h + 64) * 7 bytes per ROI).
+// the output (~146 us at R = 16 000 on the main path's bf16 shapes at
+// 3.35 TB/s). A dense row has at most 2g non-zero weights, so the products'
+// non-zero terms are as few as K4's.
 //
-// Design. The TPU kernel runs stage A as one matmul over the whole slab and
-// stage B as a block-diagonal matmul; almost all of both products' terms are
-// zeros (a dense row has at most 2g non-zero weights). A thread block here
-// owns one output row p of the t ROIs of one block, one ROI after another.
-// Per ROI it stages the window's column weights in shared memory, and one
-// warp compacts the row's non-zero weights (ballot) and the window columns
-// that some output column uses and that lie inside the level. Each thread
-// owns two adjacent channels: for each such column it forms the stage-A value
-// from the non-zero rows, then adds it into the pooled_w stage-B accumulators
-// in float32 registers. Skipping zero weights leaves the sums unchanged.
+// Design. Two launches per call: the block sort of roi_align_v3.cu
+// (roi_slab_sort_kernel, shared with K4), then roi_align_v4_kernel, laid out
+// as K4's body (roi_align_v3.cu): a block takes one slab block, a warp one
+// ROI (or one 32-lane channel segment of it), a lane one vector of N
+// channels. The warp lists the ROI's taps itself, once per ROI: the window
+// origin x0 as window_operands forms it; for each output column (lane q)
+// the window columns whose dense weight is not zero and that lie inside the
+// level, ascending, each with the very value dense_weights sums for it
+// (corners clamped to the window's edge included); for each output row
+// (lanes 16.., ROW_CHUNK rows at a time) its at most 2g rows of non-zero
+// weight, ascending. No dense weight is written to memory. Per bin the lane
+// forms the stage-A value of each window column from its rows (LOADS loads
+// in flight), then adds it, weighed, into the bin: rows, then window
+// columns, in increasing order, in float32 registers, the plain version's
+// order; zero weights are left out, which leaves the sums unchanged. It
+// sweeps each output row along its bins and keeps the last stage-A value: a
+// bin whose first window column is the last one of the bin before reuses it
+// (the values live in registers; a second one cost more than it saved).
 // No tensor cores: each product has only a few non-zero terms.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <math.h>
 
-#define ONESHOT_MAX_LEVELS 5
-#define MAX_POOLED_W 8
-#define WIN 64
+#include "roi_align_taps.cuh"
 
-struct Pyramid {
-  const void* data[ONESHOT_MAX_LEVELS];  // (B, H_l, W_l, C), contiguous NHWC
-  int height[ONESHOT_MAX_LEVELS];
-  int width[ONESHOT_MAX_LEVELS];
-  float scale[ONESHOT_MAX_LEVELS];
-  int num_levels;
-};
+#define WIN 64               // window columns
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// window_operands' x0 = floor8(clip(floor(start_w), 0, w_l_of - WIN))
+__device__ __forceinline__ float window_origin(float start_w, float w_l_of) {
+  const float x0 = fminf(fmaxf(floorf(start_w), 0.f), w_l_of - (float)WIN);
+  return floorf(x0 / 8.f) * 8.f;
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// Output index i's list on one axis: the distinct corner cells of its
+// samples, clamped to [0, last] cells from `origin`, ascending, each with the
+// weight dense_weights sums for it (per sample in order: (cell == lo) *
+// (1 - lfrac) + (cell == hi) * lfrac, times in-range; then times 1/g); those
+// of zero weight, and those whose cell origin + c is at or past `limit` (the
+// level's zero padding), left out. Cells are returned as origin + c.
+__device__ __forceinline__ int window_taps(float start, float bin, float dim, float origin,
+                                           float last, int limit, int i, int g, int* cell,
+                                           float* w) {
+  const float inv_g = (float)(1.0 / (double)g);
+  float lo[MAX_G], hi[MAX_G], lf[MAX_G], in[MAX_G];
+#pragma unroll
+  for (int s = 0; s < MAX_G; ++s) {
+    if (s < g) {
+      const Interp t = interp(start, bin, dim, i, s, g);
+      lo[s] = fminf(fmaxf(t.low - origin, 0.f), last);
+      hi[s] = fminf(fmaxf(t.high - origin, 0.f), last);
+      lf[s] = t.lfrac;
+      in[s] = t.in;
+    }
+  }
+  int n = 0;
+  float prev = -1.f;
+  for (int it = 0; it < 2 * g; ++it) {
+    float at = INFINITY;  // the smallest corner cell above prev
+#pragma unroll
+    for (int s = 0; s < MAX_G; ++s) {
+      if (s < g) {
+        if (lo[s] > prev) at = fminf(at, lo[s]);
+        if (hi[s] > prev) at = fminf(at, hi[s]);
+      }
+    }
+    if (at == INFINITY) break;
+    float total = 0.f;
+#pragma unroll
+    for (int s = 0; s < MAX_G; ++s) {
+      if (s < g) {
+        const float m = (at == lo[s] ? 1.f - lf[s] : 0.f) + (at == hi[s] ? lf[s] : 0.f);
+        total = total + m * in[s];
+      }
+    }
+    const float wv = total * inv_g;
+    const int c = (int)origin + (int)at;
+    if (wv != 0.f && c < limit) {
+      cell[n] = c;
+      w[n++] = wv;
+    }
+    prev = at;
+  }
+  return n;
 }
 
-__device__ __forceinline__ void store2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
+// grid (num_blocks,), block 32 * min(BODY_WARPS, t * segments) threads;
+// registers cut for 4 resident blocks per SM (at most 64): the faster on the
+// H100 of 1, 3 and 4 in both dtypes (tools/ablate_v4.py --variants)
+template <typename T, int N>
+__global__ void __launch_bounds__(BODY_WARPS * 32, 4)
+    roi_align_v4_kernel(const BodyArgs a) {
+  using V = Vec<T, N>;
+  __shared__ Taps s_taps[BODY_WARPS];
+  const int group = a.block_group[blockIdx.x];
+  const int n_levels = a.pyr.num_levels;
+  if (group > a.batch * n_levels) return;  // unused block
+  const bool dead = group == a.batch * n_levels;  // slots that are not live: zeros
+  const int b = dead ? 0 : group / n_levels;
+  const int lvl = dead ? 0 : group % n_levels;
+  const int C = a.channels, ph = a.pooled_h, pw = a.pooled_w;
+  const int height = a.pyr.height[lvl];
+  const int width = a.pyr.width[lvl];
+  const T* base = static_cast<const T*>(a.pyr.data[lvl]) + (int64_t)b * height * width * C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int segs = (C + 32 * N - 1) / (32 * N);
+  Taps& tp = s_taps[warp];
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
-}
-
-// grid (blocks, pooled_h); dynamic shared memory: slab_h ints + slab_h floats
-template <typename T>
-__global__ void roi_align_v4_kernel(Pyramid pyr, int batch, int channels,
-                                    const float* __restrict__ wy, int slab_h,
-                                    const float* __restrict__ wx,
-                                    const int* __restrict__ x0s,
-                                    const int* __restrict__ block_group,
-                                    const int* __restrict__ slot_roi, int t,
-                                    int pooled_h, int pooled_w,
-                                    T* __restrict__ out) {
-  extern __shared__ int s_dyn[];
-  int* s_rows = s_dyn;                                         // [slab_h]
-  float* s_wrow = reinterpret_cast<float*>(s_dyn + slab_h);    // [slab_h]
-  __shared__ float s_wx[MAX_POOLED_W * WIN];
-  __shared__ int s_cols[WIN];
-  __shared__ int s_nrows, s_ncols;
-
-  const int k = blockIdx.x;
-  const int p = blockIdx.y;
-  const int n_groups = batch * pyr.num_levels;
-  const int group = block_group[k];
-  if (group > n_groups) return;  // unused block
-  const bool dead = group == n_groups;  // slots that are not valid: zeros
-  const int b = dead ? 0 : group / pyr.num_levels;
-  const int lvl = dead ? 0 : group % pyr.num_levels;
-  const int height = pyr.height[lvl];
-  const int width = pyr.width[lvl];
-  const T* base = static_cast<const T*>(pyr.data[lvl]) +
-                  (int64_t)b * height * width * channels;
-  const int lane = threadIdx.x & 31;
-
-  for (int i = 0; i < t; ++i) {
-    const int r = slot_roi[(int64_t)k * t + i];
-    if (r < 0) continue;  // padding slot (the same for the whole block)
-    T* out_row = out + ((int64_t)r * pooled_h + p) * pooled_w * channels;
+  for (int u = warp; u < a.t * segs; u += blockDim.x / 32) {
+    const int r = a.slot_roi[(int64_t)blockIdx.x * a.t + u / segs];
+    if (r < 0) continue;  // padding slot
+    const int c = (u % segs) * 32 * N + lane * N;
+    const bool active = c < C;
+    T* out_roi = static_cast<T*>(a.out) + (int64_t)r * ph * pw * C + c;
     if (dead) {
-      for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x)
-        for (int q = 0; q < pooled_w; ++q)
-          store2(out_row + q * channels + c, make_float2(0.f, 0.f));
+      if (active) store_zeros<T, N>(out_roi, ph * pw, C);
       continue;
     }
-    const int x0 = x0s[r];
-    __syncthreads();  // the previous ROI's staging is no longer read
-    for (int j = threadIdx.x; j < pooled_w * WIN; j += blockDim.x)
-      s_wx[j] = wx[(int64_t)r * pooled_w * WIN + j];
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      // non-zero row weights of output row p (rows past the level are zero)
-      const float* wrow = wy + ((int64_t)r * pooled_h + p) * slab_h;
-      int n = 0;
-      for (int h0 = 0; h0 < height; h0 += 32) {
-        const int h = h0 + lane;
-        const float w = h < height ? wrow[h] : 0.f;
-        const unsigned m = __ballot_sync(0xffffffffu, w != 0.f);
-        if (w != 0.f) {
-          const int at = n + __popc(m & ((1u << lane) - 1u));
-          s_rows[at] = h;
-          s_wrow[at] = w;
-        }
-        n += __popc(m);
-      }
-      // window columns some output column weighs and that lie in the level
-      int nc = 0;
-      for (int w0 = 0; w0 < WIN; w0 += 32) {
-        const int w = w0 + lane;
-        bool used = false;
-        for (int q = 0; q < pooled_w; ++q) used |= s_wx[q * WIN + w] != 0.f;
-        used &= x0 + w < width;
-        const unsigned m = __ballot_sync(0xffffffffu, used);
-        if (used) s_cols[nc + __popc(m & ((1u << lane) - 1u))] = w;
-        nc += __popc(m);
-      }
-      if (lane == 0) {
-        s_nrows = n;
-        s_ncols = nc;
-      }
-    }
-    __syncthreads();
-    const int nrows = s_nrows, ncols = s_ncols;
+    const RoiBox box = roi_box(a, r, lvl);
+    const float x0 = window_origin(box.start_w, (float)a.window_width[lvl]);
+    if (lane < pw)
+      tp.nx[lane] = window_taps(box.start_w, box.bin_w, (float)width, x0, (float)(WIN - 1),
+                                width, lane, a.g, tp.xc[lane], tp.xw[lane]);
 
-    for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
-      float2 acc[MAX_POOLED_W];
+    for (int p0 = 0; p0 < ph; p0 += ROW_CHUNK) {
+      const int rows = min(ROW_CHUNK, ph - p0);
+      const int yl = lane - 16;
+      if (yl >= 0 && yl < rows)
+        tp.ny[yl] = window_taps(box.start_h, box.bin_h, (float)height, 0.f,
+                                (float)(a.slab_h - 1), height, p0 + yl, a.g, tp.yc[yl],
+                                tp.yw[yl]);
+      __syncwarp();
+      for (int pp = 0; pp < rows; ++pp) {
+        // along the output row, so that neighbouring bins that share a
+        // window column reuse its stage-A value
+        Recent<N, 1> recent;
+        for (int q = 0; q < pw; ++q) {
+          const int nx = tp.nx[q];
+          float acc[N];
 #pragma unroll
-      for (int q = 0; q < MAX_POOLED_W; ++q) acc[q] = make_float2(0.f, 0.f);
-      for (int ci = 0; ci < ncols; ++ci) {
-        const int w = s_cols[ci];
-        const T* col = base + (int64_t)(x0 + w) * channels + c;
-        // stage A: the window column's value on output row p
-        float2 a = make_float2(0.f, 0.f);
-        for (int ri = 0; ri < nrows; ++ri) {
-          const float2 v = load2(col + (int64_t)s_rows[ri] * width * channels);
-          a.x += s_wrow[ri] * v.x;
-          a.y += s_wrow[ri] * v.y;
-        }
-        // stage B: into every output column that weighs it
+          for (int e = 0; e < N; ++e) acc[e] = 0.f;
+          for (int i = 0; i < nx; ++i) {
+            const int x = tp.xc[q][i];
+            float sa[N];  // stage A: the window column's value on this output row
+            if (!recent.get(x, sa)) {
+              contract<T, N>(base + (int64_t)x * C + c, tp.yc[pp], tp.yw[pp], tp.ny[pp],
+                             (int64_t)width * C, active, sa);
+              recent.put(x, sa);
+            }
+            // stage B: weighed into the bin
+            const float wq = tp.xw[q][i];
 #pragma unroll
-        for (int q = 0; q < MAX_POOLED_W; ++q) {
-          if (q >= pooled_w) break;
-          const float wq = s_wx[q * WIN + w];
-          acc[q].x += wq * a.x;
-          acc[q].y += wq * a.y;
+            for (int e = 0; e < N; ++e) acc[e] = acc[e] + wq * sa[e];
+          }
+          if (active) V::store(out_roi + ((int64_t)(p0 + pp) * pw + q) * C, V::narrow(acc));
         }
       }
-#pragma unroll
-      for (int q = 0; q < MAX_POOLED_W; ++q)
-        if (q < pooled_w) store2(out_row + q * channels + c, acc[q]);
+      __syncwarp();  // the chunk's row taps are no longer read
     }
   }
 }
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
-int oneshot_roi_align_v4_forward(const void* pyramid, int batch, int channels,
-                                 int dtype, const void* wy, int slab_h,
-                                 const void* wx, const void* x0,
-                                 const void* block_group, const void* slot_roi,
-                                 int num_blocks, int rois_per_block,
-                                 int pooled_h, int pooled_w, void* out,
-                                 void* stream) {
-  const Pyramid pyr = *static_cast<const Pyramid*>(pyramid);
-  if (pooled_w > MAX_POOLED_W) return (int)cudaErrorInvalidValue;
-  const int half = channels / 2;
-  const int threads = half < 256 ? ((half + 31) / 32) * 32 : 256;
-  const dim3 grid((unsigned)num_blocks, (unsigned)pooled_h);
-  const size_t smem = (size_t)slab_h * (sizeof(int) + sizeof(float));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fwy = static_cast<const float*>(wy);
-  const float* fwx = static_cast<const float*>(wx);
-  const int* ix0 = static_cast<const int*>(x0);
-  const int* bg = static_cast<const int*>(block_group);
-  const int* sr = static_cast<const int*>(slot_roi);
-  if (dtype == 0) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(roi_align_v4_kernel<float>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    roi_align_v4_kernel<float><<<grid, threads, smem, s>>>(
-        pyr, batch, channels, fwy, slab_h, fwx, ix0, bg, sr, rois_per_block,
-        pooled_h, pooled_w, static_cast<float*>(out));
-  } else if (dtype == 1) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(roi_align_v4_kernel<__nv_bfloat16>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    roi_align_v4_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
-        pyr, batch, channels, fwy, slab_h, fwx, ix0, bg, sr, rois_per_block,
-        pooled_h, pooled_w, static_cast<__nv_bfloat16*>(out));
-  } else {
+// window_widths: each level's w_l_of (int[num_levels]); slab_h: the tallest
+// level's height. dtype: 0 = float32, 1 = bfloat16; vec: channels per lane
+// (bf16 8, 4, 2; f32 4, 2). Returns cudaGetLastError() after launch.
+int oneshot_roi_align_v4_forward(const void* pyramid, const void* window_widths, int slab_h,
+                                 int batch, int channels, int dtype, const void* rois,
+                                 long long rs0, long long rs1, const void* block_group,
+                                 const void* slot_roi, int num_blocks, int rois_per_block,
+                                 int pooled_h, int pooled_w, int sampling_ratio, int vec,
+                                 void* out, void* stream) {
+  if (pooled_w > MAX_POOLED_W || sampling_ratio < 1 || sampling_ratio > MAX_G ||
+      rois_per_block < 1)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  BodyArgs a = body_args(pyramid, batch, channels, rois, rs0, rs1, block_group, slot_roi,
+                         rois_per_block, pooled_h, pooled_w, sampling_ratio, out);
+  for (int l = 0; l < a.pyr.num_levels; ++l)
+    a.window_width[l] = static_cast<const int*>(window_widths)[l];
+  a.slab_h = slab_h;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4)
+    return launch_body<float, 4>(roi_align_v4_kernel<float, 4>, a, num_blocks, s);
+  if (dtype == 0 && vec == 2)
+    return launch_body<float, 2>(roi_align_v4_kernel<float, 2>, a, num_blocks, s);
+  if (dtype == 1 && vec == 8)
+    return launch_body<__nv_bfloat16, 8>(roi_align_v4_kernel<__nv_bfloat16, 8>, a, num_blocks, s);
+  if (dtype == 1 && vec == 4)
+    return launch_body<__nv_bfloat16, 4>(roi_align_v4_kernel<__nv_bfloat16, 4>, a, num_blocks, s);
+  if (dtype == 1 && vec == 2)
+    return launch_body<__nv_bfloat16, 2>(roi_align_v4_kernel<__nv_bfloat16, 2>, a, num_blocks, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* oneshot_roi_align_v4_error_string(int code) {

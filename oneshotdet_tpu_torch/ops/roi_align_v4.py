@@ -19,11 +19,15 @@ computes, and both versions here reproduce it. On a level narrower than the
 window, columns past its true width read the zero padding.
 
 ``multilevel_roi_align_v4`` dispatches on the device of its inputs: CPU
-tensors take ``multilevel_roi_align_v4_plain``; CUDA tensors launch the
-kernel of ``csrc/roi_align_v4.cu`` or raise. The weights are built in plain
-PyTorch by both (the JAX package builds them in XLA, outside its kernel); the
-TPU kernel's bf16 rounding of its weights and stage-A product for bf16
-inputs is not repeated: both versions accumulate in float32 and round once.
+tensors take ``multilevel_roi_align_v4_plain``, which builds the dense
+weights (``window_operands``, the spec; the JAX package builds them in XLA,
+outside its kernel); CUDA tensors launch the block sort of
+``csrc/roi_align_v3.cu`` and the kernel of ``csrc/roi_align_v4.cu`` or raise.
+The kernel writes no weights: it lists each ROI's non-zero ones itself,
+with the very values the dense weights hold (``v4_roi_taps`` mirrors it for
+the CPU tests). The TPU kernel's bf16 rounding of its weights and stage-A
+product for bf16 inputs is not repeated: both versions accumulate in float32
+and round once.
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from .roi_align import _DTYPE_CODE, _div
-from .roi_align_v3 import (ROIS_PER_BLOCK, check_kernel_inputs, live_rois, pyramid_struct,
-                           roi_geometry, slab_blocks)
+from .roi_align_v3 import (ROIS_PER_BLOCK, _compact, _roi_levels, axis_interp,
+                           check_kernel_inputs, live_rois, pyramid_struct, roi_geometry,
+                           slab_sort_cuda)
 
 WIN = 64                  # column window (cells); x-spans <= WIN - 8 are exact
 PLAIN_CHUNK = 1024        # ROIs per step of the plain version (bounds its memory)
@@ -152,27 +157,79 @@ def multilevel_roi_align_v4_plain(features, rois, levels, output_size, scales,
     return torch.cat(out).to(features[0].dtype)
 
 
-def _kernel():
-    from .. import csrc
+def _v4_axis(start, extent, dim, origin, span: int, limit, g: int, pooled: int):
+    """K5's list for one axis: the distinct cells of the sub-samples' corners
+    (clamped to ``span`` cells from ``origin``), ascending, each with the
+    weight ``dense_weights`` sums for it, kept where it is not zero and its
+    cell ``origin + c`` lies before ``limit``."""
+    low, high, lfrac, in_range = axis_interp(start, _div(extent, pooled), dim, g, pooled)
+    org = origin[:, None, None]
+    lo = torch.clamp(low - org, 0.0, span - 1.0)
+    hi = torch.clamp(high - org, 0.0, span - 1.0)
+    cand, _ = torch.sort(torch.cat([lo, hi], -1), dim=-1)              # (R, n, 2g)
+    first = torch.ones_like(cand, dtype=torch.bool)
+    first[..., 1:] = cand[..., 1:] != cand[..., :-1]
+    total = torch.zeros_like(cand)
+    for s in range(g):
+        m = (torch.where(cand == lo[..., s:s + 1], 1.0 - lfrac[..., s:s + 1], 0.0)
+             + torch.where(cand == hi[..., s:s + 1], lfrac[..., s:s + 1], 0.0))
+        total = total + m * in_range[..., s:s + 1]
+    weights = total * torch.tensor(1.0 / g, dtype=torch.float32)
+    cells = (org + cand).long()
+    keep = first & (weights != 0) & (cells < limit[:, None, None])
+    return _compact(cells, weights, keep)
 
-    lib = csrc.load("roi_align_v4")
+
+def v4_roi_taps(features, rois, levels, output_size, scales, sampling_ratio, ok):
+    """The taps K5's kernel builds for each ROI: the window origin ``x0``
+    (R,) int64, then per output row the rows with a non-zero weight in
+    ``dense_weights``' row, ascending, and per output column the window
+    columns with a non-zero weight that lie inside the level (as global
+    columns ``x0 + w``), ascending; each as ``(cells, weights, count)`` like
+    ``v3_roi_taps``. The kernel's rule, mirrored on the CPU."""
+    pooled_h, pooled_w = output_size
+    g = sampling_ratio
+    rois, levels = rois.cpu(), levels.cpu()
+    start_w, start_h, roi_w, roi_h, heights, widths = _roi_levels(features, rois, levels, scales)
+    lv = levels.long().clamp(0, len(features) - 1)
+    w_l_of = torch.tensor(window_widths(features), dtype=torch.float32)[lv]
+    x0 = torch.minimum(torch.clamp(torch.floor(start_w), min=0.0), w_l_of - WIN)
+    x0 = torch.floor(_div(x0, 8)) * 8.0
+    slab_h = max(f.shape[1] for f in features)
+    y = _v4_axis(start_h, roi_h, heights, torch.zeros_like(start_h), slab_h, heights.long(),
+                 g, pooled_h)
+    x = _v4_axis(start_w, roi_w, widths, x0, WIN, widths.long(), g, pooled_w)
+    okc = ok.cpu()[:, None]
+    return x0.long(), (y[0], y[1], y[2] * okc), (x[0], x[1], x[2] * okc)
+
+
+def bind(lib):
+    """Set the argument types of ``roi_align_v4.cu``'s entry points on a loaded
+    library (the built one, or a variant's copy); returns it."""
     fn = lib.oneshot_roi_align_v4_forward
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, p, i, p, p, p, p, i, i, i, i, p, p]
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, i, i, i, i, p, q, q, p, p, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
         lib.oneshot_roi_align_v4_error_string.argtypes = [ctypes.c_int]
         lib.oneshot_roi_align_v4_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _kernel():
+    from .. import csrc
+
+    return bind(csrc.load("roi_align_v4"))
+
+
 def multilevel_roi_align_v4_cuda(features, rois, levels, output_size, scales,
                                  sampling_ratio, valid=None,
                                  rois_per_block: int = ROIS_PER_BLOCK) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on any input it does not take."""
+    """Launch the block sort (``roi_align_v3.slab_sort_cuda``) and the CUDA
+    kernel; raises on any input they do not take."""
     global roi_align_v4_launches
-    b, c, r, dtype = check_kernel_inputs("roi_align_v4", features, rois, levels, valid,
-                                         output_size, sampling_ratio)
+    b, c, r, dtype, vec = check_kernel_inputs("roi_align_v4", features, rois, levels, valid,
+                                              output_size, sampling_ratio)
     if rois_per_block < 1:
         raise ValueError("roi_align_v4 kernel: rois_per_block must be >= 1")
     pooled_h, pooled_w = output_size
@@ -180,18 +237,18 @@ def multilevel_roi_align_v4_cuda(features, rois, levels, output_size, scales,
     out = torch.empty((r, pooled_h, pooled_w, c), dtype=dtype, device=dev)
     if r == 0:
         return out
-    ok = live_rois(rois, levels, valid, b, len(features))
-    wy, wx, x0 = (v.contiguous() for v in window_operands(
-        features, rois, levels, output_size, scales, sampling_ratio, ok))
-    block_group, slot_roi = slab_blocks(rois, levels, ok, b, len(features), rois_per_block)
+    block_group, slot_roi = slab_sort_cuda(rois, levels, valid, b, len(features), rois_per_block)
     pyr = pyramid_struct(features, scales)
+    widths = (ctypes.c_int * len(features))(*window_widths(features))
+    slab_h = max(f.shape[1] for f in features)
     lib = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.oneshot_roi_align_v4_forward(
-            ctypes.addressof(pyr), b, c, _DTYPE_CODE[dtype], wy.data_ptr(), wy.shape[2],
-            wx.data_ptr(), x0.data_ptr(), block_group.data_ptr(), slot_roi.data_ptr(),
-            block_group.shape[0], rois_per_block, pooled_h, pooled_w, out.data_ptr(), stream)
+            ctypes.addressof(pyr), ctypes.addressof(widths), slab_h, b, c, _DTYPE_CODE[dtype],
+            rois.data_ptr(), rois.stride(0), rois.stride(1), block_group.data_ptr(),
+            slot_roi.data_ptr(), block_group.shape[0], rois_per_block, pooled_h, pooled_w,
+            sampling_ratio, vec, out.data_ptr(), stream)
     if rc != 0:
         err = lib.oneshot_roi_align_v4_error_string(rc).decode()
         raise RuntimeError(f"roi_align_v4 kernel launch failed: {err} ({rc})")

@@ -31,10 +31,9 @@ from oneshotdet_tpu_torch.ops import roi_align as ra  # noqa: E402
 from oneshotdet_tpu_torch.ops import roi_align_v3 as v3  # noqa: E402
 from oneshotdet_tpu_torch.ops import roi_align_v4 as v4  # noqa: E402
 from oneshotdet_tpu_torch.tools import card_line, time_fresh_ms  # noqa: E402
+from oneshotdet_tpu_torch.tools.ablate_v4 import (BATCH, CHANNELS, SCALES, SHAPES,  # noqa: E402
+                                                  make_rois)
 
-BATCH, CHANNELS = 8, 256
-SHAPES = [(104, 152), (52, 76), (26, 38), (13, 19), (7, 10)]
-SCALES = (0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
 ROIS_PER_IMAGE = 2000
 PARITY_ATOL = 2e-5
 
@@ -45,16 +44,8 @@ def make_inputs(seed, dev, small=False, dtype=torch.bfloat16, skew=None):
     shapes = SHAPES[3:] if small else SHAPES
     feats = [torch.from_numpy(rr.randn(BATCH, h, w, CHANNELS).astype(np.float32)).to(dev, dtype)
              for h, w in shapes]
-    nroi = 64 if small else BATCH * ROIS_PER_IMAGE
-    hi = 110 if skew == "p3" else 640
-    wh = rr.uniform(8, hi, (nroi, 2)).astype(np.float32)
-    xy = rr.uniform(0, 1, (nroi, 2)).astype(np.float32) * (np.array([1200, 800]) - wh)
-    rois = np.concatenate([np.repeat(np.arange(BATCH, dtype=np.float32), nroi // BATCH)[:, None],
-                           xy, xy + wh], axis=1).astype(np.float32)
-    area = wh[:, 0] * wh[:, 1]
-    kmax = 1 if small else 4
-    lvl = np.clip(np.floor(4 + np.log2(np.sqrt(area) / 224 + 1e-8)) - 3, 0, kmax)
-    return (feats, torch.from_numpy(rois).to(dev), torch.from_numpy(lvl.astype(np.int32)).to(dev),
+    rois, lvl = make_rois(rr, 64 if small else BATCH * ROIS_PER_IMAGE, skew, 1 if small else 4)
+    return (feats, torch.from_numpy(rois).to(dev), torch.from_numpy(lvl).to(dev),
             SCALES[3:] if small else SCALES)
 
 

@@ -96,3 +96,27 @@ def test_default_device_is_cuda_and_never_falls_back():
     _, pcfg = small_cfgs()
     with pytest.raises((RuntimeError, AssertionError)):
         build_detection_model(pcfg)
+
+
+@pytest.mark.parametrize("mean", [0.0, 3.0])
+def test_group_norm_matches_flax(mean):
+    """The port's GroupNorm (``F.group_norm``, the FCOS towers' and the unfused
+    head's) against flax ``nn.GroupNorm`` (the one-pass variance
+    max(E[x^2] - E[x]^2, 0) in float32), 32 groups, eps 1e-5, at its initial
+    scale and bias: they differ by the one-pass formula's float32 rounding in
+    XLA's summation order, which grows with the input mean (a deviation the
+    port keeps, ROADMAP); within 1e-4 at means 0 and 3."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+
+    from oneshotdet_tpu_torch.models.layers import GroupNorm
+
+    x = (np.random.RandomState(17).randn(2, 13, 19, 256) + mean).astype(np.float32)
+    flax_gn = fnn.GroupNorm(num_groups=32, epsilon=1e-5)
+    params = flax_gn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    ref = np.asarray(flax_gn.apply(params, jnp.asarray(x)))
+    port = GroupNorm(32, 256, eps=1e-5)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)

@@ -202,10 +202,10 @@ def test_tool_inputs_are_the_kernels_dtypes():
 
 
 def test_ablation_cuts_match_the_kernel_source_once():
-    src = (pathlib.Path(v4.__file__).parents[1] / "csrc" / "roi_align_v4.cu").read_text()
-    for name, patches in ablate_v4.CUTS:
-        for old, _ in patches:
-            assert src.count(old) == 1, name
+    csrc = pathlib.Path(v4.__file__).parents[1] / "csrc"
+    for kernel, name, patches in ablate_v4.VARIANTS:
+        for path, old, _ in patches:
+            assert (csrc / path).read_text().count(old) == 1, (kernel, name, path)
 
 
 @pytest.mark.parametrize("tool", ["tune_roialign_v3", "ablate_v4", "tune_roi_head"])
