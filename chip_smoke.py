@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from this checkout (ROIAlign K1, the
-fused relation head K3, GroupNorm K2, the cross-ROI ROIAlign variants K4 and
-K5), holds each against its plain PyTorch version at the shapes its path
-gives it (K1 also at its edge cases and on the FCOS-like p3-skew mix, with
-its per-ROI plan against the Python mirror; K2 on the FCOS tower's P3-P7
-and at narrower channel widths, with its backward, its arrival counters over
+Builds the port's six CUDA kernels from this checkout (ROIAlign K1 and its
+backward K1b, the fused relation head K3, GroupNorm K2, the cross-ROI
+ROIAlign variants K4 and K5), holds each against its plain PyTorch version
+at the shapes its path gives it (K1 also at its edge cases and on the
+FCOS-like p3-skew mix, with its per-ROI plan against the Python mirror; K1b
+against the float32 plain gradient at the train step's shapes, random and
+GT-clustered, at K1's edge cases and as the autograd Function against
+torch.autograd.grad of the plain forward; K2 on the FCOS tower's P3-P7 and
+at narrower channel widths, with its backward, its arrival counters over
 back-to-back calls, two streams and two CUDA graphs, and its per-launch
 device times; K4 and K5 bit for bit on K1's proposal and edge cases, the
 predictor's 1 x 2000, the p3-skew mix on fresh inputs and one case per vector
@@ -21,13 +24,16 @@ ablate_group_norm at reduced counts), then the flagship one-shot detector
 from a seed) through its entry points -- the streaming predictor, the
 batch-8 832x1216 eval forward at 512 and 2000 proposals per image, each with
 the unfused and the fused head, the same forward at 2000 in float32 with
-both heads (K3's 3xTF32 route; their detections must pair up), and the eval
+both heads (K3's 3xTF32 route; their detections must pair up), the eval
 engine (per-batch, cached-support and multi-class steps, and
-inference() with the COCO evaluator) -- and checks small float32 forwards on
-the card against the same model on the CPU. Every kernel's launch count is
-set to 0 before each path and read after it. Any failure raises and exits
-non-zero. The last two lines of stdout are the per-kernel JSON line and
-{"ok": true, "device": {...}}.
+inference() with the COCO evaluator), and the train step at full width
+(do_train and train_step over fresh synthetic episodes: finite losses and
+gradients, the support backbone trained through K1b, 7 K1 and 7 K1b
+launches per step, frozen stages unchanged) -- and checks small float32
+forwards and a small float32 train step on the card against the same model
+on the CPU. Every kernel's launch count is set to 0 before each path and
+read after it. Any failure raises and exits non-zero. The last two lines of
+stdout are the per-kernel JSON line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -52,6 +58,15 @@ BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
 TF32_OPS_PER_S = 494.7e12     # H100 SXM, TF32 tensor cores, dense
 KERNEL_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align.cu"
 KERNEL_REPLACES = "oneshotdet_tpu/ops/pallas_roi_align.py:249"
+BWD_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align_bwd.cu"
+# no TPU kernel: the JAX package takes this gradient as XLA's transpose of
+BWD_REPLACES = "none: XLA autodiff of oneshotdet_tpu/ops/roi_align.py:215"
+# K1b against the float32 plain gradient: float32 atomics add in a varying
+# order, so a sum that cancels keeps an absolute error of the order of its
+# terms' rounding (GRAD_ATOL x the largest gradient); f32 within GRAD_RTOL
+# relative on top, bf16 within 1 bf16 ulp (the one rounding of the cast)
+GRAD_RTOL = 1e-5
+GRAD_ATOL = 1e-6
 HEAD_SOURCE = "oneshotdet_tpu_torch/csrc/roi_head.cu"
 HEAD_REPLACES = "oneshotdet_tpu/ops/pallas_roi_head.py:226"
 # fused head vs its plain version: both run float32-accurate chains (the
@@ -75,6 +90,12 @@ ENGINE_MIN_SHARE = 0.8        # see engine_checks
 QUERY_HW = (832, 1216)
 SUPP_HW = (416, 416)
 BATCH = 8
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_TRAJECTORY = 2, 10, 20
+# tests/torch_port_common.py's SMALL capacities, for the small train step
+SMALL = ["MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 200, "MODEL.RPN.PRE_NMS_TOP_N_TEST", 100,
+         "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", 64, "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 32,
+         "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 16, "MODEL.ROI_HEADS.DETECTIONS_PER_IMG", 32,
+         "TPU.MAX_GT_BOXES", 4, "TPU.NMS_PRE_TOPK", 256, "TPU.COMPUTE_DTYPE", "float32"]
 
 
 def log(*args):
@@ -310,6 +331,159 @@ def kernel_checks(ra, dev):
                                                    bound_by=by, bound_share=bound / ms)
         del inputs, feats, rois, levels, k
         torch.cuda.empty_cache()
+    return results
+
+
+def clustered_rois(gen, dev, per_gt=32, gts=4):
+    """R = BATCH x gts x per_gt ROIs crowded onto a few GT-like boxes per
+    image (each ROI its GT jittered by up to 10% of its size), as sampled
+    proposals crowd onto the GT: neighbouring ROIs share most pixels."""
+    h, w = QUERY_HW
+    rows = []
+    for b in range(BATCH):
+        wh = 32 + torch.rand(gts, 2, generator=gen) * 368
+        xy = torch.rand(gts, 2, generator=gen) * (torch.tensor([w, h]) - wh)
+        gt = torch.cat([xy, xy + wh], dim=1).repeat_interleave(per_gt, dim=0)
+        jitter = (torch.rand(gt.shape, generator=gen) - 0.5) * 0.2 * wh.repeat_interleave(
+            per_gt, dim=0).repeat(1, 2)
+        rows.append(torch.cat([torch.full((gts * per_gt, 1), float(b)), gt + jitter], dim=1))
+    return torch.cat(rows).to(dev)
+
+
+def k1b_bound(grad_out, rois, levels, valid, shapes):
+    """K1b's bound on these inputs (ms, 'bytes' or 'operations', bytes,
+    ops): grad_out, ROIs, levels and flags read once and the gradient
+    written once in the features' dtype, at the card's memory rate; 2 x 2
+    samples x 4 corners x (multiply + add) per grad_out value at the fp32
+    rate."""
+    elt = grad_out.element_size()
+    nbytes = (grad_out.numel() * elt + rois.numel() * 4 + levels.numel() * 4
+              + (0 if valid is None else valid.numel())
+              + sum(math.prod(s) for s in shapes) * elt)
+    ops = grad_out.numel() * 4 * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops
+
+
+def grad_compare(label, dtype, got, want):
+    """Per-level gradients ``got`` (the kernel's, in ``dtype``) against
+    ``want`` (the float32 plain gradient): f32 within GRAD_RTOL |want| +
+    GRAD_ATOL max|want|, bf16 within 1 bf16 ulp of |want| + the same
+    GRAD_ATOL term. Raises otherwise; returns (max abs err, worst share of
+    the allowance, text)."""
+    gmax = max(float(w.abs().max()) for w in want)
+    atol = GRAD_ATOL * gmax
+    err = share = 0.0
+    for k, w in zip(got, want):
+        if k.shape != w.shape or k.dtype != dtype:
+            raise AssertionError(f"{label}: gradient {tuple(k.shape)} {k.dtype}, expected "
+                                 f"{tuple(w.shape)} {dtype}")
+        k = k.float()
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"{label}: non-finite gradient")
+        d = (k - w).abs()
+        if dtype == torch.float32:
+            allowed = GRAD_RTOL * w.abs() + atol
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126))) - 7)
+            allowed = ulp + atol
+        err = max(err, float(d.max()))
+        share = max(share, float((d / allowed).max()))
+    tol = (f"rtol {GRAD_RTOL} + atol {GRAD_ATOL} x max|grad|" if dtype == torch.float32
+           else f"1 bf16 ulp + atol {GRAD_ATOL} x max|grad|")
+    text = (f"max abs err {err:.3e} (max |grad| {gmax:.3e}), worst {100 * share:.1f}% of the "
+            f"allowance ({tol})")
+    if share > 1.0:
+        raise AssertionError(f"{label} {dtype}: {text}")
+    return err, share, text
+
+
+def roi_align_bwd_checks(ra, dev):
+    """Phase 3e: the ROIAlign backward kernel K1b against its plain version
+    (the float32 plain gradient of the same inputs) at the train step's
+    shapes: the proposals' R = 1024 (random and GT-clustered ROIs) over the
+    batch-8 832x1216 pyramid, the support 7x7 (R = 8) and the five 1x1 pools
+    on the 416x416 support pyramid; at K1's edge cases (with valid = False
+    slots); and the whole autograd Function (K1 forward, K1b backward)
+    against torch.autograd.grad of the float32 plain forward. Logs each
+    case's time, bound and share of it, and the zeroing and cast on their
+    own. Returns {(case, dtype): entry}."""
+    gen = torch.Generator().manual_seed(4)
+    scales = SCALES_Q
+    q_shapes = [(BATCH, h, w, 256) for h, w in pyramid_shapes(*QUERY_HW)]
+    s_shapes = [(BATCH, h, w, 256) for h, w in pyramid_shapes(*SUPP_HW)]
+    supp_rois = torch.tensor([[i, 0.0, 0.0, 416.0 - 13 * i, 300.0 + 10 * i]
+                              for i in range(BATCH)], device=dev)
+    zero_lv = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    rois, valid = random_rois(1024, BATCH, QUERY_HW, gen, dev)
+    crowd = clustered_rois(gen, dev)
+    cases = [("proposals 7x7 R=1024", q_shapes, rois, ra.fpn_level_map(rois[:, 1:], 3, 7),
+              (7, 7), scales, valid),
+             ("GT-clustered 7x7 R=1024", q_shapes, crowd, ra.fpn_level_map(crowd[:, 1:], 3, 7),
+              (7, 7), scales, None),
+             ("support 7x7 R=8", s_shapes, supp_rois, ra.fpn_level_map(supp_rois[:, 1:], 3, 7),
+              (7, 7), scales, None)]
+    for lvl in range(5):
+        cases.append((f"support 1x1 P{lvl + 3} R=8", [s_shapes[lvl]], supp_rois, zero_lv,
+                      (1, 1), (scales[lvl],), None))
+    for name, r, lv, v in edge_case_rois(gen, dev):
+        cases.append((name, q_shapes, r, ra.fpn_level_map(r[:, 1:], 3, 7) if lv is None else lv,
+                      (7, 7), scales, v))
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shapes, r, lv, out_hw, sc, v in cases:
+            g_out = torch.randn((r.shape[0], *out_hw, 256), generator=gen).to(dev, dtype)
+            bargs = (g_out, shapes, dtype, r, lv, out_hw, sc, 2, v)
+            got = ra.multilevel_roi_align_backward_cuda(*bargs)
+            torch.cuda.synchronize()
+            want = ra.multilevel_roi_align_backward_plain(g_out.float(), shapes, torch.float32,
+                                                          r, lv, out_hw, sc, 2, v)
+            err, share, text = grad_compare(f"roi_align_bwd {name}", dtype, got, want)
+            del got, want
+            bound, by, nbytes, ops = k1b_bound(g_out, r, lv, v, shapes)
+            ms = time_ms(lambda: ra.multilevel_roi_align_backward_cuda(*bargs))
+            plain_ms = time_ms(lambda: ra.multilevel_roi_align_backward_plain(*bargs),
+                               reps=5, warmup=1)
+            ws_elems = sum(math.prod(s) for s in shapes)
+            zero_ms = time_ms(lambda: torch.zeros(ws_elems, dtype=torch.float32, device=dev))
+            ws = torch.zeros(ws_elems, dtype=torch.float32, device=dev)
+            cast_ms = time_ms(lambda: ra._split_workspace(ws.view(-1, 256), shapes, dtype))
+            del ws
+            log(f"roi_align_bwd {name} {str(dtype)[6:]}: {text}; kernel {ms:.4f} ms (of it "
+                f"zeroing {zero_ms:.4f}, cast {cast_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), kernel at "
+                f"{100 * bound / ms:.1f}% of its bound; float32 workspace "
+                f"{4 * ws_elems / 1e6:.1f} MB")
+            results[(name, dtype)] = dict(max_abs_err=err, allowance_share=share, ms=ms,
+                                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                          bound_share=bound / ms, zero_ms=zero_ms,
+                                          cast_ms=cast_ms)
+        torch.cuda.empty_cache()
+        # the autograd Function: K1 forward, K1b backward, against autograd of
+        # the float32 plain forward
+        feats = [torch.randn(s, generator=gen).to(dev, dtype).requires_grad_() for s in q_shapes]
+        lv = ra.fpn_level_map(rois[:, 1:], 3, 7)
+        g_out = torch.randn((rois.shape[0], 7, 7, 256), generator=gen).to(dev, dtype)
+        n1, n1b = ra.roi_align_launches, ra.roi_align_bwd_launches
+        out = ra.multilevel_roi_align(feats, rois, lv, (7, 7), scales, 2, valid)
+        got = torch.autograd.grad(out, feats, g_out)
+        if (ra.roi_align_launches - n1, ra.roi_align_bwd_launches - n1b) != (1, 1):
+            raise AssertionError("roi_align Function: K1 and K1b must launch once each")
+        f32 = [f.detach().float().requires_grad_() for f in feats]
+        ref = ra.multilevel_roi_align_plain(f32, rois, lv, (7, 7), scales, 2, valid)
+        want = torch.autograd.grad(ref, f32, g_out.float())
+        if dtype == torch.float32 and not torch.equal(out, ref):
+            raise AssertionError("roi_align Function: forward differs from the plain version")
+        err, _, text = grad_compare("roi_align Function", dtype, list(got), list(want))
+        log(f"roi_align Function (K1 + K1b) R=1024 {str(dtype)[6:]} against "
+            f"torch.autograd.grad of the float32 plain forward: {text}")
+        del feats, out, got, f32, ref, want
+        torch.cuda.empty_cache()
+    crowd_ms = results[("GT-clustered 7x7 R=1024", torch.bfloat16)]["ms"]
+    rand_ms = results[("proposals 7x7 R=1024", torch.bfloat16)]["ms"]
+    log(f"roi_align_bwd atomics meeting on shared pixels: GT-clustered R=1024 bf16 {crowd_ms:.4f} "
+        f"ms against random ROIs {rand_ms:.4f} ms ({crowd_ms / rand_ms:.2f}x)")
     return results
 
 
@@ -833,7 +1007,7 @@ def roi_variant_checks(ra, dev):
 
 
 def tool_runs():
-    """Phase 3e: the port's card tools at reduced counts, each with every
+    """Phase 3f: the port's card tools at reduced counts, each with every
     kernel's launch count set to 0 just before and read just after.
     Returns {tool: {kernel: launches}}."""
     from oneshotdet_tpu_torch.tools import (ablate_group_norm, ablate_roi_head, ablate_v4,
@@ -868,6 +1042,7 @@ def _counters():
     from oneshotdet_tpu_torch.ops import roi_head_fused
 
     return {"roi_align": (roi_align, "roi_align_launches"),
+            "roi_align_bwd": (roi_align, "roi_align_bwd_launches"),
             "roi_head": (roi_head_fused, "fused_roi_head_launches"),
             "group_norm": (group_norm, "group_norm_launches"),
             "roi_align_v3": (roi_align_v3, "roi_align_v3_launches"),
@@ -1274,6 +1449,227 @@ def engine_checks(cfg, model, card, n_batches=3, classes=4):
     return rf.fused_roi_head_launches
 
 
+# the forward's stage ranges; the backward runs on autograd's own thread,
+# which a range on this thread does not see
+TRAIN_STAGES = STAGES[:7]
+
+
+def profile_train_step(step, label):
+    """One train step under torch.profiler: wall and device busy time, the
+    device span of each stage range of the forward, and the kernels that
+    take the most device time, K1 and K1b summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in TRAIN_STAGES]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    if busy_ms == 0:
+        log(f"profile {label}: torch.profiler recorded no device time")
+        return {}
+    per_kernel = {}
+    for e in device:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    k1 = sum(ms for n, ms in per_kernel.items() if "roi_align_kernel" in n)
+    k1b = sum(ms for n, ms in per_kernel.items() if "roi_align_bwd_kernel" in n)
+    log(f"profile {label}: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%; K1 "
+        f"kernels {k1:.3f} ms, K1b kernels {k1b:.3f} ms ({100 * k1b / busy_ms:.2f}% of busy)")
+    spans = {e.name: e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.name in TRAIN_STAGES}
+    for name in TRAIN_STAGES:
+        if name in spans:
+            log(f"  stage {name:<17} device span {spans[name]:8.2f} ms "
+                f"({100 * spans[name] / wall_ms:5.1f}% of wall)")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"  kernel {ms:8.2f} ms  {name[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, k1_ms=k1, k1b_ms=k1b, spans=spans)
+
+
+def train_path(cfg_path, dev, card):
+    """Phase 7: the flagship's one-shot train step at full width (bf16,
+    batch 8, 832x1216 queries, 416x416 supports, MAX_GT_BOXES 64, random
+    weights from seed 1, a fresh synthetic episode batch per step from the
+    port's make_episodic_batch) through the entry points: build the model,
+    model.train(), the optimizer and scheduler from the cfg, TRAIN_WARMUP
+    steps through do_train, then TRAIN_STEPS timed steps through
+    train_step. Asserts finite losses, a finite gradient for every trainable
+    parameter after step 1 and a non-zero one for the support backbone's
+    layer2-4 (reached only through K1b) and the FCOS towers, 7 K1 and 7 K1b
+    launches per step, and bit-identical frozen parameters. Then logs a
+    TRAIN_TRAJECTORY-step loss trajectory on one repeated batch. Returns
+    (launches per path, entry)."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.engine import do_train, train_step
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.ops import roi_align as ra
+    from oneshotdet_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from oneshotdet_tpu_torch.utils import MetricLogger
+    from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(cfg_path)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    t0 = time.perf_counter()
+    batches = [make_episodic_batch(BATCH, QUERY_HW, SUPP_HW, max_gt=cfg.TPU.MAX_GT_BOXES,
+                                   seed=100 + i) for i in range(steps)]
+    log(f"train: {steps} synthetic episode batches made in {time.perf_counter() - t0:.1f} s "
+        f"(set-up)")
+    model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    model.train()
+    optimizer = make_optimizer(cfg, model)
+    scheduler = make_lr_scheduler(cfg, optimizer)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    meters = MetricLogger()
+    reset_launches()
+    do_train(cfg, model, optimizer, scheduler, batches[:1], meters=meters, log_period=1,
+             generator=gen)
+    torch.cuda.synchronize()
+    bad = [n for n, p in trainable.items()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad:
+        raise AssertionError(f"train step 1: no or non-finite gradient for {bad[:5]} "
+                             f"({len(bad)} parameters)")
+
+    def grad_norm(prefixes):
+        return math.sqrt(sum(float(p.grad.float().norm()) ** 2 for n, p in trainable.items()
+                             if n.startswith(prefixes)))
+
+    norms = {label: grad_norm(prefixes) for label, prefixes in (
+        ("support backbone layer2-4", tuple(f"supp_backbone.body.layer{i}." for i in (2, 3, 4))),
+        ("support FPN", ("supp_backbone.fpn.",)),
+        ("query backbone layer2-4", tuple(f"backbone.body.layer{i}." for i in (2, 3, 4))),
+        ("FCOS towers", ("rpn.head.cls_tower.", "rpn.head.bbox_tower.")),
+        ("relation head", ("roi_heads.",)))}
+    log("train step 1 gradient norms: " + ", ".join(f"{k} {v:.4e}" for k, v in norms.items()))
+    for label in ("support backbone layer2-4", "FCOS towers"):
+        if not norms[label] > 0:
+            raise AssertionError(f"train step 1: zero gradient for the {label}")
+    log(f"train step 1: every one of {len(trainable)} trainable parameters has a finite "
+        f"gradient; {len(frozen)} frozen (stem and layer1 of both backbones)")
+    do_train(cfg, model, optimizer, scheduler, batches[1:TRAIN_WARMUP], meters=meters,
+             log_period=1, generator=gen, start_iter=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_STEPS)]
+    metrics = []
+    t0 = time.perf_counter()
+    for (start, end), batch in zip(events, batches[TRAIN_WARMUP:]):
+        start.record()
+        metrics.append(train_step(model, optimizer, scheduler, batch, gen))
+        end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_STEPS
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    launches = read_launches()
+    if launches["roi_align"] != 7 * steps or launches["roi_align_bwd"] != 7 * steps:
+        raise AssertionError(f"train: {launches['roi_align']} K1 and {launches['roi_align_bwd']} "
+                             f"K1b launches in {steps} steps, expected {7 * steps} each")
+    peak = torch.cuda.max_memory_allocated()
+    history = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(history):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train step {TRAIN_WARMUP + i + 1}: non-finite losses {m}")
+        log(f"train step {TRAIN_WARMUP + i + 1}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    for n, p in model.named_parameters():
+        if n in frozen and not torch.equal(p, frozen[n]):
+            raise AssertionError(f"train: frozen parameter {n} changed")
+    log(f"train warm-up losses (do_train, MetricLogger): {meters}")
+    log(f"train step, flagship bf16, batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]}, supports "
+        f"{SUPP_HW[0]}x{SUPP_HW[1]}: {wall * 1e3:.1f} ms/step by the host clock over "
+        f"{TRAIN_STEPS} steps ({BATCH / wall:.1f} img/s), CUDA events per step median "
+        f"{step_ms[len(step_ms) // 2]:.1f} ms (min {step_ms[0]:.1f}, max {step_ms[-1]:.1f}); "
+        f"peak memory {peak / 2**30:.2f} GiB; {launches['roi_align'] // steps} K1 and "
+        f"{launches['roi_align_bwd'] // steps} K1b launches per step; {len(frozen)} frozen "
+        f"parameters bit-identical [{card}]")
+    prof = profile_train_step(lambda: train_step(model, optimizer, scheduler, batches[-1], gen),
+                              "train step")
+    # the loss on one repeated batch (logged, not asserted)
+    traj = []
+    for _ in range(TRAIN_TRAJECTORY):
+        traj.append(train_step(model, optimizer, scheduler, batches[0], gen)["loss_total"])
+    log(f"train: loss_total over {TRAIN_TRAJECTORY} steps on one repeated batch: "
+        + " ".join(f"{float(v):.4f}" for v in traj))
+    entry = dict(ms_per_step=wall * 1e3, img_per_s=BATCH / wall,
+                 event_ms_median=step_ms[len(step_ms) // 2], peak_gib=peak / 2**30,
+                 losses=history, profile=prof)
+    del model, optimizer, scheduler, batches
+    torch.cuda.empty_cache()
+    return launches, entry
+
+
+def small_train_check(cfg_path, dev):
+    """A float32 train step at the tier-1 tests' SMALL capacities (batch 2,
+    128x160 queries, 64x64 supports) on the card (K1, K1b) and on the CPU
+    (the plain versions the tests hold against JAX): the same weights,
+    batch and sampling draws, TF32 off. Run twice on the card. With cuDNN
+    off (PyTorch's own CUDA convolutions) the losses must pair up within
+    rtol 1e-4 and each parameter's gradient within 1e-3 relative norm. With
+    cuDNN's default float32 convolution algorithms the same holds for the
+    losses and for the support backbone, whose gradient passes only through
+    K1b; the worst parameter is logged: cuDNN's algorithms for the query's
+    shapes move the query backbone's gradients by ~2e-3 relative norm on
+    their own."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.engine import batch_to_inputs
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(cfg_path)
+    cfg.merge_from_list(SMALL)
+    batch = make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=21)
+    cpu = build_detection_model(cfg, device="cpu")
+    distinct_weights_(cpu, torch.Generator().manual_seed(22))
+    n = cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN + cfg.TPU.MAX_GT_BOXES
+    draws = torch.rand((2, n), generator=torch.Generator().manual_seed(23))
+
+    def step(model, d):
+        model.train()
+        losses = model.forward_train(*batch_to_inputs(batch, d), draws=draws.to(d))
+        sum(losses.values()).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {n_: p.grad.detach().cpu() for n_, p in model.named_parameters()
+                 if p.grad is not None})
+
+    lc, gc = step(cpu, "cpu")
+    result = {}
+    for label, cudnn in (("cuDNN default", True), ("cuDNN off", False)):
+        gpu = build_detection_model(cfg, device=dev)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            lg, gg = step(gpu, dev)
+        finally:
+            torch.backends.cudnn.enabled = True
+        del gpu
+        if gc.keys() != gg.keys():
+            raise AssertionError("small train step: card and CPU differ in which parameters "
+                                 "have gradients")
+        loss_rel = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+        rel = sorted(((float((gg[k] - g).norm() / g.norm().clamp(min=1e-30)), k)
+                      for k, g in gc.items()), reverse=True)
+        supp = [r for r in rel if r[1].startswith("supp_backbone.")][0]
+        log(f"small float32 train step, card ({label}) against CPU, TF32 off: losses within "
+            f"{loss_rel:.2e} relative, worst gradient {rel[0][0]:.2e} relative norm "
+            f"({rel[0][1]}), worst of the support backbone {supp[0]:.2e} ({supp[1]})")
+        result[label] = dict(loss_rel=loss_rel, grad_rel=rel[0][0], grad_worst=rel[0][1],
+                             supp_backbone_rel=supp[0])
+    for label, key in (("cuDNN off", "grad_rel"), ("cuDNN default", "supp_backbone_rel")):
+        r = result[label]
+        if r["loss_rel"] > 1e-4 or r[key] > 1e-3:
+            raise AssertionError(f"small train step, {label}: losses {r['loss_rel']:.2e} "
+                                 f"(rtol 1e-4), gradients {r[key]:.2e} (bound 1e-3)")
+    return result
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -1314,7 +1710,7 @@ def main() -> int:
     for kname, (regs, st, ld) in ptxas_report(csrc.build_logs.get("roi_align", ""))[0].items():
         log(f"ptxas roi_align.cu {kname}: {regs} registers, spill stores {st} B, "
             f"spill loads {ld} B")
-    for src in ("roi_align_v3", "roi_align_v4"):
+    for src in ("roi_align_bwd", "roi_align_v3", "roi_align_v4"):
         for kname, (regs, st, ld) in ptxas_report(csrc.build_logs.get(src, ""))[0].items():
             log(f"ptxas {src}.cu {kname}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
@@ -1324,9 +1720,11 @@ def main() -> int:
 
     # -- phase 3: kernels against plain ----------------------------------------
     checks = kernel_checks(ra, dev)
+    bwd_checks = roi_align_bwd_checks(ra, dev)
     head_checks_result = head_checks(dev)
     small_forward_check(flagship, dev)
     small_forward_check(flagship, dev, fused=True)
+    small_train = small_train_check(flagship, dev)
     gn_checks = group_norm_checks(dev)
     variant_checks = roi_variant_checks(ra, dev)
     # launches of every kernel on each path, counts set to 0 just before it
@@ -1434,6 +1832,11 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # -- phase 7: the one-shot train step at full width --------------------------
+    paths["train step"], train = train_path(flagship, dev, card)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    launches[f"train step, {steps} steps"] = paths["train step"]["roi_align"]
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -1445,6 +1848,7 @@ def main() -> int:
         "replaces": KERNEL_REPLACES,
         "launches": launches["full 2000/img"],
         "launches_by_path": launches,
+        "launches_per_train_step": paths["train step"]["roi_align"] // steps,
         "shape": "batch-8 832x1216 pyramid, C=256, R=16000 rois, 7x7, bf16",
         "max_abs_err": head["max_abs_err"],
         "tolerance": "1 bf16 ulp (f32 cases: 1e-5 abs)",
@@ -1544,6 +1948,34 @@ def main() -> int:
             "p3_skew_fresh_ms_f32": variant_checks[(name, "p3-skew R=16000", torch.float32)]["ms"],
             "card": card,
         })
+    bwd = bwd_checks[("proposals 7x7 R=1024", torch.bfloat16)]
+    kernels.append({
+        "name": "roi_align_bwd",
+        "route": "cuda",
+        "source": BWD_SOURCE,
+        "replaces": BWD_REPLACES,
+        "launches": paths["train step"]["roi_align_bwd"],
+        "launches_by_path": {label: n["roi_align_bwd"] for label, n in paths.items()},
+        "launches_per_train_step": paths["train step"]["roi_align_bwd"] // steps,
+        "shape": "grad (1024, 7, 7, 256) bf16 -> the batch-8 832x1216 pyramid's gradient",
+        "max_abs_err": bwd["max_abs_err"],
+        "tolerance": f"1 bf16 ulp + {GRAD_ATOL} x max|grad| of the float32 plain gradient "
+                     f"(f32: rtol {GRAD_RTOL} + the same atol); atomics, not bit for bit",
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "bound_share": bwd["bound_share"],
+        "library_ms": None,
+        "zero_ms": bwd["zero_ms"],
+        "cast_ms": bwd["cast_ms"],
+        "clustered_ms": bwd_checks[("GT-clustered 7x7 R=1024", torch.bfloat16)]["ms"],
+        "ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["ms"],
+        "bound_ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["bound_ms"],
+        "train_step": {k: v for k, v in train.items() if k != "losses"},
+        "small_train_check": small_train,
+        "card": card,
+    })
     for k in kernels[2:]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched on its own path")

@@ -6,8 +6,11 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
     from oneshotdet_tpu_torch.predictor import OneShotPredictor
 
 Entry points run on "cuda" unless given ``device="cpu"``. On the card every
-ROIAlign goes through ``csrc/roi_align.cu``; CPU tensors take the plain
-PyTorch versions. Only the eval path is ported so far.
+ROIAlign goes through ``csrc/roi_align.cu`` and, in training, its gradient
+through ``csrc/roi_align_bwd.cu``; CPU tensors take the plain PyTorch
+versions. The eval path and the one-shot train step
+(``GeneralizedRCNN.forward_train``, ``solver``, ``engine.train_step``) are
+ported.
 """
 
 from . import config, models, predictor  # noqa: F401

@@ -20,7 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-SOURCES = ("roi_align", "roi_head", "group_norm", "roi_align_v3", "roi_align_v4")
+SOURCES = ("roi_align", "roi_align_bwd", "roi_head", "group_norm", "roi_align_v3",
+           "roi_align_v4")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -30,6 +31,9 @@ SOURCE_FLAGS = {
     # no contracted multiply-adds: the ROIAlign kernel repeats its plain
     # version's float32 operations in the same order, and equals it exactly
     "roi_align": ("-fmad=false",),
+    # the backward's weights and products are the plain version's (only the
+    # order of its atomic sums differs)
+    "roi_align_bwd": ("-fmad=false",),
     # the same for the cross-ROI variants and GroupNorm: their plain versions
     # repeat the kernels' float32 operations in order
     "roi_align_v3": ("-fmad=false",),

@@ -29,9 +29,10 @@
 //
 // Design. One thread block per ROI (a ROI is the unit of work).
 //   1. The sample grid is separable: y depends only on (ph, iy), x only on
-//      (pw, ix). Warp 0 computes the y samples' low/high rows, weights and
-//      range test once per ROI, one lane per sample, and warp 1 the x
-//      samples', into shared memory (`AxisSample`). Every channel thread
+//      (pw, ix) (roi_align_common.cuh, shared with the backward kernel
+//      roi_align_bwd.cu). Warp 0 computes the y samples' low/high rows,
+//      weights and range test once per ROI, one lane per sample, and warp 1
+//      the x samples', into shared memory (`AxisSample`). Every channel thread
 //      forms w1..w4 from them with the same float operations as the plain
 //      version.
 //   2. The same warp lists the ROI's distinct rows (columns) that in-range
@@ -72,75 +73,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define ONESHOT_MAX_LEVELS 5
+#include "roi_align_common.cuh"
+
 #define STAGE_BYTES (24 * 1024)   // one staging buffer; a block has two
 #define MAX_AXIS 32               // pooled * sampling_ratio on one axis: a warp
 #define MAX_SLOTS (2 * MAX_AXIS)  // distinct rows (columns) of one ROI
 #define MAX_ITEMS 64              // pooled_h * pooled_w
 #define THREADS 256
 
-struct Pyramid {
-  const void* data[ONESHOT_MAX_LEVELS];  // (B, H_l, W_l, C), contiguous NHWC
-  int height[ONESHOT_MAX_LEVELS];
-  int width[ONESHOT_MAX_LEVELS];
-  float scale[ONESHOT_MAX_LEVELS];
-  int num_levels;
-};
-
-// One sample position on one axis: the weights of its high (l) and low (h)
-// cell, and their slots in the ROI's list of distinct rows (columns). Before
-// the slot pass lo/hi hold the cells themselves; lo = -1: out of range.
-struct AxisSample {
-  float l, h;
-  int lo, hi;
-};
-
 // Output rows [ph0, ph1) x columns [pw0, pw1), staged as row slots [r0, r1)
 // x column slots [c0, c1).
 struct Item {
   unsigned char ph0, ph1, pw0, pw1, r0, r1, c0, c1;
-};
-
-// 16-byte vectors of channels: 4 fp32 or 8 bf16.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static __forceinline__ void widen(const uint4 q, float* f) {
-    f[0] = __uint_as_float(q.x);
-    f[1] = __uint_as_float(q.y);
-    f[2] = __uint_as_float(q.z);
-    f[3] = __uint_as_float(q.w);
-  }
-  __device__ static __forceinline__ uint4 narrow(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(a, b));
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  // bf16 -> fp32 is exact: the 16 bits become the high half of the float
-  __device__ static __forceinline__ void widen(const uint4 q, float* f) {
-    const unsigned u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      f[2 * k] = __uint_as_float(u[k] << 16);
-      f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
-    }
-  }
-  __device__ static __forceinline__ uint4 narrow(const float* f) {
-    return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
-                      pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
-  }
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -156,28 +100,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Step 1 for one axis sample s = p * grid + i: the plain version's float32
-// operations, in its order.
-__device__ __forceinline__ AxisSample axis_sample(float start, float bin, int p, int i,
-                                                  int grid, int size) {
-  const float pos = start + ((float)p + ((float)i + 0.5f) / (float)grid) * bin;
-  AxisSample a;
-  a.lo = -1;
-  a.hi = -1;
-  a.l = 0.f;
-  a.h = 0.f;
-  if (pos >= -1.f && pos <= (float)size) {
-    const float y = fmaxf(pos, 0.f);
-    const int low = min((int)floorf(y), size - 1);
-    const float yv = low >= size - 1 ? (float)low : y;
-    a.lo = low;
-    a.hi = min(low + 1, size - 1);
-    a.l = yv - (float)low;
-    a.h = 1.f - a.l;
-  }
-  return a;
 }
 
 // Step 2 for one axis, by one warp (lane s = sample s, pooled * grid <= 32):
@@ -397,12 +319,8 @@ __global__ void __launch_bounds__(THREADS, 4)
     const int s = tid % 32;
     const int pooled = y ? pooled_h : pooled_w;
     AxisSample* tab = y ? ys : xs;
-    if (s < pooled * grid) {
-      const float start = (y ? roi[2] : roi[1]) * scale;
-      const float extent = fmaxf((y ? roi[4] : roi[3]) * scale - start, 1.f);
-      const float bin = extent / (float)pooled;
-      tab[s] = axis_sample(start, bin, s / grid, s % grid, grid, y ? height : width);
-    }
+    if (s < pooled * grid)
+      tab[s] = roi_axis_sample(roi, scale, y, s, pooled, grid, y ? height : width);
     __syncwarp();
     axis_slots(tab, pooled, grid, y ? rows : cols, y ? yf : xf, y ? ye : xe);
   }

@@ -1,0 +1,93 @@
+"""Training loop on one card (counterpart of
+``oneshotdet_tpu/engine/trainer.py``).
+
+``train_step`` is the JAX package's ``make_train_step`` as eager PyTorch:
+the train forward's loss dict, its sum, the backward, one optimizer step and
+one scheduler step. ``do_train`` iterates it over a data loader and reads
+the metrics back from the card only every ``log_period`` iterations, as the
+JAX loop does. There is no mesh (one card) and no checkpointer yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import torch
+
+from ..structures.boxes import Boxes
+from ..structures.image_batch import ImageBatch
+
+
+def batch_to_inputs(batch: Dict, device=None):
+    """A flat batch dict (numpy arrays or tensors; see
+    ``utils.synthetic.make_episodic_batch``) -> (images, supports, targets)
+    on ``device``; the targets' field 'labels' is int32 and their size the
+    queries' (w, h)."""
+    def t(x, dtype=None):
+        return torch.as_tensor(x, device=device, dtype=dtype)
+
+    images = ImageBatch(pixels=t(batch["query_pixels"], torch.float32),
+                        sizes=t(batch["query_sizes"], torch.float32))
+    supp = ImageBatch(pixels=t(batch["supp_pixels"], torch.float32),
+                      sizes=t(batch["supp_sizes"], torch.float32))
+    targets = Boxes(xyxy=t(batch["gt_xyxy"], torch.float32), valid=t(batch["gt_valid"], torch.bool),
+                    size=images.sizes_wh(), fields={"labels": t(batch["gt_labels"], torch.int32)})
+    return images, supp, targets
+
+
+def train_step(model, optimizer, scheduler, batch: Dict,
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One update: forward_train, backward of the summed losses, an
+    optimizer step and a scheduler step. Returns the losses and 'loss_total'
+    as detached scalar tensors on the model's device (no host sync).
+    ``generator`` and ``draws`` go to ``forward_train``."""
+    device = next(model.parameters()).device
+    images, supp, targets = batch_to_inputs(batch, device)
+    optimizer.zero_grad(set_to_none=True)
+    losses = model.forward_train(images, supp, targets, generator=generator, draws=draws)
+    total = sum(losses.values())
+    total.backward()
+    optimizer.step()
+    scheduler.step()
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["loss_total"] = total.detach()
+    return metrics
+
+
+def do_train(cfg, model, optimizer, scheduler, data_loader, meters=None, start_iter: int = 0,
+             log_period: int = 100, generator: Optional[torch.Generator] = None) -> int:
+    """Train from ``start_iter`` until SOLVER.MAX_ITER or the loader ends.
+    The losses of every step reach ``meters`` (a ``MetricLogger``) at each
+    ``log_period``, when one line is printed. Returns the iteration
+    reached."""
+    max_iter = cfg.SOLVER.MAX_ITER
+    pending = []
+    t_data = t_step = 0.0
+    t0 = time.time()
+    it = start_iter
+    for batch in data_loader:
+        if it >= max_iter:
+            break
+        t1 = time.time()
+        metrics = train_step(model, optimizer, scheduler, batch, generator)
+        log_now = (it + 1) % log_period == 0 or it + 1 == max_iter
+        if meters is not None:
+            pending.append(metrics)
+        if log_now:
+            # the one host read of the device's losses in this period
+            for m in pending:
+                meters.update(**{k: float(v) for k, v in m.items()})
+            pending.clear()
+        t2 = time.time()
+        t_data += t1 - t0
+        t_step += t2 - t1
+        if log_now:
+            span = (it % log_period) + 1
+            print(f"iter {it + 1}/{max_iter} loss {float(metrics['loss_total']):.4f} "
+                  f"load {t_data / span:.3f}s comp {t_step / span:.3f}s", flush=True)
+            t_data = t_step = 0.0
+        t0 = time.time()
+        it += 1
+    return it

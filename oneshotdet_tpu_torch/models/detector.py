@@ -1,4 +1,4 @@
-"""Siamese GeneralizedRCNN, one-shot eval path (counterpart of
+"""Siamese GeneralizedRCNN, one-shot eval and train paths (counterpart of
 ``oneshotdet_tpu/models/detector.py``).
 
   stage 0: query and support through their own ResNet-50-FPN (SIAMESE_BACKBONE);
@@ -11,13 +11,20 @@
 
 Every ROIAlign of the path (5 one-level 1x1 pools, the whole-support 7x7 and
 the proposals' 7x7) goes through ``ops.roi_align.multilevel_roi_align``: the
-CUDA kernel on the card, the plain version on the CPU.
+CUDA kernels on the card (forward and, in training, backward), the plain
+version on the CPU.
 
-Only inference is ported; a config that turns on a part not ported yet raises
-``NotImplementedError`` (see ``detector_config_from_cfg``). The stages are
-``torch.profiler.record_function`` ranges (query_backbone, support_backbone,
-support_pool, fcos_head, fcos_postprocess, roi_pool, roi_head,
-roi_postprocess), so a profiler trace reads the time of each.
+``forward_train`` is the train step's forward: the FCOS losses, proposals
+under ``no_grad`` at the train capacities with the GT boxes appended, ROI
+matching and balanced sampling, the 7x7 pool of the sampled ROIs and the
+unfused relation head on shot 0, and the stage-2 losses x5 / x2.5.
+
+A config that turns on a part not ported yet raises ``NotImplementedError``
+(see ``detector_config_from_cfg``; train-only switches raise in
+``forward_train``). The stages are ``torch.profiler.record_function`` ranges
+(query_backbone, support_backbone, support_pool, fcos_head,
+fcos_postprocess, roi_pool, roi_head, roi_postprocess), so a profiler trace
+reads the time of each.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -34,17 +41,18 @@ from torch.profiler import record_function
 from ..ops.box_coder import BoxCoder
 from ..ops.roi_align import fpn_level_map, multilevel_roi_align, roi_align
 from ..ops.roi_head_fused import check_kernel_widths
-from ..structures.boxes import Boxes, truncate_boxes
+from ..structures.boxes import Boxes, cat_boxes, truncate_boxes
 from ..structures.image_batch import ImageBatch
-from .fcos import FCOSModule, compute_locations, fcos_postprocess
+from .fcos import FCOSModule, compute_locations, fcos_losses, fcos_postprocess, fcos_targets
 from .fpn import ResNetFPN
 from .layers import FrozenBatchNorm, Scale
-from .roi_head import ROIHeads, predictor_num_classes, roi_head_postprocess
+from .roi_head import (ROIHeads, predictor_num_classes, prepare_roi_targets, roi_head_loss,
+                       roi_head_postprocess)
 
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """Static model hyperparameters of the eval path, from the cfg tree."""
+    """Static model hyperparameters, from the cfg tree."""
 
     depth: int = 50
     out_channels: int = 256
@@ -77,6 +85,22 @@ class DetectorConfig:
     eval_roi_topk: int = 0
     supp_roialign: bool = True
     fused_roi_head: bool = False    # ONESHOT_PALLAS_ROI_HEAD=1: the fused head kernel
+    # training
+    center_sample: bool = True
+    pos_radius: float = 1.5
+    loc_loss_type: str = "giou"
+    loss_gamma: float = 2.0
+    loss_alpha: float = 0.25
+    focal_mode: str = "SIGMOID"
+    pre_nms_top_n_train: int = 12000
+    fpn_post_nms_top_n_train: int = 4000
+    cls_agnostic_bbox_reg: bool = False
+    roi_batch_size_per_image: int = 128
+    roi_positive_fraction: float = 0.25
+    roi_fg_iou: float = 0.5
+    roi_bg_iou: float = 0.5
+    loss_weighted: bool = False
+    train_not_ported: Tuple[str, ...] = ()   # switches forward_train raises on
 
 
 def _not_ported(cfg) -> List[str]:
@@ -92,6 +116,20 @@ def _not_ported(cfg) -> List[str]:
         "FEW_SHOT.LINEAR_FUSION": c.FEW_SHOT.LINEAR_FUSION,
         "FEW_SHOT.SECOND_STAGE_METHOD!=concat": c.FEW_SHOT.SECOND_STAGE_METHOD != "concat",
         "TPU.QUANT": c.TPU.QUANT != "none",
+    }
+    return [name for name, on in checks.items() if on]
+
+
+def _train_not_ported(cfg) -> List[str]:
+    """Names of the train-only switches this cfg turns on that the port's
+    ``forward_train`` does not run (the eval path does not read them)."""
+    c = cfg
+    checks = {
+        "FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS": c.FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS,
+        "FEW_SHOT.SOFT_LABELING": c.FEW_SHOT.SOFT_LABELING,
+        "FEW_SHOT.REVERSE_ORDER": c.FEW_SHOT.REVERSE_ORDER,
+        "FEW_SHOT.SECOND_STAGE_CLS_LOSS!=ce_loss": c.FEW_SHOT.SECOND_STAGE_CLS_LOSS != "ce_loss",
+        "TPU.REMAT_BACKBONE": c.TPU.REMAT_BACKBONE,
     }
     return [name for name, on in checks.items() if on]
 
@@ -136,6 +174,21 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         supp_roialign=cfg.FEW_SHOT.SUPP_ROIALIGN,
         # the JAX package's opt-in, read once here
         fused_roi_head=os.environ.get("ONESHOT_PALLAS_ROI_HEAD") == "1",
+        center_sample=cfg.MODEL.FCOS.CENTER_SAMPLE,
+        pos_radius=cfg.MODEL.FCOS.POS_RADIUS,
+        loc_loss_type=cfg.MODEL.FCOS.LOC_LOSS_TYPE,
+        loss_gamma=cfg.MODEL.FCOS.LOSS_GAMMA,
+        loss_alpha=cfg.MODEL.FCOS.LOSS_ALPHA,
+        focal_mode=cfg.LOSS.FOCAL_LOSS,
+        pre_nms_top_n_train=cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN,
+        fpn_post_nms_top_n_train=cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN,
+        cls_agnostic_bbox_reg=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG,
+        roi_batch_size_per_image=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+        roi_positive_fraction=cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION,
+        roi_fg_iou=cfg.MODEL.ROI_HEADS.FG_IOU_THRESHOLD,
+        roi_bg_iou=cfg.MODEL.ROI_HEADS.BG_IOU_THRESHOLD,
+        loss_weighted=cfg.FEW_SHOT.LOSS_WEIGHTED,
+        train_not_ported=tuple(_train_not_ported(cfg)),
     )
 
 
@@ -351,6 +404,74 @@ class GeneralizedRCNN(nn.Module):
                     level_topk=c.strict_level_topk)
         return self.detect_from_features(features, images.sizes_wh(),
                                          supp_pooled, supp_7x7, target_ids)
+
+    # -- train ------------------------------------------------------------------
+
+    def forward_train(self, images: ImageBatch, images_supp: ImageBatch, targets: Boxes,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The train forward: a dict of scalar float32 losses, loss_cls,
+        loss_reg and loss_centerness (FCOS) and, unless RPN_ONLY,
+        loss_classifier (x5) and loss_box_reg (x2.5).
+
+        ``targets``: (B, G) GT Boxes with field 'labels' (1 for the episode's
+        class, 0 on padding). ``draws``: (B, N) uniform sampling priorities
+        of the N = FPN_POST_NMS_TOP_N_TRAIN + G proposals (the GT boxes
+        appended); drawn from ``generator`` on the model's device (a
+        generator of that device) when None. Raises NotImplementedError
+        for a train-only switch that is not ported."""
+        c = self.config
+        if c.train_not_ported:
+            raise NotImplementedError("not ported to oneshotdet_tpu_torch yet (training): "
+                                      + ", ".join(c.train_not_ported))
+        b = images.batch_size
+        with record_function("query_backbone"):
+            features = self._pyramid(self.backbone, images.pixels)
+        with record_function("support_backbone"):
+            features_supp = self._supp_features(images_supp)
+        with record_function("support_pool"):
+            supp_pooled = self._pool_supp_1x1(features_supp, images_supp.sizes, b)
+        locations, logits, bbox_reg, ctrness = self._fcos_head(features, supp_pooled)
+        labels, reg_targets = fcos_targets(
+            locations, c.fpn_strides, targets.xyxy, targets.get_field("labels"), targets.valid,
+            c.center_sample, c.pos_radius)
+        loss_cls, loss_reg, loss_ctr = fcos_losses(
+            logits, bbox_reg, ctrness, labels, reg_targets, c.loss_gamma, c.loss_alpha,
+            c.loc_loss_type, c.focal_mode)
+        losses = {"loss_cls": loss_cls, "loss_reg": loss_reg, "loss_centerness": loss_ctr}
+        if c.rpn_only:
+            return losses
+
+        with torch.no_grad(), record_function("fcos_postprocess"):
+            proposals = fcos_postprocess(
+                locations, logits, bbox_reg, ctrness, images.sizes_wh().to(torch.float32),
+                c.pre_nms_top_n_train, c.rpn_nms_thresh, c.fpn_post_nms_top_n_train,
+                c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk)
+        with record_function("support_pool"):
+            supp_7x7 = self._supp_roi_7x7(features_supp, images_supp.sizes, b)
+        ones = torch.where(targets.valid, 1.0, 0.0)
+        proposals = cat_boxes(proposals, Boxes(
+            xyxy=targets.xyxy.to(torch.float32), valid=targets.valid, size=targets.size,
+            fields={"scores": ones, "objectness": ones}))
+        dev = proposals.valid.device
+        if draws is None:
+            draws = torch.rand(proposals.valid.shape, generator=generator, device=dev)
+        idx, s_valid, roi_labels, roi_reg_t, _ = prepare_roi_targets(
+            draws.to(dev), proposals, targets, BoxCoder(c.bbox_reg_weights),
+            c.roi_batch_size_per_image, c.roi_positive_fraction, c.roi_fg_iou, c.roi_bg_iou)
+        sampled = Boxes(xyxy=torch.gather(proposals.xyxy, 1, idx[..., None].expand(-1, -1, 4)),
+                        valid=s_valid, size=proposals.size)
+        with record_function("roi_pool"):
+            roi_feats = self._pool_rois(features, sampled).to(self.dtype)
+        with record_function("roi_head"):
+            # shot 0, the unfused head, as the JAX package trains
+            cls_logits, box_deltas = self.roi_heads.box(
+                roi_feats, supp_7x7[:, 0].to(self.dtype), use_fused=False)
+        loss_classifier, loss_box_reg = roi_head_loss(
+            cls_logits, box_deltas, roi_labels, roi_reg_t, s_valid, c.second_stage_cls_loss,
+            c.cls_agnostic_bbox_reg, c.loss_weighted)
+        losses.update(loss_classifier=loss_classifier * 5.0, loss_box_reg=loss_box_reg * 2.5)
+        return losses
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:

@@ -1,4 +1,4 @@
-"""FCOS proposal network, eval side (counterpart of ``models/fcos.py``).
+"""FCOS proposal network (counterpart of ``models/fcos.py``).
 
   - head: NUM_CONVS x (3x3 conv + GN32 + ReLU) twin towers shared over the
     levels; cls_logits (one class), centerness from the cls tower,
@@ -7,7 +7,12 @@
   - postprocess: sigmoid(cls) * sigmoid(centerness), locations outside the
     true image masked, per-level top-k (``level_topk``) or one global top
     ``nms_pre_topk``, ltrb decode, clip, class-agnostic NMS, top
-    ``post_top_n``.
+    ``post_top_n``;
+  - training: target assignment (size-of-interest buckets, center sampling
+    in a radius * stride box clamped inside the GT, min-area tie-break with
+    the +1 area, 100000000 = no match), centerness targets, and the three
+    losses: focal / (num_pos + B), GIoU weighted by centerness targets, and
+    BCE centerness over positives.
 
 Head outputs are NHWC, flattened per level as (B, H*W) in y*W + x order, as
 in the JAX package.
@@ -20,9 +25,16 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.losses import bce_with_logits, iou_loss, sigmoid_focal_loss, softmax_focal_loss
 from ..ops.nms import nms_keep_mask
 from ..structures.boxes import Boxes, clip_to_image
 from .layers import Conv2d, Scale, conv_gn_relu
+
+INF = 100000000.0
+
+# per-level regression ranges
+OBJECT_SIZES_OF_INTEREST = ((-1.0, 64.0), (64.0, 128.0), (128.0, 256.0), (256.0, 512.0),
+                            (512.0, INF))
 
 
 class FCOSHead(nn.Module):
@@ -68,6 +80,102 @@ def compute_locations(feature_shapes: Sequence[Tuple[int, int]],
         yy, xx = torch.meshgrid(ys, xs, indexing="ij")
         out.append(torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1))
     return out
+
+
+def _flat_level_info(locations: List[torch.Tensor], strides: Sequence[int]):
+    """The levels' grids concatenated (P, 2), with each point's stride and
+    size-of-interest range (P,)."""
+    pts = torch.cat(locations, dim=0)
+
+    def per_point(values):
+        return torch.cat([torch.full((loc.shape[0],), float(v), dtype=torch.float32,
+                                     device=pts.device) for loc, v in zip(locations, values)])
+
+    return (pts, per_point(strides), per_point(r[0] for r in OBJECT_SIZES_OF_INTEREST),
+            per_point(r[1] for r in OBJECT_SIZES_OF_INTEREST))
+
+
+def fcos_targets(
+    locations: List[torch.Tensor],
+    strides: Sequence[int],
+    gt_xyxy: torch.Tensor,      # (B, G, 4)
+    gt_labels: torch.Tensor,    # (B, G) int, 0 = padding
+    gt_valid: torch.Tensor,     # (B, G) bool
+    center_sample: bool = True,
+    radius: float = 1.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-point target assignment: labels (B, P) int32 and reg_targets
+    (B, P, 4) float32 (l, t, r, b) to the smallest GT that holds the point
+    (in its center-sampling box) and whose largest side distance lies in the
+    point's level range; label 0 where none does."""
+    pts, stride_pt, lo, hi = _flat_level_info(locations, strides)
+    xs, ys = pts[None, :, 0, None], pts[None, :, 1, None]      # (1, P, 1)
+    x1, y1, x2, y2 = (gt_xyxy[:, None, :, i] for i in range(4))  # (B, 1, G)
+
+    reg = torch.stack([xs - x1, ys - y1, x2 - xs, y2 - ys], dim=-1)   # (B, P, G, 4)
+    if center_sample:
+        cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+        rad = (stride_pt * radius)[None, :, None]
+        sx1 = torch.maximum(cx - rad, x1)
+        sy1 = torch.maximum(cy - rad, y1)
+        sx2 = torch.minimum(cx + rad, x2)
+        sy2 = torch.minimum(cy + rad, y2)
+        inside = (xs - sx1 > 0) & (sy2 - ys > 0) & (sx2 - xs > 0) & (ys - sy1 > 0)
+    else:
+        inside = reg.min(dim=-1).values > 0
+
+    max_reg = reg.max(dim=-1).values
+    cared = (max_reg >= lo[None, :, None]) & (max_reg <= hi[None, :, None])
+    area = (gt_xyxy[..., 2] - gt_xyxy[..., 0] + 1.0) * (gt_xyxy[..., 3] - gt_xyxy[..., 1] + 1.0)
+    area = torch.where(inside & cared & gt_valid[:, None, :], area[:, None, :], INF)
+    min_area, min_idx = area.min(dim=-1)                       # (B, P)
+
+    labels = torch.gather(gt_labels, 1, min_idx)
+    labels = torch.where(min_area == INF, 0, labels).to(torch.int32)
+    reg_targets = torch.gather(reg, 2, min_idx[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    return labels, reg_targets
+
+
+def centerness_targets(reg_targets: torch.Tensor) -> torch.Tensor:
+    """sqrt((min(l, r) / max(l, r)) * (min(t, b) / max(t, b)))."""
+    lr = reg_targets[..., 0::2]
+    tb = reg_targets[..., 1::2]
+    c = (lr.min(-1).values / torch.clamp(lr.max(-1).values, min=1e-9)) * (
+        tb.min(-1).values / torch.clamp(tb.max(-1).values, min=1e-9))
+    return torch.sqrt(torch.clamp(c, min=0.0))
+
+
+def fcos_losses(
+    logits: List[torch.Tensor],       # per level (B, H, W, C)
+    bbox_reg: List[torch.Tensor],     # per level (B, H, W, 4)
+    ctrness: List[torch.Tensor],      # per level (B, H, W, 1)
+    labels: torch.Tensor,             # (B, P)
+    reg_targets: torch.Tensor,        # (B, P, 4)
+    gamma: float = 2.0,
+    alpha: float = 0.25,
+    loc_loss_type: str = "giou",
+    focal_mode: str = "SIGMOID",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(cls_loss, reg_loss, centerness_loss) over the levels flattened in
+    y * W + x order."""
+    n, c = logits[0].shape[0], logits[0].shape[-1]
+    cls_flat = torch.cat([x.reshape(n, -1, c) for x in logits], dim=1).reshape(-1, c)
+    reg_flat = torch.cat([x.reshape(n, -1, 4) for x in bbox_reg], dim=1).reshape(-1, 4)
+    ctr_flat = torch.cat([x.reshape(n, -1) for x in ctrness], dim=1).reshape(-1)
+    labels_flat = labels.reshape(-1)
+    reg_t_flat = reg_targets.reshape(-1, 4)
+
+    pos = labels_flat > 0
+    num_pos = pos.sum()
+    focal = sigmoid_focal_loss if focal_mode == "SIGMOID" else softmax_focal_loss
+    cls_loss = focal(cls_flat, labels_flat, gamma, alpha) / (num_pos + n)
+
+    ctr_t = centerness_targets(reg_t_flat)
+    reg_loss = iou_loss(reg_flat, reg_t_flat, torch.where(pos, ctr_t, 0.0), loc_loss_type)
+    ctr_bce = bce_with_logits(ctr_flat, ctr_t)
+    ctr_loss = torch.where(num_pos > 0, (ctr_bce * pos).sum() / torch.clamp(num_pos, min=1),
+                           0.0)
+    return cls_loss, reg_loss, ctr_loss
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -88,3 +88,9 @@ class ResNet(nn.Module):
             x = stage(x)
             outputs.append(x)
         return tuple(outputs)
+
+
+def frozen_param_paths(freeze_at: int = 2) -> Tuple[str, ...]:
+    """The body's stages to freeze (FREEZE_CONV_BODY_AT): 'stem' for stage 0
+    and 'layer<i>' for stage i, below ``freeze_at``."""
+    return tuple("stem" if i == 0 else f"layer{i}" for i in range(freeze_at))

@@ -8,7 +8,11 @@
     channel-major flatten;
   - predictor: cls_score and bbox_pred (logits and deltas in float32);
   - eval postprocess: class-1 softmax (or sigmoid) score, BoxCoder decode of
-    the class-1 slot, clip, per-image NMS, top-k, the episode's label.
+    the class-1 slot, clip, per-image NMS, top-k, the episode's label;
+  - training: IoU matching of the proposals to the GT, labels, BoxCoder
+    targets and balanced sampling (``prepare_roi_targets``), and the CE
+    class loss with smooth-L1 over the positives' regression slots
+    (``roi_head_loss``).
 
 ROI features are NHWC (N, 7, 7, C); the 1x1 convs run as matmuls over the
 last axis, the 3x3 conv on the channels_last NCHW view of the same memory.
@@ -19,18 +23,20 @@ package would take its fused kernel; otherwise it runs through the layers.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.box_coder import BoxCoder
+from ..ops.losses import cross_entropy, smooth_l1_loss
 from ..ops.nms import nms_keep_mask
 from ..ops.roi_head_fused import (check_kernel_widths, fused_head_applies, fused_roi_head,
                                   kernel_operands, pack_roi_head_params)
-from ..structures.boxes import Boxes, clip_to_image
+from ..structures.boxes import Boxes, clip_to_image, masked_box_iou
 from .layers import Conv2d, GroupNorm, Linear
+from .matcher import BELOW_LOW_THRESHOLD, BETWEEN_THRESHOLDS, balanced_sample, match_boxes
 
 
 def predictor_num_classes(method: str, cls_loss: str, neg_supp: bool) -> Tuple[int, int]:
@@ -143,6 +149,81 @@ class ROIHeads(nn.Module):
     def __init__(self, **box_kwargs):
         super().__init__()
         self.box = ROIBoxHead(**box_kwargs)
+
+
+def prepare_roi_targets(
+    u: torch.Tensor,           # (B, N) uniform sampling priorities
+    proposals: Boxes,          # batched (B, N)
+    gt: Boxes,                 # batched (B, G), field 'labels'
+    box_coder: BoxCoder,
+    batch_size_per_image: int = 128,
+    positive_fraction: float = 0.25,
+    fg_iou_threshold: float = 0.5,
+    bg_iou_threshold: float = 0.5,
+):
+    """Match, label, encode and sample S = ``batch_size_per_image``
+    proposals per image. Labels: the matched GT's label, 0 below the low
+    threshold, -1 between the thresholds and on padding. Returns
+    (sampled_idx (B, S), sampled_valid (B, S), labels (B, S), reg_targets
+    (B, S, 4), matched_gt_idx (B, S), the clamped index of each sampled
+    proposal's GT)."""
+    iou = masked_box_iou(gt.xyxy, gt.valid, proposals.xyxy, proposals.valid)   # (B, G, N)
+    matched = match_boxes(iou, gt.valid, fg_iou_threshold, bg_iou_threshold)
+    clamped = torch.clamp(matched, min=0).long()
+    labels = torch.gather(gt.get_field("labels"), 1, clamped).to(torch.int32)
+    labels = torch.where(matched == BELOW_LOW_THRESHOLD, 0, labels)
+    labels = torch.where(matched == BETWEEN_THRESHOLDS, -1, labels)
+    labels = torch.where(proposals.valid, labels, -1).to(torch.int32)
+    matched_gt = torch.gather(gt.xyxy, 1, clamped[..., None].expand(-1, -1, 4))
+    reg_targets = box_coder.encode(matched_gt, proposals.xyxy)
+    idx, s_valid = balanced_sample(u, labels, proposals.valid, batch_size_per_image,
+                                   positive_fraction)
+    return (idx, s_valid, torch.gather(labels, 1, idx),
+            torch.gather(reg_targets, 1, idx[..., None].expand(-1, -1, 4)),
+            torch.gather(clamped, 1, idx))
+
+
+def roi_head_loss(
+    logits: torch.Tensor,         # (B*S, num_classes)
+    deltas: torch.Tensor,         # (B*S, 4*num_reg)
+    labels: torch.Tensor,         # (B, S)
+    reg_targets: torch.Tensor,    # (B, S, 4)
+    sampled_valid: torch.Tensor,  # (B, S)
+    cls_loss_type: str = "ce_loss",
+    cls_agnostic_bbox_reg: bool = False,
+    loss_weighted: bool = False,
+    soft_labels: Optional[torch.Tensor] = None,
+    neg_logits: Optional[torch.Tensor] = None,
+    rev_logits: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cls_loss, box_loss): softmax CE over the valid sampled slots (class
+    weights 0.25 / 0.75 with ``loss_weighted``), and smooth-L1 (beta 1) of
+    the positives' regression slot 4 * label + [0..3] (slot 1 when
+    class-agnostic) over the valid count. The other class losses, soft
+    labels, the neg-support and the reverse-order terms are not ported."""
+    if cls_loss_type != "ce_loss" or soft_labels is not None:
+        raise NotImplementedError(f"roi_head_loss: {cls_loss_type} / soft labels not ported")
+    if neg_logits is not None or rev_logits is not None:
+        raise NotImplementedError("roi_head_loss: neg-support / reverse-order terms not ported")
+    labels_flat = labels.reshape(-1)
+    valid_flat = sampled_valid.reshape(-1) & (labels_flat >= 0)
+    pos = (labels_flat > 0) & valid_flat
+
+    weight = None
+    if loss_weighted:
+        weight = torch.tensor([0.25] + [0.75] * (logits.shape[-1] - 1), device=logits.device)
+    cls_loss = cross_entropy(logits, labels_flat, weight=weight, valid=valid_flat)
+
+    d = deltas.reshape(deltas.shape[0], -1, 4)
+    if cls_agnostic_bbox_reg:
+        slot = torch.ones_like(labels_flat)
+    else:
+        slot = torch.clamp(labels_flat, min=0)
+    slot = torch.clamp(slot, max=d.shape[1] - 1).long()
+    picked = torch.gather(d, 1, slot[:, None, None].expand(-1, 1, 4))[:, 0]
+    box_l = smooth_l1_loss(picked, reg_targets.reshape(-1, 4), beta=1.0).sum(-1)
+    box_loss = (box_l * pos).sum() / torch.clamp(valid_flat.sum(), min=1)
+    return cls_loss, box_loss
 
 
 def roi_head_postprocess(

@@ -8,11 +8,21 @@ The layout is the JAX package's: features are NHWC ``(B, H, W, C)`` maps,
 the result is ``(R, pooled_h, pooled_w, C)``.
 
 ``multilevel_roi_align`` dispatches on the device of its inputs: CPU tensors
-take the plain version (``multilevel_roi_align_plain``); CUDA tensors launch
-the kernel of ``csrc/roi_align.cu`` or raise. Both compute the exact
-bilinear ROIAlign of the JAX package's XLA version in float32 (bf16 inputs
-are read as they are and the result is rounded once to the input dtype), and
-both write zeros for slots whose ``valid`` flag is False.
+take the plain version (``multilevel_roi_align_plain``), which autograd
+differentiates; CUDA tensors go through ``MultilevelRoiAlign``, a
+``torch.autograd.Function`` whose forward launches the kernel of
+``csrc/roi_align.cu`` and whose backward launches ``csrc/roi_align_bwd.cu``,
+or raise. Both compute the exact bilinear ROIAlign of the JAX package's XLA
+version in float32 (bf16 inputs are read as they are and the result is
+rounded once to the input dtype), and both write zeros for slots whose
+``valid`` flag is False. The gradient reaches the features only: the ROIs
+of the detector are proposals under ``no_grad``, GT boxes and the constant
+support boxes, as in the JAX package.
+
+``multilevel_roi_align_backward_plain`` is the backward kernel's plain
+version: the explicit scatter-add of every sample's four bilinear corners,
+``w_corner / g^2 * grad``, into a float32 workspace, then a cast to each
+level's dtype.
 
 ``roi_align_plan`` mirrors how the kernel stages a ROI: the distinct rows
 and columns its samples touch, and the items (whole output rows x whole
@@ -29,8 +39,10 @@ import torch
 
 MAX_LEVELS = 5
 
-# Kernel launches since the count was last reset (set it to 0 to reset).
+# Kernel launches since the count was last reset (set them to 0 to reset):
+# the forward (csrc/roi_align.cu) and the backward (csrc/roi_align_bwd.cu).
 roi_align_launches = 0
+roi_align_bwd_launches = 0
 
 
 def fpn_level_map(
@@ -153,6 +165,80 @@ def multilevel_roi_align_plain(
     if valid is not None:
         out = torch.where(valid[:, None, None, None], out, 0.0)
     return out.to(features[0].dtype)
+
+
+def _level_offsets(shapes) -> List[int]:
+    """Row offset of each level in the level-major workspace (sum over the
+    levels of B * H * W rows of C), and the total row count last."""
+    offsets = [0]
+    for b, h, w, _ in shapes:
+        offsets.append(offsets[-1] + b * h * w)
+    return offsets
+
+
+def _split_workspace(ws: torch.Tensor, shapes, dtype) -> List[torch.Tensor]:
+    """The level-major float32 workspace -> one (B, H, W, C) gradient per
+    level in ``dtype`` (views of it in float32)."""
+    offsets = _level_offsets(shapes)
+    return [ws[offsets[i]:offsets[i + 1]].view(shape).to(dtype)
+            for i, shape in enumerate(shapes)]
+
+
+def multilevel_roi_align_backward_plain(
+    grad_out: torch.Tensor,
+    feature_shapes: Sequence[Tuple[int, int, int, int]],
+    dtype: torch.dtype,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    output_size,
+    scales: Sequence[float],
+    sampling_ratio: int,
+    valid: Optional[torch.Tensor] = None,
+) -> List[torch.Tensor]:
+    """d(multilevel ROIAlign)/d(features) for ``grad_out`` (R, ph, pw, C):
+    one (B, H, W, C) gradient per level in ``dtype``. Every in-range sample
+    of a bin carries ``grad / g^2`` to its four corners with the bilinear
+    weights (clamped corners land twice on one pixel); out-of-range samples
+    and ``valid=False`` ROIs carry nothing. Sums in a float32 workspace that
+    holds the levels one after another, each as a contiguous (B, H, W, C)
+    block, and casts once."""
+    pooled_h, pooled_w = output_size
+    g = sampling_ratio
+    dev = rois.device
+    c = grad_out.shape[-1]
+    shapes = [tuple(s) for s in feature_shapes]
+    levels = levels.long()
+    heights = torch.tensor([s[1] for s in shapes], device=dev)
+    widths = torch.tensor([s[2] for s in shapes], device=dev)
+    offsets = torch.tensor(_level_offsets(shapes)[:-1], device=dev)
+    ws = torch.zeros((_level_offsets(shapes)[-1], c), dtype=torch.float32, device=dev)
+    r = rois.shape[0]
+    if r == 0:
+        return _split_workspace(ws, shapes, dtype)
+
+    (oky, y_low, y_high, ly, hy), (okx, x_low, x_high, lx, hx) = _roi_axes(
+        rois, levels, heights, widths, scales, output_size, g)
+
+    def rep(a):
+        return a.repeat_interleave(pooled_w * g, dim=1)
+
+    def til(a):
+        return a.repeat(1, pooled_h * g)
+
+    live = rep(oky) & til(okx)
+    if valid is not None:
+        live = live & valid[:, None]
+    # each sample's share of its bin's gradient, (R, P, C) in the sample grid
+    gq = _div(grad_out.to(torch.float32), g * g)
+    gq = gq.repeat_interleave(g, dim=1).repeat_interleave(g, dim=2).reshape(r, -1, c)
+    w_r = widths[levels][:, None]
+    base = offsets[levels][:, None] + rois[:, 0].long()[:, None] * heights[levels][:, None] * w_r
+    for wy, wx, yi, xi in ((hy, hx, y_low, x_low), (hy, lx, y_low, x_high),
+                           (ly, hx, y_high, x_low), (ly, lx, y_high, x_high)):
+        w = torch.where(live, rep(wy) * til(wx), 0.0)
+        idx = base + rep(yi) * w_r + til(xi)
+        ws.index_add_(0, idx.reshape(-1), (w[..., None] * gq).reshape(-1, c))
+    return _split_workspace(ws, shapes, dtype)
 
 
 # -- the kernel's plan (csrc/roi_align.cu, steps 2-3), mirrored --------------
@@ -382,15 +468,123 @@ def multilevel_roi_align_cuda(features, rois, levels, output_size, scales,
     return out
 
 
+def _bwd_kernel():
+    from .. import csrc
+
+    lib = csrc.load("roi_align_bwd")
+    fn = lib.oneshot_roi_align_backward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, p, p, p, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+        lib.oneshot_roi_align_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.oneshot_roi_align_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def multilevel_roi_align_backward_cuda(grad_out, feature_shapes, dtype, rois, levels,
+                                       output_size, scales, sampling_ratio,
+                                       valid=None) -> List[torch.Tensor]:
+    """Launch the backward kernel (``csrc/roi_align_bwd.cu``): float32
+    atomic adds into a zeroed level-major workspace, then one cast per
+    level to ``dtype``. Same arguments and result as
+    ``multilevel_roi_align_backward_plain``; raises on any input the kernel
+    does not take."""
+    global roi_align_bwd_launches
+    dev = rois.device
+    _check(dev.type == "cuda", "rois must be a CUDA tensor")
+    shapes = [tuple(int(d) for d in s) for s in feature_shapes]
+    _check(1 <= len(shapes) <= MAX_LEVELS, f"1..{MAX_LEVELS} levels")
+    _check(len(scales) == len(shapes), "one scale per level")
+    _check(dtype in _DTYPE_CODE, f"dtype {dtype} (float32 or bfloat16)")
+    g = sampling_ratio
+    pooled_h, pooled_w = output_size
+    _check(g > 0 and pooled_h > 0 and pooled_w > 0 and pooled_h * g <= MAX_AXIS
+           and pooled_w * g <= MAX_AXIS,
+           f"sampling_ratio {g} x output {output_size}: 1..{MAX_AXIS} samples per axis")
+    b, _, _, c = shapes[0]
+    elt = torch.finfo(dtype).bits // 8
+    _check(c > 0 and c * elt % 16 == 0,
+           f"channel count {c} must fill 16-byte vectors ({16 // elt} {dtype} each)")
+    _check(all(len(s) == 4 and s[0] == b and s[3] == c for s in shapes),
+           f"level shapes {shapes} vs (B={b}, H, W, C={c})")
+    r = rois.shape[0]
+    _check(grad_out.shape == (r, pooled_h, pooled_w, c) and grad_out.dtype == dtype
+           and grad_out.device == dev and grad_out.is_contiguous(),
+           f"grad_out must be contiguous {dtype} (R, {pooled_h}, {pooled_w}, {c}) on the "
+           f"rois' device")
+    _check(rois.dtype == torch.float32 and rois.shape == (r, 5)
+           and rois.is_contiguous(), "rois must be contiguous float32 (R, 5)")
+    _check(levels.dtype == torch.int32 and levels.shape == (r,)
+           and levels.is_contiguous() and levels.device == dev,
+           "levels must be contiguous int32 (R,) on the rois' device")
+    if valid is not None:
+        _check(valid.dtype == torch.bool and valid.shape == (r,)
+               and valid.is_contiguous() and valid.device == dev,
+               "valid must be contiguous bool (R,) on the rois' device")
+    offsets = _level_offsets(shapes)
+    ws = torch.zeros((offsets[-1], c), dtype=torch.float32, device=dev)
+    if r == 0:
+        return _split_workspace(ws, shapes, dtype)
+
+    pyr = _Pyramid()
+    for i, (shape, s) in enumerate(zip(shapes, scales)):
+        pyr.data[i] = ws[offsets[i]].data_ptr()
+        pyr.height[i] = shape[1]
+        pyr.width[i] = shape[2]
+        pyr.scale[i] = float(s)
+    pyr.num_levels = len(shapes)
+
+    lib = _bwd_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.oneshot_roi_align_backward(
+            ctypes.addressof(pyr), b, c, _DTYPE_CODE[dtype], rois.data_ptr(),
+            levels.data_ptr(), 0 if valid is None else valid.data_ptr(), r,
+            pooled_h, pooled_w, g, grad_out.data_ptr(), stream)
+    if rc != 0:
+        err = lib.oneshot_roi_align_bwd_error_string(rc).decode()
+        raise RuntimeError(f"roi_align backward kernel launch failed: {err} ({rc})")
+    roi_align_bwd_launches += 1
+    return _split_workspace(ws, shapes, dtype)
+
+
+class MultilevelRoiAlign(torch.autograd.Function):
+    """Multi-level ROIAlign on the card: forward ``multilevel_roi_align_cuda``
+    (K1), backward ``multilevel_roi_align_backward_cuda`` (K1b). Gradients
+    reach the feature levels only; the ROIs, levels and ``valid`` get none.
+    Only the levels' shapes are kept for the backward, not the levels."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, valid, output_size, scales, sampling_ratio, *features):
+        ctx.save_for_backward(rois, levels, valid)
+        ctx.geometry = ([tuple(f.shape) for f in features], features[0].dtype,
+                        output_size, scales, sampling_ratio)
+        return multilevel_roi_align_cuda(list(features), rois, levels, output_size, scales,
+                                         sampling_ratio, valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, levels, valid = ctx.saved_tensors
+        shapes, dtype, output_size, scales, sampling_ratio = ctx.geometry
+        wanted = ctx.needs_input_grad[6:]
+        grads = [None] * len(shapes)
+        if any(wanted):
+            grads = multilevel_roi_align_backward_cuda(
+                grad_out.contiguous(), shapes, dtype, rois, levels, output_size, scales,
+                sampling_ratio, valid)
+        return (None,) * 6 + tuple(gr if w else None for gr, w in zip(grads, wanted))
+
+
 def multilevel_roi_align(features, rois, levels, output_size, scales,
                          sampling_ratio, valid=None) -> torch.Tensor:
-    """Multi-level ROIAlign: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """Multi-level ROIAlign: the kernels (K1 forward, K1b backward) for
+    CUDA tensors, the plain version for CPU tensors."""
     if rois.device.type == "cpu" and all(f.device.type == "cpu" for f in features):
         return multilevel_roi_align_plain(features, rois, levels, output_size,
                                           scales, sampling_ratio, valid)
-    return multilevel_roi_align_cuda(features, rois, levels, output_size,
-                                     scales, sampling_ratio, valid)
+    return MultilevelRoiAlign.apply(rois, levels, valid, tuple(output_size), tuple(scales),
+                                    sampling_ratio, *features)
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor, output_size,

@@ -63,6 +63,13 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / (area_a + area_b - inter)
 
 
+def masked_box_iou(a: torch.Tensor, a_valid: torch.Tensor, b: torch.Tensor,
+                   b_valid: torch.Tensor) -> torch.Tensor:
+    """``box_iou`` with the pairs of an invalid row or column set to 0."""
+    mask = a_valid[..., :, None] & b_valid[..., None, :]
+    return torch.where(mask, box_iou(a, b), 0.0)
+
+
 def cat_boxes(a: Boxes, b: Boxes) -> Boxes:
     """Concatenate along the capacity axis; fields present in both are kept."""
     k_axis = a.valid.dim() - 1
