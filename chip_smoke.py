@@ -9,7 +9,9 @@ at the shapes its path gives it (K1 also at its edge cases and on the
 FCOS-like p3-skew mix, with its per-ROI plan against the Python mirror; K1b
 against the float32 plain gradient at the train step's shapes, random and
 GT-clustered, at K1's edge cases and as the autograd Function against
-torch.autograd.grad of the plain forward; K2 on the FCOS tower's P3-P7 and
+torch.autograd.grad of the plain forward, with its tile lists against the
+Python mirror, bit-identical over calls and streams, two launches per call
+and no host sync; K2 on the FCOS tower's P3-P7 and
 at narrower channel widths, with its backward, its arrival counters over
 back-to-back calls, two streams and two CUDA graphs, and its per-launch
 device times; K4 and K5 bit for bit on K1's proposal and edge cases, the
@@ -61,10 +63,11 @@ KERNEL_REPLACES = "oneshotdet_tpu/ops/pallas_roi_align.py:249"
 BWD_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align_bwd.cu"
 # no TPU kernel: the JAX package takes this gradient as XLA's transpose of
 BWD_REPLACES = "none: XLA autodiff of oneshotdet_tpu/ops/roi_align.py:215"
-# K1b against the float32 plain gradient: float32 atomics add in a varying
-# order, so a sum that cancels keeps an absolute error of the order of its
+# K1b against the float32 plain gradient: the kernel sums a pixel's terms in
+# another order than the plain version's index-add (separable weights, tile
+# by tile), so a sum that cancels keeps an absolute error of the order of its
 # terms' rounding (GRAD_ATOL x the largest gradient); f32 within GRAD_RTOL
-# relative on top, bf16 within 1 bf16 ulp (the one rounding of the cast)
+# relative on top, bf16 within 1 bf16 ulp (the one rounding to bf16)
 GRAD_RTOL = 1e-5
 GRAD_ATOL = 1e-6
 HEAD_SOURCE = "oneshotdet_tpu_torch/csrc/roi_head.cu"
@@ -399,6 +402,42 @@ def grad_compare(label, dtype, got, want):
     return err, share, text
 
 
+def bwd_parts(ra, bargs, calls=3):
+    """(runtime launch calls per call, device ms per call of the tile bits
+    and of the body) of K1b's wrapper on ``bargs``, by torch.profiler
+    (``ablate_v4.kernel_ms``)."""
+    launches, per_kernel = roi_variant_launches(
+        lambda: ra.multilevel_roi_align_backward_cuda(*bargs), calls)
+    bits = sum(ms for k, ms in per_kernel.items() if "roi_align_bwd_tiles" in k)
+    body = sum(ms for k, ms in per_kernel.items() if "roi_align_bwd_body" in k)
+    return launches, bits, body
+
+
+def bwd_no_sync(ra, bargs, want):
+    """K1b's wrapper makes no host sync: one call under
+    torch.cuda.set_sync_debug_mode("error"), and one captured in a CUDA graph
+    and replayed; both bit-identical to ``want``."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ra.multilevel_roi_align_backward_cuda(*bargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ra.multilevel_roi_align_backward_cuda(*bargs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ra.multilevel_roi_align_backward_cuda(*bargs)
+    graph.replay()
+    torch.cuda.synchronize()
+    for label, out in (("under sync-debug mode", got), ("replayed from a CUDA graph", captured)):
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            raise AssertionError(f"roi_align_bwd {label}: differs from the eager call")
+    del graph, captured
+
+
 def roi_align_bwd_checks(ra, dev):
     """Phase 3e: the ROIAlign backward kernel K1b against its plain version
     (the float32 plain gradient of the same inputs) at the train step's
@@ -406,9 +445,14 @@ def roi_align_bwd_checks(ra, dev):
     batch-8 832x1216 pyramid, the support 7x7 (R = 8) and the five 1x1 pools
     on the 416x416 support pyramid; at K1's edge cases (with valid = False
     slots); and the whole autograd Function (K1 forward, K1b backward)
-    against torch.autograd.grad of the float32 plain forward. Logs each
-    case's time, bound and share of it, and the zeroing and cast on their
-    own. Returns {(case, dtype): entry}."""
+    against torch.autograd.grad of the float32 plain forward. In every case
+    the kernel's tile bits equal ``roi_align_bwd_plan``'s, two calls and one
+    call on each of two streams give the same bits, and the call makes 2
+    launches (runtime calls, torch.profiler); the Function's gradient is
+    bit-identical across two torch.autograd.grad calls; at R = 1024 the
+    wrapper runs under sync-debug mode and inside a CUDA graph. Logs each
+    case's time, its tile bits and body apart, bound and share of it.
+    Returns {(case, dtype): entry}."""
     gen = torch.Generator().manual_seed(4)
     scales = SCALES_Q
     q_shapes = [(BATCH, h, w, 256) for h, w in pyramid_shapes(*QUERY_HW)]
@@ -435,41 +479,76 @@ def roi_align_bwd_checks(ra, dev):
         for name, shapes, r, lv, out_hw, sc, v in cases:
             g_out = torch.randn((r.shape[0], *out_hw, 256), generator=gen).to(dev, dtype)
             bargs = (g_out, shapes, dtype, r, lv, out_hw, sc, 2, v)
-            got = ra.multilevel_roi_align_backward_cuda(*bargs)
+            plan = ra.roi_align_bwd_plan(shapes, r, lv, out_hw, sc, 2, v)
+            scratch = ra.bwd_scratch(r.shape[0], len(plan.tiles), dev)
+            got = ra.multilevel_roi_align_backward_cuda(*bargs, scratch=scratch)
             torch.cuda.synchronize()
+            bits = ra.bwd_tile_bits(scratch, r.shape[0], len(plan.tiles))
+            if not torch.equal(bits.cpu(), plan.bits()):
+                diff = [t for t, (a, b) in enumerate(zip(ra.bwd_lists_from_bits(bits),
+                                                         plan.lists)) if a != b]
+                raise AssertionError(f"roi_align_bwd {name} {dtype}: the kernel's tile lists "
+                                     f"differ from roi_align_bwd_plan's at {len(diff)} tiles, "
+                                     f"first {plan.tiles[diff[0]] if diff else None}")
             want = ra.multilevel_roi_align_backward_plain(g_out.float(), shapes, torch.float32,
                                                           r, lv, out_hw, sc, 2, v)
             err, share, text = grad_compare(f"roi_align_bwd {name}", dtype, got, want)
-            del got, want
+            del want
+            again = ra.multilevel_roi_align_backward_cuda(*bargs)
+            streams = (torch.cuda.Stream(), torch.cuda.Stream())
+            outs = []
+            for st in streams:
+                st.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(st):
+                    outs.append(ra.multilevel_roi_align_backward_cuda(*bargs))
+            for st in streams:
+                torch.cuda.current_stream().wait_stream(st)
+            torch.cuda.synchronize()
+            for label, out in (("a second call", again), ("a call on stream 1", outs[0]),
+                               ("a call on stream 2", outs[1])):
+                if not all(torch.equal(a, b) for a, b in zip(out, got)):
+                    raise AssertionError(f"roi_align_bwd {name} {dtype}: {label} is not "
+                                         f"bit-identical to the first")
+            del again, outs
+            if name == "proposals 7x7 R=1024":
+                bwd_no_sync(ra, bargs, got)
+            launches, bits_dev_ms, body_dev_ms = bwd_parts(ra, bargs)
+            if launches != (2 if r.shape[0] else 1):
+                raise AssertionError(f"roi_align_bwd {name} {dtype}: {launches} launches per "
+                                     f"call, expected 2 (the tile bits and the body)")
+            del got
             bound, by, nbytes, ops = k1b_bound(g_out, r, lv, v, shapes)
             ms = time_ms(lambda: ra.multilevel_roi_align_backward_cuda(*bargs))
             plain_ms = time_ms(lambda: ra.multilevel_roi_align_backward_plain(*bargs),
                                reps=5, warmup=1)
-            ws_elems = sum(math.prod(s) for s in shapes)
-            zero_ms = time_ms(lambda: torch.zeros(ws_elems, dtype=torch.float32, device=dev))
-            ws = torch.zeros(ws_elems, dtype=torch.float32, device=dev)
-            cast_ms = time_ms(lambda: ra._split_workspace(ws.view(-1, 256), shapes, dtype))
-            del ws
-            log(f"roi_align_bwd {name} {str(dtype)[6:]}: {text}; kernel {ms:.4f} ms (of it "
-                f"zeroing {zero_ms:.4f}, cast {cast_ms:.4f}), plain {plain_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), kernel at "
-                f"{100 * bound / ms:.1f}% of its bound; float32 workspace "
-                f"{4 * ws_elems / 1e6:.1f} MB")
+            pairs = sum(len(x) for x in plan.lists)
+            log(f"roi_align_bwd {name} {str(dtype)[6:]}: {text}; tile bits as "
+                f"roi_align_bwd_plan ({pairs} (tile, ROI) pairs over {len(plan.tiles)} tiles), "
+                f"bit-identical over 2 calls and 2 streams, {launches:g} launches per call; "
+                f"kernel {ms:.4f} ms (device: the tile bits {bits_dev_ms:.4f}, the body "
+                f"{body_dev_ms:.4f}), "
+                f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.2f} GFLOP), kernel at {100 * bound / ms:.1f}% of its bound")
             results[(name, dtype)] = dict(max_abs_err=err, allowance_share=share, ms=ms,
                                           plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                                          bound_share=bound / ms, zero_ms=zero_ms,
-                                          cast_ms=cast_ms)
+                                          bound_share=bound / ms, bits_device_ms=bits_dev_ms,
+                                          body_device_ms=body_dev_ms, launches_per_call=launches,
+                                          pairs=pairs)
+            del bits, scratch
         torch.cuda.empty_cache()
         # the autograd Function: K1 forward, K1b backward, against autograd of
-        # the float32 plain forward
+        # the float32 plain forward; two backward calls bit-identical
         feats = [torch.randn(s, generator=gen).to(dev, dtype).requires_grad_() for s in q_shapes]
         lv = ra.fpn_level_map(rois[:, 1:], 3, 7)
         g_out = torch.randn((rois.shape[0], 7, 7, 256), generator=gen).to(dev, dtype)
         n1, n1b = ra.roi_align_launches, ra.roi_align_bwd_launches
         out = ra.multilevel_roi_align(feats, rois, lv, (7, 7), scales, 2, valid)
-        got = torch.autograd.grad(out, feats, g_out)
+        got = torch.autograd.grad(out, feats, g_out, retain_graph=True)
         if (ra.roi_align_launches - n1, ra.roi_align_bwd_launches - n1b) != (1, 1):
             raise AssertionError("roi_align Function: K1 and K1b must launch once each")
+        again = torch.autograd.grad(out, feats, g_out)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("roi_align Function: two torch.autograd.grad calls differ")
         f32 = [f.detach().float().requires_grad_() for f in feats]
         ref = ra.multilevel_roi_align_plain(f32, rois, lv, (7, 7), scales, 2, valid)
         want = torch.autograd.grad(ref, f32, g_out.float())
@@ -477,13 +556,15 @@ def roi_align_bwd_checks(ra, dev):
             raise AssertionError("roi_align Function: forward differs from the plain version")
         err, _, text = grad_compare("roi_align Function", dtype, list(got), list(want))
         log(f"roi_align Function (K1 + K1b) R=1024 {str(dtype)[6:]} against "
-            f"torch.autograd.grad of the float32 plain forward: {text}")
-        del feats, out, got, f32, ref, want
+            f"torch.autograd.grad of the float32 plain forward: {text}; two "
+            f"torch.autograd.grad calls bit-identical")
+        del feats, out, got, again, f32, ref, want
         torch.cuda.empty_cache()
-    crowd_ms = results[("GT-clustered 7x7 R=1024", torch.bfloat16)]["ms"]
-    rand_ms = results[("proposals 7x7 R=1024", torch.bfloat16)]["ms"]
-    log(f"roi_align_bwd atomics meeting on shared pixels: GT-clustered R=1024 bf16 {crowd_ms:.4f} "
-        f"ms against random ROIs {rand_ms:.4f} ms ({crowd_ms / rand_ms:.2f}x)")
+    for dtype in (torch.bfloat16, torch.float32):
+        crowd_ms = results[("GT-clustered 7x7 R=1024", dtype)]["ms"]
+        rand_ms = results[("proposals 7x7 R=1024", dtype)]["ms"]
+        log(f"roi_align_bwd crowded tiles: GT-clustered R=1024 {str(dtype)[6:]} {crowd_ms:.4f} "
+            f"ms against random ROIs {rand_ms:.4f} ms ({crowd_ms / rand_ms:.2f}x)")
     return results
 
 
@@ -1475,7 +1556,7 @@ def profile_train_step(step, label):
     for e in device:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     k1 = sum(ms for n, ms in per_kernel.items() if "roi_align_kernel" in n)
-    k1b = sum(ms for n, ms in per_kernel.items() if "roi_align_bwd_kernel" in n)
+    k1b = sum(ms for n, ms in per_kernel.items() if "roi_align_bwd_" in n)
     log(f"profile {label}: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%; K1 "
         f"kernels {k1:.3f} ms, K1b kernels {k1b:.3f} ms ({100 * k1b / busy_ms:.2f}% of busy)")
@@ -1960,16 +2041,21 @@ def main() -> int:
         "shape": "grad (1024, 7, 7, 256) bf16 -> the batch-8 832x1216 pyramid's gradient",
         "max_abs_err": bwd["max_abs_err"],
         "tolerance": f"1 bf16 ulp + {GRAD_ATOL} x max|grad| of the float32 plain gradient "
-                     f"(f32: rtol {GRAD_RTOL} + the same atol); atomics, not bit for bit",
+                     f"(f32: rtol {GRAD_RTOL} + the same atol); bit-identical run to run",
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"],
         "bound_share": bwd["bound_share"],
         "library_ms": None,
-        "zero_ms": bwd["zero_ms"],
-        "cast_ms": bwd["cast_ms"],
+        "launches_per_call": bwd["launches_per_call"],
+        "bits_device_ms": bwd["bits_device_ms"],
+        "body_device_ms": bwd["body_device_ms"],
         "clustered_ms": bwd_checks[("GT-clustered 7x7 R=1024", torch.bfloat16)]["ms"],
+        "clustered_ms_f32": bwd_checks[("GT-clustered 7x7 R=1024", torch.float32)]["ms"],
+        "support_7x7_ms": bwd_checks[("support 7x7 R=8", torch.bfloat16)]["ms"],
+        "support_1x1_ms": [bwd_checks[(f"support 1x1 P{lvl} R=8", torch.bfloat16)]["ms"]
+                           for lvl in range(3, 8)],
         "ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["ms"],
         "bound_ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["bound_ms"],
         "train_step": {k: v for k, v in train.items() if k != "losses"},

@@ -87,21 +87,6 @@ struct Item {
   unsigned char ph0, ph1, pw0, pw1, r0, r1, c0, c1;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Step 2 for one axis, by one warp (lane s = sample s, pooled * grid <= 32):
 // the distinct cells of the in-range samples, ascending, into `list`; each
 // sample's low/high cell becomes its slot in the list; per output index p,

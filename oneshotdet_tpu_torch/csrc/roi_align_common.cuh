@@ -1,7 +1,7 @@
 // What the multi-level ROIAlign's forward (roi_align.cu, K1) and backward
 // (roi_align_bwd.cu, K1b) share: the pyramid they are given, the per-ROI
 // sample grid, so that both sample exactly the same positions with the same
-// weights, and the 16-byte channel vectors.
+// weights, the 16-byte asynchronous copies and the 16-byte channel vectors.
 //
 // The grid is separable: a sample's y depends only on (ph, iy) and its x
 // only on (pw, ix). Each axis sample is computed with the float32 operations
@@ -17,7 +17,7 @@
 
 // The pyramid's levels, passed by value. `data` points at each level's
 // (B, H_l, W_l, C) contiguous NHWC map: the features in the forward, the
-// level's float32 gradient block in the backward.
+// level's gradient in the backward.
 struct Pyramid {
   const void* data[ONESHOT_MAX_LEVELS];
   int height[ONESHOT_MAX_LEVELS];
@@ -66,6 +66,22 @@ __device__ __forceinline__ AxisSample roi_axis_sample(const float* roi, float sc
   const float extent = fmaxf((y ? roi[4] : roi[3]) * scale - start, 1.f);
   const float bin = extent / (float)pooled;
   return axis_sample(start, bin, s / grid, s % grid, grid, size);
+}
+
+// 16-byte asynchronous copies from global into shared memory, in groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 16-byte vectors of channels: 4 fp32 or 8 bf16.

@@ -27,12 +27,18 @@ level's dtype.
 ``roi_align_plan`` mirrors how the kernel stages a ROI: the distinct rows
 and columns its samples touch, and the items (whole output rows x whole
 output columns) whose pixels fit one shared-memory buffer.
+``roi_align_bwd_plan`` mirrors the backward kernel's tile lists: which ROIs
+each pixel tile of each (level, image) map sums, in ascending order; and
+``multilevel_roi_align_backward_tiled`` repeats the backward kernel's
+formulation (per tile, per ROI in list order, separable weights) in plain
+PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -106,6 +112,17 @@ def _roi_axes(rois: torch.Tensor, levels: torch.Tensor, heights: torch.Tensor,
     roi_h = torch.clamp(rois[:, 4] * scale_r - start_h, min=1.0)
     return (_axis_samples(start_h, _div(roi_h, pooled_h), heights[levels], pooled_h, g),
             _axis_samples(start_w, _div(roi_w, pooled_w), widths[levels], pooled_w, g))
+
+
+def _live_levels(shapes, rois, levels, valid):
+    """K1's rule for a live ROI (valid, level and image in range), and the
+    levels with the dead ones' set to 0 (so that they can be indexed)."""
+    batch, nl = shapes[0][0], len(shapes)
+    b = rois[:, 0].long()
+    live = (levels >= 0) & (levels < nl) & (b >= 0) & (b < batch)
+    if valid is not None:
+        live &= valid.detach().cpu()
+    return live, torch.where(live, levels, 0)
 
 
 def multilevel_roi_align_plain(
@@ -334,13 +351,9 @@ def roi_align_plan(features, rois, levels, output_size, scales, sampling_ratio,
     pooled_h, pooled_w = output_size
     g = sampling_ratio
     rois, levels = rois.detach().cpu().to(torch.float32), levels.detach().cpu().long()
-    batch, nl = features[0].shape[0], len(features)
     heights = torch.tensor([f.shape[1] for f in features])
     widths = torch.tensor([f.shape[2] for f in features])
-    live = (levels >= 0) & (levels < nl) & (rois[:, 0].long() >= 0) & (rois[:, 0].long() < batch)
-    if valid is not None:
-        live &= valid.detach().cpu()
-    lv = torch.where(live, levels, 0)
+    live, lv = _live_levels([f.shape for f in features], rois, levels, valid)
     axes = [[t.tolist() for t in axis[:3]]
             for axis in _roi_axes(rois, lv, heights, widths, scales, output_size, g)]
     budget = stage_budget(features[0].shape[-1], features[0].dtype)
@@ -355,6 +368,162 @@ def roi_align_plan(features, rois, levels, output_size, scales, sampling_ratio,
         plans.append(RoiPlan(rows, cols, y_slots, x_slots,
                              _plan_items((yf, ye), (xf, xe), pooled_h, pooled_w, budget)))
     return plans
+
+
+# -- the backward kernel's tile lists (csrc/roi_align_bwd.cu), mirrored -------
+
+BWD_TILE = 16        # pixels on a side of a tile
+BWD_MAX_TILES = 64   # tiles on one axis of a map
+BWD_MAX_BINS = 64    # pooled_h * pooled_w
+
+
+def bwd_tile_count(feature_shapes) -> int:
+    """Tiles the backward kernel owns over all levels and images."""
+    t = BWD_TILE
+    return sum(b * -(-h // t) * -(-w // t) for b, h, w, _ in feature_shapes)
+
+
+def bwd_scratch(num_rois: int, num_tiles: int, device) -> torch.Tensor:
+    """Scratch of the backward kernel, int32: each ROI's 2 x MAX_AXIS samples
+    (4 words each), then the tile bits (``bwd_tile_bits``)."""
+    return torch.empty(num_rois * 8 * MAX_AXIS + -(-num_rois // 32) * num_tiles,
+                       dtype=torch.int32, device=device)
+
+
+def bwd_tile_bits(scratch: torch.Tensor, num_rois: int, num_tiles: int) -> torch.Tensor:
+    """The tile bits in ``scratch``: int32 (ceil(R / 32), tiles), bit i of
+    word j set when ROI 32 j + i is on the tile's list."""
+    return scratch[num_rois * 8 * MAX_AXIS:].view(-(-num_rois // 32), num_tiles)
+
+
+def bwd_tile_grid(feature_shapes) -> List[Tuple[int, int, int, int]]:
+    """(level, image, tile row, tile column) of every tile the backward
+    kernel owns, in its block order."""
+    t = BWD_TILE
+    return [(lvl, b, ty, tx) for lvl, (batch, h, w, _) in enumerate(feature_shapes)
+            for b in range(batch) for ty in range(-(-h // t)) for tx in range(-(-w // t))]
+
+
+@dataclasses.dataclass
+class BwdPlan:
+    """The backward kernel's tile lists. ``tiles`` as ``bwd_tile_grid``;
+    ``lists[t]`` the ROIs that tile t sums, ascending; ``words`` the 32-bit
+    words per tile of the kernel's bits (ceil(R / 32)); ``pair_capacity`` the
+    most (tile, ROI) pairs the shapes allow: R x the most tiles a ROI can
+    touch on any level, min(2 pooled_h g, tile rows) x min(2 pooled_w g, tile
+    columns), since a ROI's samples put corners on at most 2 pooled g rows
+    and as many columns."""
+
+    tiles: List[Tuple[int, int, int, int]]
+    lists: List[List[int]]
+    words: int
+    pair_capacity: int
+
+    def bits(self) -> torch.Tensor:
+        """The kernel's bits as it writes them: int32 (words, tiles), bit i of
+        word j set when ROI 32 j + i is on the tile's list."""
+        vals = torch.zeros((self.words, len(self.tiles)), dtype=torch.int64)
+        for t, rois in enumerate(self.lists):
+            for r in rois:
+                vals[r // 32, t] += 1 << (r % 32)
+        return torch.where(vals >= 2 ** 31, vals - 2 ** 32, vals).to(torch.int32)
+
+
+def bwd_lists_from_bits(bits: torch.Tensor) -> List[List[int]]:
+    """Per tile, the ROIs whose bits are set in the kernel's int32 (words,
+    tiles) bits, ascending."""
+    vals = bits.detach().cpu().to(torch.int64) & 0xFFFFFFFF
+    lists = [[] for _ in range(vals.shape[1])]
+    for j, t in (vals != 0).nonzero().tolist():
+        w = int(vals[j, t])
+        lists[t].extend(32 * j + i for i in range(32) if w >> i & 1)
+    return [sorted(x) for x in lists]
+
+
+def _bwd_axes(shapes, rois, levels, output_size, scales, g, valid):
+    """CPU float32 rois, the live flags, the levels to index with and
+    ``_roi_axes`` of every ROI."""
+    rois = rois.detach().cpu().to(torch.float32)
+    live, lv = _live_levels(shapes, rois, levels.detach().cpu().long(), valid)
+    heights = torch.tensor([s[1] for s in shapes])
+    widths = torch.tensor([s[2] for s in shapes])
+    return rois, live, lv, _roi_axes(rois, lv, heights, widths, scales, output_size, g)
+
+
+def roi_align_bwd_plan(feature_shapes, rois, levels, output_size, scales, sampling_ratio,
+                       valid=None) -> BwdPlan:
+    """The backward kernel's tile lists: a live ROI is on the list of each
+    tile of its (level, image) map that holds an in-range sample's corner of
+    non-zero weight. The weights are separable, so those are the tiles of
+    (rows) x (columns) that carry weight: a sample's low cell always (its
+    weight 1 - l is never 0), its high cell when l != 0."""
+    shapes = [tuple(int(d) for d in s) for s in feature_shapes]
+    pooled_h, pooled_w = output_size
+    g, t = sampling_ratio, BWD_TILE
+    r = rois.shape[0]
+    tiles = bwd_tile_grid(shapes)
+    index = {tile: i for i, tile in enumerate(tiles)}
+    lists = [[] for _ in tiles]
+    most = max(min(2 * pooled_h * g, -(-h // t)) * min(2 * pooled_w * g, -(-w // t))
+               for _, h, w, _ in shapes)
+    plan = BwdPlan(tiles, lists, -(-r // 32), r * most)
+    if r == 0:
+        return plan
+    rois, live, lv, axes = _bwd_axes(shapes, rois, levels, output_size, scales, g, valid)
+    sets = []
+    for ok, low, high, l, _ in axes:
+        cells = torch.where(ok, low, -1), torch.where(ok & (l != 0), high, -1)
+        sets.append([sorted({c // t for c in lo + hi if c >= 0})
+                     for lo, hi in zip(cells[0].tolist(), cells[1].tolist())])
+    for i in range(r):
+        if not live[i]:
+            continue
+        key = (int(lv[i]), int(rois[i, 0].long()))
+        for ty in sets[0][i]:
+            for tx in sets[1][i]:
+                lists[index[key + (ty, tx)]].append(i)
+    return plan
+
+
+def _tile_weights(ok, low, high, l, h, first: int, pooled: int, g: int) -> torch.Tensor:
+    """(pooled, BWD_TILE) weights of one ROI's axis on the tile's cells
+    first..first + BWD_TILE - 1: per output index p, the weights of the
+    corners that its in-range samples put on each cell."""
+    cells = first + torch.arange(BWD_TILE)
+    w = (torch.where((low[:, None] == cells) & ok[:, None], h[:, None], 0.0)
+         + torch.where((high[:, None] == cells) & ok[:, None], l[:, None], 0.0))
+    return w.reshape(pooled, g, BWD_TILE).sum(1)
+
+
+def multilevel_roi_align_backward_tiled(grad_out, feature_shapes, dtype, rois, levels,
+                                        output_size, scales, sampling_ratio, valid=None):
+    """The backward kernel's formulation in plain PyTorch on the CPU (for the
+    tests): for each tile of ``roi_align_bwd_plan``, for each ROI on its list
+    in order, ``t[ph, x] = sum_pw xw[pw, x] G[ph, pw]`` and ``acc[y, x] +=
+    sum_ph yw[ph, y] t[ph, x]`` with the separable weights of the tile's rows
+    and columns, then ``acc / g^2`` rounded once to ``dtype``. Same
+    arguments and result as ``multilevel_roi_align_backward_plain``."""
+    shapes = [tuple(int(d) for d in s) for s in feature_shapes]
+    pooled_h, pooled_w = output_size
+    g, t = sampling_ratio, BWD_TILE
+    plan = roi_align_bwd_plan(shapes, rois, levels, output_size, scales, g, valid)
+    out = [torch.zeros(s, dtype=torch.float32) for s in shapes]
+    if rois.shape[0]:
+        _, _, _, ((oky, ylo, yhi, ly, hy), (okx, xlo, xhi, lx, hx)) = _bwd_axes(
+            shapes, rois, levels, output_size, scales, g, valid)
+        grad = grad_out.detach().cpu().to(torch.float32)
+    for (lvl, b, ty, tx), rois_on in zip(plan.tiles, plan.lists):
+        if not rois_on:
+            continue
+        acc = torch.zeros((t, t, shapes[lvl][3]))
+        for r in rois_on:
+            yw = _tile_weights(oky[r], ylo[r], yhi[r], ly[r], hy[r], ty * t, pooled_h, g)
+            xw = _tile_weights(okx[r], xlo[r], xhi[r], lx[r], hx[r], tx * t, pooled_w, g)
+            acc += torch.einsum("py,pxc->yxc", yw, torch.einsum("qx,pqc->pxc", xw, grad[r]))
+        h, w = shapes[lvl][1:3]
+        rows, cols = min(t, h - ty * t), min(t, w - tx * t)
+        out[lvl][b, ty * t:ty * t + rows, tx * t:tx * t + cols] = _div(acc[:rows, :cols], g * g)
+    return [o.to(dtype) for o in out]
 
 
 class _Pyramid(ctypes.Structure):
@@ -475,39 +644,70 @@ def _bwd_kernel():
     fn = lib.oneshot_roi_align_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, p, p, p, i, i, i, i, p, p]
+        fn.argtypes = [p, i, i, i, p, p, p, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
         lib.oneshot_roi_align_bwd_error_string.argtypes = [ctypes.c_int]
         lib.oneshot_roi_align_bwd_error_string.restype = ctypes.c_char_p
+        limits = (ctypes.c_int * 4)()
+        lib.oneshot_roi_align_bwd_limits(limits)
+        want = (BWD_TILE, BWD_MAX_TILES, MAX_AXIS, BWD_MAX_BINS)
+        if tuple(limits) != want:
+            raise RuntimeError(f"roi_align_bwd.cu limits {tuple(limits)} differ from the "
+                               f"plan's {want}")
     return lib
 
 
-def multilevel_roi_align_backward_cuda(grad_out, feature_shapes, dtype, rois, levels,
-                                       output_size, scales, sampling_ratio,
-                                       valid=None) -> List[torch.Tensor]:
-    """Launch the backward kernel (``csrc/roi_align_bwd.cu``): float32
-    atomic adds into a zeroed level-major workspace, then one cast per
-    level to ``dtype``. Same arguments and result as
-    ``multilevel_roi_align_backward_plain``; raises on any input the kernel
-    does not take."""
-    global roi_align_bwd_launches
-    dev = rois.device
-    _check(dev.type == "cuda", "rois must be a CUDA tensor")
-    shapes = [tuple(int(d) for d in s) for s in feature_shapes]
+@functools.lru_cache(maxsize=64)
+def _bwd_geometry(shapes, scales, dtype, output_size, g):
+    """The backward call's static arguments checked once per geometry: each
+    level's element offset in the gradients' one allocation (the total
+    last), the tile count, and a Pyramid with the levels' sizes and scales
+    (its data pointers set per call)."""
     _check(1 <= len(shapes) <= MAX_LEVELS, f"1..{MAX_LEVELS} levels")
     _check(len(scales) == len(shapes), "one scale per level")
     _check(dtype in _DTYPE_CODE, f"dtype {dtype} (float32 or bfloat16)")
-    g = sampling_ratio
     pooled_h, pooled_w = output_size
     _check(g > 0 and pooled_h > 0 and pooled_w > 0 and pooled_h * g <= MAX_AXIS
-           and pooled_w * g <= MAX_AXIS,
-           f"sampling_ratio {g} x output {output_size}: 1..{MAX_AXIS} samples per axis")
+           and pooled_w * g <= MAX_AXIS and pooled_h * pooled_w <= BWD_MAX_BINS,
+           f"sampling_ratio {g} x output {output_size}: 1..{MAX_AXIS} samples per axis, "
+           f"at most {BWD_MAX_BINS} bins")
     b, _, _, c = shapes[0]
     elt = torch.finfo(dtype).bits // 8
     _check(c > 0 and c * elt % 16 == 0,
            f"channel count {c} must fill 16-byte vectors ({16 // elt} {dtype} each)")
-    _check(all(len(s) == 4 and s[0] == b and s[3] == c for s in shapes),
-           f"level shapes {shapes} vs (B={b}, H, W, C={c})")
+    side = BWD_TILE * BWD_MAX_TILES
+    _check(all(len(s) == 4 and s[0] == b and s[3] == c and 0 < s[1] <= side
+               and 0 < s[2] <= side for s in shapes),
+           f"level shapes {shapes} vs (B={b}, 1..{side}, 1..{side}, C={c})")
+    pyr = _Pyramid()
+    for i, (shape, scale) in enumerate(zip(shapes, scales)):
+        pyr.height[i] = shape[1]
+        pyr.width[i] = shape[2]
+        pyr.scale[i] = float(scale)
+    pyr.num_levels = len(shapes)
+    return [o * c for o in _level_offsets(shapes)], bwd_tile_count(shapes), pyr
+
+
+def multilevel_roi_align_backward_cuda(grad_out, feature_shapes, dtype, rois, levels,
+                                       output_size, scales, sampling_ratio, valid=None,
+                                       scratch=None) -> List[torch.Tensor]:
+    """Launch the backward kernel (``csrc/roi_align_bwd.cu``): the ROIs'
+    samples and the tile bits (which ROIs each pixel tile sums,
+    ``roi_align_bwd_plan``), then the body, whose blocks write each tile's
+    gradient once. Same arguments and result as
+    ``multilevel_roi_align_backward_plain``; raises on any input the kernel
+    does not take. ``scratch`` (``bwd_scratch``) keeps the samples and bits
+    for the caller (``bwd_tile_bits``). The gradients are views of one
+    allocation; the static checks run once per geometry."""
+    global roi_align_bwd_launches
+    dev = rois.device
+    _check(dev.type == "cuda", "rois must be a CUDA tensor")
+    shapes = tuple(map(tuple, feature_shapes))
+    g = sampling_ratio
+    offsets, tiles, template = _bwd_geometry(shapes, tuple(scales), dtype, tuple(output_size),
+                                             g)
+    pooled_h, pooled_w = output_size
+    b, _, _, c = shapes[0]
     r = rois.shape[0]
     _check(grad_out.shape == (r, pooled_h, pooled_w, c) and grad_out.dtype == dtype
            and grad_out.device == dev and grad_out.is_contiguous(),
@@ -522,31 +722,32 @@ def multilevel_roi_align_backward_cuda(grad_out, feature_shapes, dtype, rois, le
         _check(valid.dtype == torch.bool and valid.shape == (r,)
                and valid.is_contiguous() and valid.device == dev,
                "valid must be contiguous bool (R,) on the rois' device")
-    offsets = _level_offsets(shapes)
-    ws = torch.zeros((offsets[-1], c), dtype=torch.float32, device=dev)
-    if r == 0:
-        return _split_workspace(ws, shapes, dtype)
-
-    pyr = _Pyramid()
-    for i, (shape, s) in enumerate(zip(shapes, scales)):
-        pyr.data[i] = ws[offsets[i]].data_ptr()
-        pyr.height[i] = shape[1]
-        pyr.width[i] = shape[2]
-        pyr.scale[i] = float(s)
-    pyr.num_levels = len(shapes)
+    if scratch is None:
+        scratch = bwd_scratch(r, tiles, dev)
+    words = r * 8 * MAX_AXIS + -(-r // 32) * tiles
+    _check(scratch.dtype == torch.int32 and scratch.shape == (words,)
+           and scratch.device == dev and scratch.data_ptr() % 16 == 0,
+           f"scratch must be int32 ({words},) on the rois' device (bwd_scratch)")
+    flat = torch.empty(offsets[-1], dtype=dtype, device=dev)
+    pyr = _Pyramid.from_buffer_copy(template)
+    base, elt = flat.data_ptr(), flat.element_size()
+    for i, o in enumerate(offsets[:-1]):
+        pyr.data[i] = base + o * elt
 
     lib = _bwd_kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.oneshot_roi_align_backward(
-            ctypes.addressof(pyr), b, c, _DTYPE_CODE[dtype], rois.data_ptr(),
-            levels.data_ptr(), 0 if valid is None else valid.data_ptr(), r,
-            pooled_h, pooled_w, g, grad_out.data_ptr(), stream)
+    args = (ctypes.addressof(pyr), b, c, _DTYPE_CODE[dtype], rois.data_ptr(), levels.data_ptr(),
+            0 if valid is None else valid.data_ptr(), r, pooled_h, pooled_w, g,
+            grad_out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = lib.oneshot_roi_align_backward(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.oneshot_roi_align_backward(*args)
     if rc != 0:
         err = lib.oneshot_roi_align_bwd_error_string(rc).decode()
         raise RuntimeError(f"roi_align backward kernel launch failed: {err} ({rc})")
     roi_align_bwd_launches += 1
-    return _split_workspace(ws, shapes, dtype)
+    return [flat[offsets[i]:offsets[i + 1]].view(s) for i, s in enumerate(shapes)]
 
 
 class MultilevelRoiAlign(torch.autograd.Function):
@@ -558,7 +759,7 @@ class MultilevelRoiAlign(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rois, levels, valid, output_size, scales, sampling_ratio, *features):
         ctx.save_for_backward(rois, levels, valid)
-        ctx.geometry = ([tuple(f.shape) for f in features], features[0].dtype,
+        ctx.geometry = (tuple(tuple(f.shape) for f in features), features[0].dtype,
                         output_size, scales, sampling_ratio)
         return multilevel_roi_align_cuda(list(features), rois, levels, output_size, scales,
                                          sampling_ratio, valid)
