@@ -26,7 +26,7 @@ on the 416x416 support pyramid, in bf16 and f32, it prints per case:
 ``roi_align_common.cuh`` it includes beside it, for example the block per
 ROI that adds with float32 atomics into a zeroed float32 workspace (unpack
 ``git archive <commit> oneshotdet_tpu_torch`` into ``build/parent/``, which
-git ignores and the chip tool copies, and pass
+git ignores, and pass
 ``build/parent/oneshotdet_tpu_torch/csrc/roi_align_bwd.cu``). Its call is its
 wrapper's: the workspace zeroed, the kernel, one cast per level.
 
