@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from this checkout (ROIAlign K1 and its
+Builds the port's seven CUDA kernels from this checkout (ROIAlign K1 and its
 backward K1b, the fused relation head K3, GroupNorm K2, the cross-ROI
-ROIAlign variants K4 and K5), holds each against its plain PyTorch version
+ROIAlign variants K4 and K5, the data path's resize + normalize + pad H1),
+holds each against its plain PyTorch version
 at the shapes its path gives it (K1 also at its edge cases and on the
 FCOS-like p3-skew mix, with its per-ROI plan against the Python mirror; K1b
 against the float32 plain gradient at the train step's shapes, random and
@@ -31,7 +32,12 @@ engine (per-batch, cached-support and multi-class steps, and
 inference() with the COCO evaluator), and the train step at full width
 (do_train and train_step over fresh synthetic episodes: finite losses and
 gradients, the support backbone trained through K1b, 7 K1 and 7 K1b
-launches per step, frozen stages unchanged) -- and checks small float32
+launches per step, frozen stages unchanged), and the episodic eval data path
+and the eval CLI (phase 8: a synthetic COCO-style dataset of VOC-sized PPM
+images; H1 bit for bit against its plain version on a batch and at edge
+cases; the card loader against the CPU loader; `test_net` over the flagship
+at batch 8 with a .pth of seeded weights, unfused and with the fused head,
+and --seq_test) -- and checks small float32
 forwards and a small float32 train step on the card against the same model
 on the CPU. Every kernel's launch count is set to 0 before each path and
 read after it. Any failure raises and exits non-zero. The last two lines of
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import os
 import re
@@ -93,6 +100,14 @@ ENGINE_MIN_SHARE = 0.8        # see engine_checks
 QUERY_HW = (832, 1216)
 SUPP_HW = (416, 416)
 BATCH = 8
+H1_SOURCE = "oneshotdet_tpu_torch/csrc/resize_normalize_pad.cu"
+# no TPU kernel: the JAX package's native host pass (C++ through ctypes, one
+# call per image, oneshotdet_tpu/data/collate.py:48)
+H1_REPLACES = "oneshotdet_tpu/csrc/fast_collate.cpp:69"
+DATA_IMAGES = 24              # phase 8's synthetic dataset: VOC-sized PPM images
+DATA_SIZES = ((375, 500), (500, 375))
+DATA_BOX_SIDE = (90.0, 300.0)     # areas above INPUT.SUPP_AREA_THRESHOLD (80 x 80)
+CLI_STOP_ITER = 4             # batches the eval CLI evaluates: one warm-up, three timed
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_TRAJECTORY = 2, 10, 20
 # tests/torch_port_common.py's SMALL capacities, for the small train step
 SMALL = ["MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 200, "MODEL.RPN.PRE_NMS_TOP_N_TEST", 100,
@@ -1122,12 +1137,15 @@ def _counters():
     from oneshotdet_tpu_torch.ops import group_norm, roi_align, roi_align_v3, roi_align_v4
     from oneshotdet_tpu_torch.ops import roi_head_fused
 
+    from oneshotdet_tpu_torch.ops import resize
+
     return {"roi_align": (roi_align, "roi_align_launches"),
             "roi_align_bwd": (roi_align, "roi_align_bwd_launches"),
             "roi_head": (roi_head_fused, "fused_roi_head_launches"),
             "group_norm": (group_norm, "group_norm_launches"),
             "roi_align_v3": (roi_align_v3, "roi_align_v3_launches"),
-            "roi_align_v4": (roi_align_v4, "roi_align_v4_launches")}
+            "roi_align_v4": (roi_align_v4, "roi_align_v4_launches"),
+            "resize_normalize_pad": (resize, "resize_launches")}
 
 
 def reset_launches():
@@ -1751,6 +1769,289 @@ def small_train_check(cfg_path, dev):
                                  f"(rtol 1e-4), gradients {r[key]:.2e} (bound 1e-3)")
     return result
 
+def h1_compare(resize, packed, bucket, norm, label):
+    """H1 against its plain version on the card, bit for bit (tolerance 0)."""
+    got = resize.resize_normalize_pad_cuda(packed, bucket, *norm)
+    want = resize.resize_normalize_pad_plain(packed, bucket, *norm)
+    torch.cuda.synchronize()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    err = float((got - want).abs().max())
+    log(f"H1 {label}: {len(packed)} images into {tuple(bucket)}, {differ} values differ from "
+        f"the plain version (max abs err {err})")
+    if differ:
+        raise AssertionError(f"H1 {label}: {differ} values differ from the plain version")
+    return err
+
+
+def h1_checks(resize, items, query_bucket, supp_bucket, dev, card):
+    """Phase 8: H1 bit for bit on every query and support of the first
+    batch and on edge cases; its time (CUDA events) on the batch's queries
+    and supports beside its bound, the plain version and F.interpolate."""
+    first = items[0]["img"]
+    norm = (first["mean"], first["std"], first["to_bgr255"])
+    queries = [it["img"] for it in items]
+    supports = [s for it in items for s in it["img_supp"]]
+    pq = resize.pack_images([q["u8"] for q in queries], [q["out_hw"] for q in queries], dev)
+    ps = resize.pack_images([s["u8"] for s in supports], [s["out_hw"] for s in supports], dev)
+    err = max(h1_compare(resize, pq, query_bucket, norm, "first batch's queries"),
+              h1_compare(resize, ps, supp_bucket, norm, "first batch's supports"))
+    rng = np.random.RandomState(8)
+    src = lambda h, w: rng.randint(0, 256, (h, w, 3)).astype(np.uint8)  # noqa: E731
+    edges = [(src(900, 1300), (400, 578)), (src(2000, 3000), (200, 300)),   # downscale
+             (src(40, 60), (800, 1200)), (src(37, 53), (811, 1163)),       # upscale
+             (src(300, 1), (400, 2)), (src(1, 300), (2, 400)), (src(1, 1), (5, 7))]
+    err = max(err, h1_compare(resize, resize.pack_images([e[0] for e in edges],
+                                                         [e[1] for e in edges], dev),
+                              QUERY_HW, norm, "edge cases (down, up, 1-pixel wide, 1 pixel)"))
+    for bgr, mean, std in ((True, norm[0], norm[1]),
+                           (False, [0.485, 0.456, 0.406], [0.229, 0.224, 0.225])):
+        exact = resize.pack_images([src(*SUPP_HW)], [SUPP_HW], dev)
+        err = max(err, h1_compare(resize, exact, SUPP_HW, (mean, std, bgr),
+                                  f"source of the slot's size, to_bgr255={bgr}"))
+
+    out = {"max_abs_err": err}
+    for label, packed, bucket in (("queries", pq, query_bucket), ("supports", ps, supp_bucket)):
+        ms = time_ms(lambda: resize.resize_normalize_pad_cuda(packed, bucket, *norm))
+        plain_ms = time_ms(lambda: resize.resize_normalize_pad_plain(packed, bucket, *norm),
+                           reps=3, warmup=1)
+        floats = [torch.from_numpy(np.array(x["u8"])).to(dev).permute(2, 0, 1)[None]
+                  .float() for x in (queries if label == "queries" else supports)]
+        sizes = [x["out_hw"] for x in (queries if label == "queries" else supports)]
+        library_ms = time_ms(lambda: [torch.nn.functional.interpolate(
+            f, size=hw, mode="bilinear", align_corners=False, antialias=True)
+            for f, hw in zip(floats, sizes)])
+        nbytes = packed.pixels.numel() + len(packed) * bucket[0] * bucket[1] * 3 * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_share=bound_ms / ms, mbytes=nbytes / 1e6)
+        log(f"H1 batch of {len(packed)} {label} into {tuple(bucket)}: {ms:.4f} ms (CUDA events, "
+            f"median), bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; "
+            f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.3f} ms, "
+            f"{len(packed)} x F.interpolate(bilinear, antialias) {library_ms:.4f} ms [{card}]")
+    return out
+
+
+class _LogCollector(logging.Handler):
+    """Keeps the CLI logger's messages for the checks."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _cli_logger():
+    """The port's CLI logger, set up before the CLI sets up its own: messages
+    kept for the checks, and printed except the config dump."""
+    logger = logging.getLogger("oneshotdet_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    collector = _LogCollector()
+    printer = logging.StreamHandler(sys.stdout)
+    printer.addFilter(lambda r: not r.getMessage().startswith("config:"))
+    printer.setFormatter(logging.Formatter("test_net: %(message)s"))
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+    logger.addHandler(collector)
+    logger.addHandler(printer)
+    return collector
+
+
+def _timed_loader(build_mod, marks):
+    """Wrap the loader's iteration to record, per batch, the host clock
+    when it is asked for and when it is handed over."""
+    orig = build_mod.PrefetchingLoader.__iter__
+
+    def timed(self):
+        it = orig(self)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            marks.append((t0, time.perf_counter()))
+            yield batch
+
+    build_mod.PrefetchingLoader.__iter__ = timed
+    return orig
+
+
+def check_eval_outputs(folder, label):
+    """The COCO metrics and result file exist, the metrics are finite and
+    every detection lies inside its image."""
+    with open(os.path.join(folder, "coco_results.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(folder, "coco_custom_result.json")) as f:
+        dets = json.load(f)
+    with open(os.path.join(folder, "coco_custom_gt.json")) as f:
+        sizes = {im["id"]: (im["width"], im["height"]) for im in json.load(f)["images"]}
+    if not (metrics and all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"{label}: metrics {metrics}")
+    if not dets:
+        raise AssertionError(f"{label}: no detections written")
+    for d in dets:
+        w, h = sizes[d["image_id"]]
+        x, y, bw, bh = d["bbox"]
+        if not (x >= 0 and y >= 0 and x + bw <= w + 1 + 1e-3 and y + bh <= h + 1 + 1e-3
+                and np.isfinite(d["score"])):
+            raise AssertionError(f"{label}: detection {d} outside its {w}x{h} image")
+    return metrics, len(dets)
+
+
+def eval_cli_path(flagship, dev, card):
+    """Phase 8: the episodic eval data path and the test_net CLI at full
+    width. A synthetic COCO-style dataset of VOC-sized PPM images and a .pth
+    of the seed-1 model; H1 against its plain version; the card loader
+    against the CPU loader over a whole pass; the CLI on the flagship (bf16,
+    batch 8) over CLI_STOP_ITER batches, unfused and with the fused head,
+    then --seq_test over three copies of the .pth. Returns (per-path
+    launches, numbers)."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.data import build as data_build
+    from oneshotdet_tpu_torch.data import make_data_loader
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.ops import resize
+    from oneshotdet_tpu_torch.tools import test_net
+    from oneshotdet_tpu_torch.utils.synthetic import write_synthetic_coco
+
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        img_dir, ann_file = write_synthetic_coco(root, num_images=DATA_IMAGES, sizes=DATA_SIZES,
+                                                 box_side=DATA_BOX_SIDE, seed=0)
+        os.environ["ONESHOT_CUSTOM_IMG_DIR"] = img_dir
+        os.environ["ONESHOT_CUSTOM_ANN_FILE"] = ann_file
+        opts = ["DATASETS.TEST", "('custom',)", "TEST.IMS_PER_BATCH", str(BATCH)]
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(flagship)
+        cfg.merge_from_list(opts)
+        model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        ckpt = os.path.join(root, "seed1.pth")
+        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+        del model
+        torch.cuda.empty_cache()
+
+        # H1 on the first batch's images and edge cases
+        loader, dataset = make_data_loader(cfg, is_train=False, device=dev)
+        first_idx = next(iter(loader.batch_iter()))
+        fresh = data_build.build_dataset(cfg, "custom", False)
+        items = [fresh.load(fresh.plan(i)) for i in first_idx]
+        query_bucket = loader.collator.query_bucket_for([it["img"]["out_hw"] for it in items])
+        out["h1"] = h1_checks(resize, items, query_bucket, tuple(cfg.TPU.SUPP_BUCKET), dev, card)
+
+        # the card loader against the CPU loader, a whole pass
+        reset_launches()
+        t0 = time.perf_counter()
+        card_batches = list(loader)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        paths["eval loader, one pass"] = read_launches()
+        cpu_batches = list(make_data_loader(cfg, is_train=False, device="cpu")[0])
+        if len(card_batches) != len(cpu_batches):
+            raise AssertionError("loader: the card and CPU loaders give different batch counts")
+        for i, (g, c) in enumerate(zip(card_batches, cpu_batches)):
+            for k in c:
+                if isinstance(c[k], torch.Tensor):
+                    if not (g[k].device.type == dev.type and torch.equal(
+                            g[k].cpu().view(torch.int32), c[k].view(torch.int32))):
+                        raise AssertionError(f"loader batch {i}: {k} differs from the CPU loader")
+                elif not np.array_equal(g[k], c[k]):
+                    raise AssertionError(f"loader batch {i}: {k} differs from the CPU loader")
+        buckets = sorted({tuple(b["query_pixels"].shape[1:3]) for b in card_batches})
+        n_h1 = paths["eval loader, one pass"]["resize_normalize_pad"]
+        if n_h1 != 2 * len(card_batches) or \
+                buckets != sorted(tuple(b) for b in cfg.TPU.QUERY_BUCKETS):
+            raise AssertionError(f"loader: {n_h1} H1 launches for {len(card_batches)} batches, "
+                                 f"query buckets {buckets}")
+        log(f"eval loader: {len(dataset)} episodes in {len(card_batches)} batches, query "
+            f"buckets {buckets}, equal to the CPU loader (pixels bit for bit); one pass on the "
+            f"card {card_s:.2f} s, {n_h1} H1 launches [{card}]")
+        out["loader"] = dict(episodes=len(dataset), batches=len(card_batches), pass_s=card_s)
+        del card_batches, cpu_batches, loader
+        torch.cuda.empty_cache()
+
+        # the CLI, unfused and with the fused head
+        collector = _cli_logger()
+        cli = out["cli"] = {}
+        for fused in (False, True):
+            label = "eval CLI (test_net), fused head" if fused else "eval CLI (test_net)"
+            out_dir = os.path.join(root, "fused" if fused else "unfused")
+            argv = ["--config-file", flagship, "--ckpt", ckpt, *opts, "OUTPUT_DIR", out_dir,
+                    "FEW_SHOT.STOP_ITER", str(CLI_STOP_ITER)]
+            marks = []
+            collector.messages.clear()
+            orig = _timed_loader(data_build, marks)
+            if fused:
+                os.environ["ONESHOT_PALLAS_ROI_HEAD"] = "1"
+            reset_launches()
+            try:
+                rc = test_net.main(argv)
+            finally:
+                data_build.PrefetchingLoader.__iter__ = orig
+                os.environ.pop("ONESHOT_PALLAS_ROI_HEAD", None)
+            torch.cuda.synchronize()
+            paths[label] = n = read_launches()
+            metrics, n_dets = check_eval_outputs(os.path.join(out_dir, "eval"), label)
+            if rc != 0 or n["roi_align"] != 7 * CLI_STOP_ITER or \
+                    n["roi_head"] != (CLI_STOP_ITER if fused else 0) or \
+                    n["resize_normalize_pad"] != 2 * len(marks):
+                raise AssertionError(f"{label}: exit {rc}, launches {n} for {CLI_STOP_ITER} "
+                                     f"batches ({len(marks)} handed over)")
+            loaded = [m for m in collector.messages if m.startswith("Loading checkpoint from ")]
+            if loaded != [f"Loading checkpoint from {ckpt}"]:
+                raise AssertionError(f"{label}: loaded {loaded}")
+            # batch k's time: from its request to the next request (the engine
+            # reads the detections back before it asks again); batch 0 warms up
+            starts = [m[0] for m in marks]
+            timed = CLI_STOP_ITER - 1
+            img_s = BATCH * timed / (starts[CLI_STOP_ITER] - starts[1])
+            host_ms = [1e3 * (b - a) for a, b in marks]
+            cli[label] = dict(img_s=img_s, loader_host_ms=host_ms, detections=n_dets,
+                              AP50=metrics["AP50"])
+            log(f"{label}: {CLI_STOP_ITER} batches of {BATCH} (832x1216 / 1216x832, bf16), "
+                f"{img_s:.1f} img/s over batches 2-{CLI_STOP_ITER} (host clock, loader "
+                f"included), loader host ms per batch {[round(v, 1) for v in host_ms]}, "
+                f"launches {n}, {n_dets} detections, AP50 {metrics['AP50']:.4f} (random "
+                f"weights) [{card}]")
+            torch.cuda.empty_cache()
+
+        # --seq_test over three copies of the .pth, MIN_ITER 2, MAX_ITER 3
+        load_dir = os.path.join(root, "ckpts")
+        os.makedirs(load_dir)
+        for it in (1, 2, 3):
+            os.link(ckpt, os.path.join(load_dir, f"model_{it:07d}.pth"))
+        seq_dir = os.path.join(root, "seq")
+        collector.messages.clear()
+        reset_launches()
+        rc = test_net.main(["--config-file", flagship, "--seq_test", *opts, "OUTPUT_DIR", seq_dir,
+                            "FEW_SHOT.STOP_ITER", "1", "TEST.LOAD_DIR", load_dir,
+                            "TEST.MIN_ITER", "2", "TEST.MAX_ITER", "3"])
+        torch.cuda.synchronize()
+        paths["eval CLI --seq_test"] = read_launches()
+        want = [os.path.join(load_dir, f"model_{it:07d}.pth") for it in (2, 3)]
+        seq = [m[len("=== seq_test checkpoint "):-4] for m in collector.messages
+               if m.startswith("=== seq_test checkpoint ")]
+        loaded = [m[len("Loading checkpoint from "):] for m in collector.messages
+                  if m.startswith("Loading checkpoint from ")]
+        evals = sorted(d for d in os.listdir(seq_dir) if d.startswith("eval"))
+        if rc != 0 or seq != want or loaded != want or evals != ["eval_0000002", "eval_0000003"]:
+            raise AssertionError(f"--seq_test: exit {rc}, checkpoints {seq}, loaded {loaded}, "
+                                 f"folders {evals}")
+        for d in evals:
+            check_eval_outputs(os.path.join(seq_dir, d), f"--seq_test {d}")
+        log(f"eval CLI --seq_test: evaluated {[os.path.basename(w) for w in want]} into {evals} "
+            f"(model_0000001.pth left out by TEST.MIN_ITER) [{card}]")
+        logging.getLogger("oneshotdet_tpu_torch").handlers.clear()
+        for key in ("ONESHOT_CUSTOM_IMG_DIR", "ONESHOT_CUSTOM_ANN_FILE"):
+            os.environ.pop(key, None)
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -1918,6 +2219,13 @@ def main() -> int:
     steps = TRAIN_WARMUP + TRAIN_STEPS
     launches[f"train step, {steps} steps"] = paths["train step"]["roi_align"]
 
+    # -- phase 8: the episodic eval data path and the eval CLI ---------------------
+    cli_paths, evalcli = eval_cli_path(flagship, dev, card)
+    paths.update(cli_paths)
+    for label in ("eval CLI (test_net)", "eval CLI (test_net), fused head"):
+        launches[label] = cli_paths[label]["roi_align"]
+        head_launches[label] = cli_paths[label]["roi_head"]
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -2060,6 +2368,31 @@ def main() -> int:
         "bound_ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["bound_ms"],
         "train_step": {k: v for k, v in train.items() if k != "losses"},
         "small_train_check": small_train,
+        "card": card,
+    })
+    h1 = evalcli["h1"]["queries"]
+    kernels.append({
+        "name": "resize_normalize_pad",
+        "route": "cuda",
+        "source": H1_SOURCE,
+        "replaces": H1_REPLACES,
+        "launches": paths["eval CLI (test_net)"]["resize_normalize_pad"],
+        "launches_by_path": {label: n["resize_normalize_pad"] for label, n in paths.items()},
+        "launches_per_batch": 2,
+        "shape": "8 VOC-sized uint8 queries (500x375 / 375x500) -> (8, 832, 1216, 3) or "
+                 "(8, 1216, 832, 3) float32, resized to 800x1066 / 1066x800",
+        "max_abs_err": evalcli["h1"]["max_abs_err"],
+        "tolerance": "0 (bit for bit, every case)",
+        "ms": h1["ms"],
+        "plain_ms": h1["plain_ms"],
+        "bound_ms": h1["bound_ms"],
+        "bound_by": "bytes",
+        "bound_share": h1["bound_share"],
+        "library_ms": h1["library_ms"],
+        "library": "8 x torch.nn.functional.interpolate(bilinear, antialias=True), resize only",
+        "supports": evalcli["h1"]["supports"],
+        "cli": evalcli["cli"],
+        "loader": evalcli["loader"],
         "card": card,
     })
     for k in kernels[2:]:

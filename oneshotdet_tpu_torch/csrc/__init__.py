@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 SOURCES = ("roi_align", "roi_align_bwd", "roi_head", "group_norm", "roi_align_v3",
-           "roi_align_v4")
+           "roi_align_v4", "resize_normalize_pad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -39,6 +39,8 @@ SOURCE_FLAGS = {
     "roi_align_v3": ("-fmad=false",),
     "roi_align_v4": ("-fmad=false",),
     "group_norm": ("-fmad=false",),
+    # the resize's plain version repeats its float64/float32 operations in order
+    "resize_normalize_pad": ("-fmad=false",),
 }
 
 

@@ -1,0 +1,84 @@
+"""Batch collation into fixed resolution buckets (counterpart of
+``oneshotdet_tpu/data/collate.py``).
+
+Per batch the collator picks the smallest query bucket of
+``cfg.TPU.QUERY_BUCKETS`` that holds every image (else the batch maximum
+rounded up to 32), puts the supports in ``cfg.TPU.SUPP_BUCKET`` and pads the
+GT boxes to ``cfg.TPU.MAX_GT_BOXES`` with validity masks.
+
+The query pixels of a batch come from one ``resize_normalize_pad`` call
+and the supports' from another, on the collator's device (default "cuda";
+on the card, one kernel launch each, fed by one pinned uint8 upload each).
+``query_pixels`` and ``supp_pixels`` are torch tensors on that device;
+sizes, ids and GT stay numpy arrays on the host. ``TPU.HOST_S2D`` is
+ignored: the port's stem takes (B, H, W, 3) pixels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..ops.resize import pack_images, resize_normalize_pad
+
+
+def _pick_bucket(shapes, buckets):
+    """Smallest-area bucket covering all (h, w) shapes, else max-rounded."""
+    fitting = [b for b in buckets if all(h <= b[0] and w <= b[1] for h, w in shapes)]
+    if fitting:
+        return min(fitting, key=lambda b: b[0] * b[1])
+    max_h = max(h for h, _ in shapes)
+    max_w = max(w for _, w in shapes)
+    r = lambda x: int(-(-x // 32) * 32)  # noqa: E731
+    return (r(max_h), r(max_w))
+
+
+def _pixels(imgs: List[dict], bucket, device) -> torch.Tensor:
+    """One resize_normalize_pad call for the batch's images of one kind
+    (one transform made them all, so the first gives the normalization)."""
+    packed = pack_images([im["u8"] for im in imgs], [im["out_hw"] for im in imgs], device)
+    first = imgs[0]
+    return resize_normalize_pad(packed, bucket, first["mean"], first["std"], first["to_bgr255"])
+
+
+class BatchCollator:
+    def __init__(self, cfg, device=None):
+        self.query_buckets = tuple(tuple(b) for b in cfg.TPU.QUERY_BUCKETS)
+        self.supp_bucket = tuple(cfg.TPU.SUPP_BUCKET)
+        self.max_gt = cfg.TPU.MAX_GT_BOXES
+        self.device = torch.device("cuda" if device is None else device)
+
+    def query_bucket_for(self, shapes) -> tuple:
+        return _pick_bucket(shapes, self.query_buckets)
+
+    def _gt(self, it: dict):
+        gt_xyxy = np.zeros((self.max_gt, 4), np.float32)
+        gt_valid = np.zeros((self.max_gt,), bool)
+        gt_labels = np.zeros((self.max_gt,), np.int32)
+        n = min(len(it["boxes"]), self.max_gt)
+        if n:
+            gt_xyxy[:n] = it["boxes"][:n]
+            gt_valid[:n] = True
+            gt_labels[:n] = it["labels"][:n]
+        return gt_xyxy, gt_valid, gt_labels
+
+    def __call__(self, items: List[dict]) -> Dict[str, object]:
+        queries = [it["img"] for it in items]
+        query_hw = self.query_bucket_for([q["out_hw"] for q in queries])
+        supports = [s for it in items for s in it["img_supp"]]
+        supp_hw = _pick_bucket([s["out_hw"] for s in supports], [self.supp_bucket])
+        gts = [self._gt(it) for it in items]
+        return {
+            "query_pixels": _pixels(queries, query_hw, self.device),
+            "query_sizes": np.array([q["out_hw"] for q in queries], np.float32),
+            "supp_pixels": _pixels(supports, supp_hw, self.device),
+            "supp_sizes": np.array([s["out_hw"] for s in supports], np.float32),
+            "gt_xyxy": np.stack([g[0] for g in gts]),
+            "gt_valid": np.stack([g[1] for g in gts]),
+            "gt_labels": np.stack([g[2] for g in gts]),
+            "target_ids": np.array([it["target_id"] for it in items], np.int32),
+            "img_ids": np.array([it["img_id"] for it in items], np.int64),
+            "idxs": np.array([it["idx"] for it in items], np.int64),
+        }

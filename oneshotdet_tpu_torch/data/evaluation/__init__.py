@@ -1,4 +1,5 @@
-from .coco_eval import do_coco_evaluation, evaluate_box_proposals
+from .coco_eval import (compute_thresholds_for_classes, do_coco_evaluation,
+                        evaluate_box_proposals)
 from .coco_metrics import COCOEvalNumpy
 
 
@@ -10,4 +11,5 @@ def evaluate(dataset, predictions, output_folder=None, logger=None, iou_type="bb
                               box_only=box_only)
 
 
-__all__ = ["COCOEvalNumpy", "do_coco_evaluation", "evaluate", "evaluate_box_proposals"]
+__all__ = ["COCOEvalNumpy", "compute_thresholds_for_classes", "do_coco_evaluation", "evaluate",
+           "evaluate_box_proposals"]

@@ -251,3 +251,14 @@ def _do_coco_detection_evaluation(
         with open(os.path.join(output_folder, "coco_results.json"), "w") as f:
             json.dump(results, f, indent=2)
     return results
+
+
+def compute_thresholds_for_classes(gt, dt, cat_ids, img_ids) -> np.ndarray:
+    """Score threshold per class at the best F-measure: from the precision
+    at IoU 0.5, all areas, the largest maxDets, over the 101 recall points
+    (the per-class thresholds ``OneShotPredictor`` takes)."""
+    ev = COCOEvalNumpy(gt, dt, cat_ids, img_ids).evaluate_and_accumulate()
+    precision = ev.eval["precision"][0, :, :, 0, -1]
+    recall = np.linspace(0, 1, precision.shape[0])[:, None]
+    f1 = 2 * precision * recall / np.maximum(precision + recall, 1e-6)
+    return f1.max(axis=0)

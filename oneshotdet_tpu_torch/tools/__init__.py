@@ -1,6 +1,8 @@
-"""Tools of the port that run on one CUDA card: kernel parity, timing and
-ablation scripts (each runs as ``python3 oneshotdet_tpu_torch/tools/<name>.py``
-and as ``<module>.main(argv)``)."""
+"""Tools of the port: the evaluation CLI ``test_net`` (``python -m
+oneshotdet_tpu_torch.tools.test_net``, on the card or ``--device cpu``) and
+kernel parity, timing and ablation scripts that run on one CUDA card (each
+runs as ``python3 oneshotdet_tpu_torch/tools/<name>.py`` and as
+``<module>.main(argv)``)."""
 
 from __future__ import annotations
 

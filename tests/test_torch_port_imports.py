@@ -1,6 +1,7 @@
 """oneshotdet_tpu_torch stands alone: importing it loads neither JAX nor
-flax, and no source of the port (nor chip_smoke.py) imports jax, flax or the
-JAX package ``oneshotdet_tpu``.
+flax (nor PIL, which only the decoding of a non-PPM image imports), and no
+source of the port (nor chip_smoke.py) imports jax, flax or the JAX package
+``oneshotdet_tpu``.
 """
 
 import ast
@@ -32,7 +33,12 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.ops.roi_align_v4, oneshotdet_tpu_torch.tools.tune_roi_head\n"
         "import oneshotdet_tpu_torch.tools.tune_roialign_v3, oneshotdet_tpu_torch.tools.ablate_v4\n"
         "import oneshotdet_tpu_torch.tools.ablate_roi_align\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu'))\n"
+        "import oneshotdet_tpu_torch.ops.resize, oneshotdet_tpu_torch.data.build\n"
+        "import oneshotdet_tpu_torch.data.image_io, oneshotdet_tpu_torch.tools.test_net\n"
+        "import oneshotdet_tpu_torch.utils.checkpoint, oneshotdet_tpu_torch.utils.logger\n"
+        "import oneshotdet_tpu_torch.utils.synthetic\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -53,7 +59,12 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/tools/tune_roialign_v3.py",
                  "oneshotdet_tpu_torch/tools/ablate_v4.py",
                  "oneshotdet_tpu_torch/tools/tune_roi_head.py",
-                 "oneshotdet_tpu_torch/tools/ablate_roi_align.py"):
+                 "oneshotdet_tpu_torch/tools/ablate_roi_align.py",
+                 "oneshotdet_tpu_torch/ops/resize.py", "oneshotdet_tpu_torch/data/build.py",
+                 "oneshotdet_tpu_torch/data/collate.py",
+                 "oneshotdet_tpu_torch/data/datasets/coco.py",
+                 "oneshotdet_tpu_torch/data/image_io.py",
+                 "oneshotdet_tpu_torch/tools/test_net.py"):
         assert path in names
 
 

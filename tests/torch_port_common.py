@@ -10,6 +10,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from oneshotdet_tpu.config import cfg as jax_default_cfg
@@ -168,3 +169,45 @@ def assert_same_detections(port, ref, score_field="scores"):
             j = int(np.argmax(_iou(box, pb)))
             np.testing.assert_allclose(pb[j], box, rtol=BOX_RTOL, atol=1e-3)
             np.testing.assert_allclose(ps[j], score, rtol=SCORE_RTOL, atol=1e-6)
+
+
+# the data path at test size: 60x80 / 80x60 images into 64x96 / 96x64 query
+# buckets, supports into 48x48; no class held out in training
+DATA_OPTS = [
+    "INPUT.MIN_SIZE_TRAIN", "(64,)", "INPUT.MAX_SIZE_TRAIN", 96,
+    "INPUT.SUPP_MIN_SIZE_TRAIN", "(32,)", "INPUT.SUPP_MAX_SIZE_TRAIN", 48,
+    "INPUT.MIN_SIZE_TEST", 64, "INPUT.MAX_SIZE_TEST", 96,
+    "INPUT.SUPP_MIN_SIZE_TEST", 32, "INPUT.SUPP_MAX_SIZE_TEST", 48,
+    "INPUT.SUPP_AREA_THRESHOLD", 100,
+    "TPU.QUERY_BUCKETS", "((64, 96), (96, 64))", "TPU.SUPP_BUCKET", "(48, 48)",
+    "TPU.HOST_S2D", False,
+    "FEW_SHOT.TRAINING_EXCL_CATS", "[]",
+    "DATASETS.TRAIN", "('custom',)", "DATASETS.TEST", "('custom',)",
+    "DATALOADER.NUM_WORKERS", 0,
+    "TEST.IMS_PER_BATCH", 3, "SOLVER.IMS_PER_BATCH", 3, "SOLVER.MAX_ITER", 4,
+]
+DATA_IMAGE_SIZES = ((60, 80), (80, 60), (60, 80))
+
+
+def write_dataset(root, num_images=16, seed=0):
+    """(image dir, annotation file) of a synthetic PPM dataset at test size."""
+    from oneshotdet_tpu_torch.utils.synthetic import write_synthetic_coco
+
+    return write_synthetic_coco(root, num_images=num_images, sizes=DATA_IMAGE_SIZES,
+                                num_categories=3, box_side=(12.0, 40.0), seed=seed)
+
+
+def data_cfgs(*overrides):
+    """(JAX cfg, port cfg) of the data path at test size."""
+    return small_cfgs(*DATA_OPTS, *overrides)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Torch ops on one thread for a module's tests (restored after): the
+    data-path tests run many small ops, which the tier-1 run's parallel
+    workers slow down when each also spreads them over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
