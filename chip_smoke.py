@@ -37,7 +37,14 @@ and the eval CLI (phase 8: a synthetic COCO-style dataset of VOC-sized PPM
 images; H1 bit for bit against its plain version on a batch and at edge
 cases; the card loader against the CPU loader; `test_net` over the flagship
 at batch 8 with a .pth of seeded weights, unfused and with the fused head,
-and --seq_test) -- and checks small float32
+and --seq_test), and the train CLI (phase 9: tools.train_net at full width
+over that dataset from catalog:// Detectron-style R-50 blobs drawn from a
+seed, both backbones equal to the blobs; 3 steps saving model_0000003 and
+model_final, then a run resumed from the last_checkpoint tag with the saved
+weights bit for bit and the scheduled learning rate, 7 K1 and 7 K1b calls a
+step and 2 H1 launches a batch, ms/step with the loader, saves' seconds and
+peak memory; remove_solver_states; test_net --seq_test over the saved
+files) -- and checks small float32
 forwards and a small float32 train step on the card against the same model
 on the CPU. Every kernel's launch count is set to 0 before each path and
 read after it. Any failure raises and exits non-zero. The last two lines of
@@ -108,6 +115,7 @@ DATA_IMAGES = 24              # phase 8's synthetic dataset: VOC-sized PPM image
 DATA_SIZES = ((375, 500), (500, 375))
 DATA_BOX_SIDE = (90.0, 300.0)     # areas above INPUT.SUPP_AREA_THRESHOLD (80 x 80)
 CLI_STOP_ITER = 4             # batches the eval CLI evaluates: one warm-up, three timed
+TRAIN_CLI_ITERS = (3, 6)      # phase 9: run A's MAX_ITER (= its CHECKPOINT_PERIOD), run B's
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_TRAJECTORY = 2, 10, 20
 # tests/torch_port_common.py's SMALL capacities, for the small train step
 SMALL = ["MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 200, "MODEL.RPN.PRE_NMS_TOP_N_TEST", 100,
@@ -1842,7 +1850,7 @@ class _LogCollector(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def _cli_logger():
+def _cli_logger(prefix="test_net"):
     """The port's CLI logger, set up before the CLI sets up its own: messages
     kept for the checks, and printed except the config dump."""
     logger = logging.getLogger("oneshotdet_tpu_torch")
@@ -1851,7 +1859,7 @@ def _cli_logger():
     collector = _LogCollector()
     printer = logging.StreamHandler(sys.stdout)
     printer.addFilter(lambda r: not r.getMessage().startswith("config:"))
-    printer.setFormatter(logging.Formatter("test_net: %(message)s"))
+    printer.setFormatter(logging.Formatter(f"{prefix}: %(message)s"))
     for h in list(logger.handlers):
         logger.removeHandler(h)
     logger.addHandler(collector)
@@ -2052,6 +2060,287 @@ def eval_cli_path(flagship, dev, card):
     return paths, out
 
 
+C2_CATALOG = """class ModelCatalog:
+    @staticmethod
+    def get(name):
+        if name != "ImageNetPretrained/MSRA/R-50":
+            raise RuntimeError(f"model not present in the catalog {{name}}")
+        return {url!r}
+"""
+
+
+class _TrainProbe:
+    """Wraps ``Checkpointer.load`` / ``save`` and the trainer's
+    ``train_step`` for one CLI run: after each load, ``on_load(model,
+    optimizer, path)``; per save its host seconds; per step its entry time,
+    learning rate, K1 and K1b launches, and the losses (read after the run)."""
+
+    def __init__(self, ckpt_mod, trainer_mod, on_load):
+        self.ckpt_mod, self.trainer_mod, self.on_load = ckpt_mod, trainer_mod, on_load
+        self.saves, self.steps, self.end = [], [], None
+        self.max_iter = None
+
+    def __enter__(self):
+        cls, probe = self.ckpt_mod.Checkpointer, self
+        self.orig = (cls.load, cls.save, self.trainer_mod.train_step)
+        load, save, step = self.orig
+
+        def load_(ckptr, model, optimizer=None, scheduler=None, **kw):
+            start = load(ckptr, model, optimizer, scheduler, **kw)
+            probe.on_load(model, optimizer, start)
+            return start
+
+        def save_(ckptr, name, *args, **kw):
+            t0 = time.perf_counter()
+            path = save(ckptr, name, *args, **kw)
+            probe.saves.append((name, time.perf_counter() - t0))
+            return path
+
+        def step_(model, optimizer, scheduler, batch, generator=None, draws=None, it=None):
+            t0 = time.perf_counter()
+            before = read_launches()
+            lr = optimizer.param_groups[0]["lr"]
+            metrics = step(model, optimizer, scheduler, batch, generator, draws, it)
+            after = read_launches()
+            probe.steps.append(dict(it=it, t0=t0, lr=lr, metrics=metrics,
+                                    launches={k: after[k] - before[k] for k in after}))
+            if it + 1 == probe.max_iter:
+                torch.cuda.synchronize()
+                probe.end = time.perf_counter()
+            return metrics
+
+        cls.load, cls.save, self.trainer_mod.train_step = load_, save_, step_
+        return self
+
+    def __exit__(self, *exc):
+        cls = self.ckpt_mod.Checkpointer
+        cls.load, cls.save, self.trainer_mod.train_step = self.orig
+
+
+def train_cli_path(flagship, dev, card):
+    """Phase 9: the train CLI at full width (tools.train_net in-process on
+    the flagship, bf16, batch 8, 832x1216 / 1216x832 queries, 416x416
+    supports, MAX_GT_BOXES 64) over phase 8's synthetic dataset with
+    FEW_SHOT.TRAINING_EXCL_CATS [] (its 3 classes are COCO ids 1-3, which
+    the default excludes). MODEL.WEIGHT is catalog://ImageNetPretrained/
+    MSRA/R-50, which a PATHS_CATALOG file points at a file:// URL of
+    Detectron-style R-50 blobs drawn from a numpy seed: after the load both
+    backbones' bodies equal the blobs exactly. Run A trains 3 steps and
+    saves model_0000003 and model_final; run B, in the same OUTPUT_DIR with
+    FEW_SHOT.RESUME, loads the tag's file, starts at 3 with the weights of
+    model_0000003.pth bit for bit and step 4's learning rate
+    warmup_multistep_schedule(3), runs 7 K1 and 7 K1b calls (14 launches)
+    a step, 2 H1 launches a batch and no K2-K5, finite losses, and saves
+    model_0000006; remove_solver_states' copy of it loads; test_net
+    --seq_test over the folder evaluates exactly model_0000003 and
+    model_0000006. Returns (per-path launches, numbers)."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.data import build as data_build
+    from oneshotdet_tpu_torch.engine import trainer
+    from oneshotdet_tpu_torch.models.resnet import ResNet
+    from oneshotdet_tpu_torch.solver import warmup_multistep_schedule
+    from oneshotdet_tpu_torch.tools import remove_solver_states, test_net, train_net
+    from oneshotdet_tpu_torch.utils import checkpoint as ckpt_mod
+    from oneshotdet_tpu_torch.utils.c2_import import load_c2_pickle, map_c2_resnet_key
+    from oneshotdet_tpu_torch.utils.synthetic import write_synthetic_c2_resnet, write_synthetic_coco
+
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    run_a, run_b = TRAIN_CLI_ITERS
+    with tempfile.TemporaryDirectory() as root:
+        img_dir, ann_file = write_synthetic_coco(root, num_images=DATA_IMAGES, sizes=DATA_SIZES,
+                                                 box_side=DATA_BOX_SIDE, seed=0)
+        blobs_path = write_synthetic_c2_resnet(
+            os.path.join(root, "R-50.pkl"),
+            {k: tuple(v.shape) for k, v in ResNet(50).state_dict().items()}, seed=5)
+        blobs = load_c2_pickle(blobs_path)
+        catalog = os.path.join(root, "catalog.py")
+        with open(catalog, "w") as f:
+            f.write(C2_CATALOG.format(url="file://" + blobs_path))
+        env = {"ONESHOT_CUSTOM_IMG_DIR": img_dir, "ONESHOT_CUSTOM_ANN_FILE": ann_file,
+               "ONESHOT_MODEL_ZOO": os.path.join(root, "zoo")}
+        os.environ.update(env)
+        train_dir = os.path.join(root, "train")
+        opts = ["DATASETS.TRAIN", "('custom',)", "DATASETS.TEST", "('custom',)",
+                "FEW_SHOT.TRAINING_EXCL_CATS", "[]", "TEST.IMS_PER_BATCH", str(BATCH),
+                "SOLVER.IMS_PER_BATCH", str(BATCH), "SOLVER.CHECKPOINT_PERIOD", str(run_a),
+                "MODEL.WEIGHT", "catalog://ImageNetPretrained/MSRA/R-50",
+                "PATHS_CATALOG", catalog, "OUTPUT_DIR", train_dir]
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(flagship)
+        cfg.merge_from_list(opts)
+        collector = _cli_logger("train_net")
+
+        def check_blobs(model, optimizer, start):
+            """Run A's load: both bodies equal the blobs; nothing else read."""
+            sd = model.state_dict()
+            n = 0
+            for key, blob in blobs.items():
+                name = map_c2_resnet_key(key)
+                if name is None:
+                    continue
+                want = torch.from_numpy(blob)
+                for net in ("backbone", "supp_backbone"):
+                    got = sd[f"{net}.body.{name}"]
+                    if got.device.type != dev.type or not torch.equal(got.cpu(), want):
+                        raise AssertionError(f"train CLI run A: {net}.body.{name} differs from "
+                                             f"the blob {key}")
+                    n += 1
+            for k, v in sd.items():
+                if ".body." in k and k.endswith(("running_mean", "running_var")):
+                    if not bool((v == (1.0 if k.endswith("var") else 0.0)).all()):
+                        raise AssertionError(f"train CLI run A: {k} is not neutral")
+            if start != 0:
+                raise AssertionError(f"train CLI run A: start_iter {start}")
+            out["blob_tensors_checked"] = n
+
+        # -- run A: MODEL.WEIGHT from the model zoo, 3 steps, 2 saves
+        reset_launches()
+        with _TrainProbe(ckpt_mod, trainer, check_blobs) as probe_a:
+            probe_a.max_iter = run_a
+            rc = train_net.main(["--config-file", flagship, *opts, "SOLVER.MAX_ITER", str(run_a)])
+        torch.cuda.synchronize()
+        paths["train CLI run A"] = read_launches()
+        files = sorted(os.listdir(train_dir))
+        want_files = ["last_checkpoint", f"model_{run_a:07d}.pth", "model_final.pth"]
+        resolved = [m for m in collector.messages if m.startswith("catalog://")]
+        if rc != 0 or files != want_files or "blob_tensors_checked" not in out or not resolved:
+            raise AssertionError(f"train CLI run A: exit {rc}, files {files}, messages "
+                                 f"{collector.messages[-6:]}")
+        log(f"train CLI run A: {resolved[0]}; both bodies equal the blobs "
+            f"({out['blob_tensors_checked']} tensors); {run_a} steps, saved "
+            f"{[n for n, _ in probe_a.saves]} in {[round(t, 2) for _, t in probe_a.saves]} s; "
+            f"launches {paths['train CLI run A']} [{card}]")
+        torch.cuda.empty_cache()
+
+        # -- run B: resume from the tag, 3 more steps
+        ref_path = os.path.join(train_dir, f"model_{run_a:07d}.pth")
+        ref = torch.load(ref_path, map_location="cpu", weights_only=True)["model"]
+        final_model = {}
+
+        def check_resume(model, optimizer, start):
+            sd = model.state_dict()
+            bad = [k for k, v in ref.items() if not torch.equal(sd[k].cpu(), v)]
+            if bad or set(sd) != set(ref) or start != run_a:
+                raise AssertionError(f"train CLI run B: start {start}, {len(bad)} tensors differ "
+                                     f"from {ref_path} ({bad[:3]})")
+            final_model["model"] = model
+
+        collector.messages.clear()
+        marks = []
+        orig_iter = _timed_loader(data_build, marks)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            with _TrainProbe(ckpt_mod, trainer, check_resume) as probe:
+                probe.max_iter = run_b
+                rc = train_net.main(["--config-file", flagship, *opts, "SOLVER.MAX_ITER",
+                                     str(run_b), "FEW_SHOT.RESUME", "True"])
+        finally:
+            data_build.PrefetchingLoader.__iter__ = orig_iter
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        paths["train CLI run B"] = n = read_launches()
+        loaded = [m for m in collector.messages if m.startswith("Loading checkpoint from ")]
+        with open(os.path.join(train_dir, "last_checkpoint")) as f:
+            tag = f.read()
+        files = sorted(os.listdir(train_dir))
+        want_files = ["last_checkpoint", f"model_{run_a:07d}.pth", f"model_{run_b:07d}.pth",
+                      "model_final.pth"]
+        final_path = os.path.join(train_dir, "model_final.pth")
+        if rc != 0 or loaded != [f"Loading checkpoint from {final_path}"] or \
+                f"start_iter: {run_a}" not in collector.messages or files != want_files or \
+                tag != final_path:
+            raise AssertionError(f"train CLI run B: exit {rc}, loaded {loaded}, files {files}, "
+                                 f"tag {tag}")
+        s = cfg.SOLVER
+        lr4 = warmup_multistep_schedule(s.BASE_LR, s.STEPS, s.GAMMA, s.WARMUP_FACTOR,
+                                        s.WARMUP_ITERS, s.WARMUP_METHOD)(run_a)
+        steps = probe.steps
+        if [st["it"] for st in steps] != list(range(run_a, run_b)) or steps[0]["lr"] != lr4:
+            raise AssertionError(f"train CLI run B: iterations {[st['it'] for st in steps]}, "
+                                 f"step 4's lr {steps[0]['lr']} (schedule: {lr4})")
+        for st in steps:
+            k = st["launches"]
+            if k["roi_align"] != 7 or k["roi_align_bwd"] != 7 or any(
+                    k[x] for x in ("roi_head", "group_norm", "roi_align_v3", "roi_align_v4")):
+                raise AssertionError(f"train CLI step {st['it'] + 1}: launches {k}")
+            losses = {name: float(v) for name, v in st["metrics"].items()}
+            if not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"train CLI step {st['it'] + 1}: losses {losses}")
+            st["losses"] = losses
+        if n["resize_normalize_pad"] != 2 * len(marks) or len(marks) != run_b - run_a or \
+                n["roi_align"] != 7 * len(steps) or n["roi_align_bwd"] != 7 * len(steps):
+            raise AssertionError(f"train CLI run B: launches {n} for {len(marks)} batches")
+        # steps 5-6: from the request of step 5's batch to the end of step 6's work
+        ms_step = 1e3 * (probe.end - marks[1][0]) / 2
+        host_ms = [1e3 * (b - a) for a, b in marks]
+        for it in range(run_a, run_b):
+            log(f"train CLI step {it + 1}: lr {steps[it - run_a]['lr']:.6g}, "
+                + ", ".join(f"{k} {v:.4f}" for k, v in steps[it - run_a]["losses"].items()))
+        log(f"train CLI run B: resumed from {final_path} at iteration {run_a} (the tag; weights "
+            f"equal {os.path.basename(ref_path)} bit for bit, step 4's lr = "
+            f"warmup_multistep_schedule({run_a}) = {lr4:.6g}); {ms_step:.1f} ms/step by the host "
+            f"clock over steps 5-6 with the loader included (bf16, batch {BATCH}, 832x1216 / "
+            f"1216x832); loader host ms per batch {[round(v, 1) for v in host_ms]}; saves "
+            f"{[(k, round(v, 2)) for k, v in probe.saves]} s; peak memory {peak / 2**30:.2f} GiB; "
+            f"per step 7 K1 launches, 7 K1b calls (14 launches), no K2-K5; "
+            f"{n['resize_normalize_pad']} H1 launches for {len(marks)} batches [{card}]")
+        out.update(ms_per_step=ms_step, loader_host_ms=host_ms,
+                   save_s={"run A": probe_a.saves, "run B": probe.saves},
+                   peak_gib=peak / 2**30, lr_step4=lr4,
+                   losses=[st["losses"] for st in steps])
+        del steps, probe.steps
+        torch.cuda.empty_cache()
+
+        # -- a weights-only copy of model_0000006 loads
+        slim_dir = os.path.join(root, "slim")
+        os.makedirs(slim_dir)
+        slim = os.path.join(slim_dir, f"model_{run_b:07d}.pth")
+        full = os.path.join(train_dir, f"model_{run_b:07d}.pth")
+        rc = remove_solver_states.main(["--in", full, "--out", slim])
+        data = torch.load(slim, map_location="cpu", weights_only=True)
+        model = final_model.pop("model")
+        start = ckpt_mod.Checkpointer(slim_dir).load(model, f=slim, resume=False)
+        want = torch.load(full, map_location="cpu", weights_only=True)["model"]
+        sd = model.state_dict()
+        if rc != 0 or set(data) != {"model", "iteration"} or start != 0 or any(
+                not torch.equal(sd[k].cpu(), v) for k, v in want.items()):
+            raise AssertionError(f"remove_solver_states: exit {rc}, keys {sorted(data)}")
+        log(f"remove_solver_states: {os.path.getsize(full) / 2**20:.0f} MiB -> "
+            f"{os.path.getsize(slim) / 2**20:.0f} MiB, loads with resume=False")
+        del model, sd, data, want, ref
+        torch.cuda.empty_cache()
+
+        # -- test_net --seq_test over the training folder
+        seq_dir = os.path.join(root, "seq")
+        collector.messages.clear()
+        reset_launches()
+        rc = test_net.main(["--config-file", flagship, "--seq_test", *opts, "OUTPUT_DIR", seq_dir,
+                            "FEW_SHOT.STOP_ITER", "1", "TEST.LOAD_DIR", train_dir])
+        torch.cuda.synchronize()
+        paths["train CLI, test_net --seq_test"] = read_launches()
+        want = [os.path.join(train_dir, f"model_{it:07d}.pth") for it in (run_a, run_b)]
+        loaded = [m[len("Loading checkpoint from "):] for m in collector.messages
+                  if m.startswith("Loading checkpoint from ")]
+        evals = sorted(d for d in os.listdir(seq_dir) if d.startswith("eval"))
+        if rc != 0 or loaded != want or evals != [f"eval_{run_a:07d}", f"eval_{run_b:07d}"]:
+            raise AssertionError(f"train CLI --seq_test: exit {rc}, loaded {loaded}, "
+                                 f"folders {evals}")
+        n_dets = [check_eval_outputs(os.path.join(seq_dir, d), f"--seq_test {d}")[1]
+                  for d in evals]
+        log(f"test_net --seq_test over the training folder: evaluated "
+            f"{[os.path.basename(w) for w in want]} into {evals}, {n_dets} detections inside "
+            f"their images [{card}]")
+        logging.getLogger("oneshotdet_tpu_torch").handlers.clear()
+        for key in env:
+            os.environ.pop(key, None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 9: {out['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -2226,6 +2515,11 @@ def main() -> int:
         launches[label] = cli_paths[label]["roi_align"]
         head_launches[label] = cli_paths[label]["roi_head"]
 
+    # -- phase 9: the train CLI (checkpoints, model zoo, resume, --seq_test) -----
+    train_paths, traincli = train_cli_path(flagship, dev, card)
+    paths.update(train_paths)
+    launches["train CLI run B"] = train_paths["train CLI run B"]["roi_align"]
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -2393,6 +2687,8 @@ def main() -> int:
         "supports": evalcli["h1"]["supports"],
         "cli": evalcli["cli"],
         "loader": evalcli["loader"],
+        "launches_train_cli_run_b": paths["train CLI run B"]["resize_normalize_pad"],
+        "train_cli": {k: v for k, v in traincli.items() if k != "losses"},
         "card": card,
     })
     for k in kernels[2:]:

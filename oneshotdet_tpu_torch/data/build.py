@@ -87,10 +87,17 @@ class PrefetchingLoader:
             pool.shutdown(wait=True)
 
 
-def make_data_loader(cfg, is_train: bool = True, device=None):
-    """(loader, dataset) for the cfg's first TRAIN or TEST dataset, on one
-    card (no distributed sampling, no resume from an iteration). The
-    loader's pixels land on ``device`` (default "cuda")."""
+def make_data_loader(cfg, is_train: bool = True, is_distributed: bool = False,
+                     start_iter: int = 0, num_replicas: int = 1, rank: int = 0, device=None):
+    """(loader, dataset) for the cfg's first TRAIN or TEST dataset on one
+    card; the loader's pixels land on ``device`` (default "cuda"). A train
+    loader gives the batches of iterations ``start_iter`` to
+    SOLVER.MAX_ITER - 1, as the JAX loader does. More than one replica
+    raises NotImplementedError."""
+    replicas = num_replicas if is_distributed else 1
+    if replicas > 1:
+        raise NotImplementedError(f"{replicas} replicas: distributed sampling is not ported "
+                                  "to oneshotdet_tpu_torch (one card)")
     if is_train:
         images_per_batch = cfg.SOLVER.IMS_PER_BATCH
         num_iters = cfg.SOLVER.MAX_ITER
@@ -108,10 +115,10 @@ def make_data_loader(cfg, is_train: bool = True, device=None):
     if is_train:
         if grouping:
             batch_iter = lambda: grouped_iteration_batches(  # noqa: E731
-                dataset, sampler, images_per_batch, num_iters)
+                dataset, sampler, images_per_batch, num_iters, start_iter)
         else:
             batch_iter = lambda: iteration_based_batches(  # noqa: E731
-                sampler, images_per_batch, num_iters)
+                sampler, images_per_batch, num_iters, start_iter)
     else:
         if grouping:
             batch_iter = lambda: grouped_batches(  # noqa: E731

@@ -5,7 +5,7 @@ from .inference import (
     make_eval_step,
     make_multiclass_eval_step,
 )
-from .trainer import batch_to_inputs, do_train, train_step
+from .trainer import batch_to_inputs, do_train, step_generator, train_step
 
 __all__ = [
     "batch_to_inputs",
@@ -15,5 +15,6 @@ __all__ = [
     "make_cached_support_eval_steps",
     "make_eval_step",
     "make_multiclass_eval_step",
+    "step_generator",
     "train_step",
 ]

@@ -1,6 +1,6 @@
-"""Tools of the port: the evaluation CLI ``test_net`` (``python -m
-oneshotdet_tpu_torch.tools.test_net``, on the card or ``--device cpu``) and
-kernel parity, timing and ablation scripts that run on one CUDA card (each
+"""Tools of the port: the CLIs ``train_net``, ``test_net`` and
+``remove_solver_states`` (``python -m oneshotdet_tpu_torch.tools.<name>``,
+the first two on the card or ``--device cpu``) and kernel parity, timing and ablation scripts that run on one CUDA card (each
 runs as ``python3 oneshotdet_tpu_torch/tools/<name>.py`` and as
 ``<module>.main(argv)``)."""
 

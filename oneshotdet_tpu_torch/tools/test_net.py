@@ -7,12 +7,14 @@ Merges the cfg, builds the detector on the card (or ``--device``), reads
 ``DATASETS.TEST[0]`` through ``make_data_loader`` and runs ``inference``
 with the COCO evaluator into ``OUTPUT_DIR/eval``, stopping after
 ``FEW_SHOT.STOP_ITER`` batches where that is above 0. Weights: ``--ckpt``,
-else ``MODEL.WEIGHT``, each a reference-format ``.pth``; with neither, the
-seeded initial weights. ``--seq_test`` evaluates every
-``TEST.LOAD_DIR/model_*`` file whose iteration lies in
-``[TEST.MIN_ITER, TEST.MAX_ITER]``, each loaded by its own path into
-``OUTPUT_DIR/eval_{iter:07d}``. One card: the JAX CLI's device mesh has no
-counterpart.
+else ``MODEL.WEIGHT`` (a ``.pth``, a Caffe2 ``.pkl``, ``catalog://`` or a
+URL), overlaid onto the seeded initial weights by a ``Checkpointer`` rooted
+at the eval folder with ``prefer_tag=False``, so a training folder's
+``last_checkpoint`` tag never redirects the load; with neither, the seeded
+initial weights. ``--seq_test`` evaluates every ``TEST.LOAD_DIR/model_*``
+file whose iteration lies in ``[TEST.MIN_ITER, TEST.MAX_ITER]``, each
+loaded by its own path into ``OUTPUT_DIR/eval_{iter:07d}``. One card: the
+JAX CLI's device mesh has no counterpart.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def main(argv=None) -> int:
     from ..data import make_data_loader
     from ..engine.inference import inference
     from ..models import build_detection_model
-    from ..utils.checkpoint import load_weights
+    from ..utils.checkpoint import Checkpointer
     from ..utils.logger import setup_logger
 
     c = cfg.clone()
@@ -49,9 +51,6 @@ def main(argv=None) -> int:
         c.merge_from_list(args.opts)
 
     weights = args.ckpt or c.MODEL.WEIGHT
-    if not args.seq_test and weights.startswith("catalog://"):
-        raise NotImplementedError("catalog:// weights (the model zoo) are not ported to "
-                                  "oneshotdet_tpu_torch; pass a .pth")
     logger = setup_logger("oneshotdet_tpu_torch", c.OUTPUT_DIR, "test_log.txt")
     logger.info(f"config:\n{c}")
     device = torch.device(args.device or "cuda")
@@ -60,7 +59,8 @@ def main(argv=None) -> int:
 
     def run_one(ckpt_path, out_dir):
         if ckpt_path:
-            load_weights(model, ckpt_path, logger)
+            Checkpointer(out_dir, logger, cfg=c).load(model, f=ckpt_path, resume=False,
+                                                      prefer_tag=False)
         loader, dataset = make_data_loader(c, is_train=False, device=device)
         return inference(c, model, loader, dataset, out_dir, stop, logger)
 

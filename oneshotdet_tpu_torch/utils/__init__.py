@@ -1,4 +1,5 @@
-from .metric_logger import MetricLogger, SmoothedValue, Timer
+from .metric_logger import MetricLogger, SmoothedValue, TensorboardLogger, Timer
 from .weights import map_flax_leaf, state_dict_from_flax
 
-__all__ = ["MetricLogger", "SmoothedValue", "Timer", "map_flax_leaf", "state_dict_from_flax"]
+__all__ = ["MetricLogger", "SmoothedValue", "TensorboardLogger", "Timer", "map_flax_leaf",
+           "state_dict_from_flax"]

@@ -9,8 +9,12 @@ from __future__ import annotations
 import torch.distributed as dist
 
 
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def get_world_size() -> int:
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+    if _initialized() and dist.get_world_size() > 1:
         raise NotImplementedError(
             "multi-process evaluation is not ported to oneshotdet_tpu_torch yet")
     return 1
@@ -23,3 +27,9 @@ def get_rank() -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+def synchronize() -> None:
+    """A barrier over the process group; nothing without one."""
+    if _initialized():
+        dist.barrier()

@@ -1,6 +1,8 @@
 """Metric logging (counterpart of ``oneshotdet_tpu/utils/metric_logger.py``):
 ``SmoothedValue`` (window-20 median and average, global average),
-``MetricLogger`` (named smoothed values) and ``Timer``."""
+``MetricLogger`` (named smoothed values), ``TensorboardLogger`` (a
+``MetricLogger`` that also writes each update's scalars at its iteration,
+where tensorboardX or ``torch.utils.tensorboard`` imports) and ``Timer``."""
 
 from __future__ import annotations
 
@@ -55,6 +57,31 @@ class MetricLogger:
     def __str__(self):
         return self.delimiter.join(
             f"{name}: {m.median:.4f} ({m.global_avg:.4f})" for name, m in self.meters.items())
+
+
+class TensorboardLogger(MetricLogger):
+    def __init__(self, log_dir: str, start_iter: int = 0, delimiter: str = "  "):
+        super().__init__(delimiter)
+        self.iteration = start_iter
+        self.writer = self._get_writer(log_dir)
+
+    @staticmethod
+    def _get_writer(log_dir):
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                return None
+        return SummaryWriter(log_dir)
+
+    def update(self, **kwargs):
+        super().update(**kwargs)
+        if self.writer is not None:
+            for k, v in kwargs.items():
+                self.writer.add_scalar(k, float(v), self.iteration)
+        self.iteration += 1
 
 
 class Timer:

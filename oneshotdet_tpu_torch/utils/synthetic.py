@@ -8,12 +8,19 @@ the same numpy arrays as the JAX package's copy.
 
 ``write_synthetic_coco``: a COCO-style dataset on disk (binary PPM images
 and an instances JSON) for the data path, made with numpy from a seed.
+
+``write_synthetic_c2_resnet``: a Detectron-style pickle of ResNet blobs
+(``{"blobs": {"conv1_w": ..., "res2_0_branch2a_w": ...}}``, with the
+``*_momentum`` and ``fc1000`` blobs an ImageNet file also holds), made with
+numpy from a seed, for the Caffe2 import.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
+import re
 
 import numpy as np
 
@@ -106,3 +113,53 @@ def write_synthetic_coco(root, num_images: int = 24, sizes=((375, 500), (500, 37
                    "categories": [{"id": c, "name": f"class{c}"}
                                   for c in range(1, num_categories + 1)]}, f)
     return img_dir, ann_file
+
+
+_C2_BRANCH = {"conv1": "2a", "bn1": "2a", "conv2": "2b", "bn2": "2b", "conv3": "2c", "bn3": "2c",
+              "downsample.0": "1", "downsample.1": "1"}
+
+
+def c2_blob_name(name: str):
+    """A ResNet body state-dict name -> its Caffe2 blob name, or None for
+    the running statistics (folded into the scale and bias in Caffe2)."""
+    if name == "stem.conv1.weight":
+        return "conv1_w"
+    if name.startswith("stem.bn1."):
+        return {"weight": "res_conv1_bn_s", "bias": "res_conv1_bn_b"}.get(name.rsplit(".", 1)[1])
+    m = re.match(r"^layer(\d)\.(\d+)\.(conv\d|bn\d|downsample\.[01])\.(weight|bias|running_\w+)$",
+                 name)
+    if m is None or m.group(4).startswith("running_"):
+        return None
+    stage, block, part, leaf = m.groups()
+    head = f"res{int(stage) + 1}_{block}_branch{_C2_BRANCH[part]}"
+    if part.startswith("conv") or part == "downsample.0":
+        return head + "_w"
+    return head + ("_bn_s" if leaf == "weight" else "_bn_b")
+
+
+def write_synthetic_c2_resnet(path, body_shapes, seed: int = 0):
+    """Write blobs for ``body_shapes`` (body state-dict name -> shape):
+    convolution weights N(0, 2 / fan_in), BN scales 1 + 0.1 N, BN biases
+    0.1 N, in float32, drawn in sorted name order; plus a momentum blob per
+    weight and an fc1000 classifier."""
+    rng = np.random.RandomState(seed)
+    blobs = {}
+    for name in sorted(body_shapes):
+        blob = c2_blob_name(name)
+        if blob is None:
+            continue
+        shape = tuple(body_shapes[name])
+        n = rng.standard_normal(shape).astype(np.float32)
+        if blob.endswith("_w"):
+            val = n * np.float32(np.sqrt(2.0 / np.prod(shape[1:])))
+            blobs[blob + "_momentum"] = np.zeros(shape, np.float32)
+        elif blob.endswith("_s"):
+            val = 1.0 + 0.1 * n
+        else:
+            val = 0.1 * n
+        blobs[blob] = val.astype(np.float32)
+    blobs["fc1000_w"] = rng.standard_normal((1000, 2048)).astype(np.float32) * np.float32(0.01)
+    blobs["fc1000_b"] = np.zeros(1000, np.float32)
+    with open(path, "wb") as f:
+        pickle.dump({"blobs": blobs}, f, protocol=2)
+    return path

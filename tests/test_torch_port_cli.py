@@ -114,5 +114,5 @@ def test_cli_without_weights_uses_seeded_initial_weights(cli_setup, monkeypatch,
     assert test_net.main(argv) == 0
     assert (out_dir / "eval" / "coco_results.json").exists()
     assert "Loading checkpoint" not in (out_dir / "test_log.txt").read_text()
-    with pytest.raises(NotImplementedError, match="catalog"):
-        test_net.main(argv + ["MODEL.WEIGHT", "catalog://ImageNetPretrained/MSRA/R-50"])
+    with pytest.raises(RuntimeError, match="not present in the catalog"):
+        test_net.main(argv + ["MODEL.WEIGHT", "catalog://NoSuchFamily/R-50"])

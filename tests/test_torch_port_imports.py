@@ -36,7 +36,9 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.ops.resize, oneshotdet_tpu_torch.data.build\n"
         "import oneshotdet_tpu_torch.data.image_io, oneshotdet_tpu_torch.tools.test_net\n"
         "import oneshotdet_tpu_torch.utils.checkpoint, oneshotdet_tpu_torch.utils.logger\n"
-        "import oneshotdet_tpu_torch.utils.synthetic\n"
+        "import oneshotdet_tpu_torch.utils.synthetic, oneshotdet_tpu_torch.utils.model_zoo\n"
+        "import oneshotdet_tpu_torch.utils.c2_import, oneshotdet_tpu_torch.tools.train_net\n"
+        "import oneshotdet_tpu_torch.tools.remove_solver_states\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -64,7 +66,13 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/data/collate.py",
                  "oneshotdet_tpu_torch/data/datasets/coco.py",
                  "oneshotdet_tpu_torch/data/image_io.py",
-                 "oneshotdet_tpu_torch/tools/test_net.py"):
+                 "oneshotdet_tpu_torch/tools/test_net.py",
+                 "oneshotdet_tpu_torch/utils/checkpoint.py",
+                 "oneshotdet_tpu_torch/utils/model_zoo.py",
+                 "oneshotdet_tpu_torch/utils/c2_import.py",
+                 "oneshotdet_tpu_torch/data/paths_catalog.py",
+                 "oneshotdet_tpu_torch/tools/train_net.py",
+                 "oneshotdet_tpu_torch/tools/remove_solver_states.py"):
         assert path in names
 
 
