@@ -44,7 +44,14 @@ model_final, then a run resumed from the last_checkpoint tag with the saved
 weights bit for bit and the scheduled learning rate, 7 K1 and 7 K1b calls a
 step and 2 H1 launches a batch, ms/step with the loader, saves' seconds and
 peak memory; remove_solver_states; test_net --seq_test over the saved
-files) -- and checks small float32
+files), and the serving artifact (phase 10: export.export_serving of the
+batch-1 bundle unfused and with the fused head, each with its AOTInductor
+pair, and the batch-8 `full` program; ArtifactPredictor from the compiled
+pair and from the ExportedProgram pair against OneShotPredictor on phase 4's
+support and frames -- bit for bit for the ExportedProgram route, paired within
+one bf16 ulp for the compiled one -- with K1, and K3 with the
+fused head, counted from inside the loaded programs; export, compile and
+load seconds, file sizes, ms per frame, peak memory) -- and checks small float32
 forwards and a small float32 train step on the card against the same model
 on the CPU. Every kernel's launch count is set to 0 before each path and
 read after it. Any failure raises and exits non-zero. The last two lines of
@@ -2341,6 +2348,258 @@ def train_cli_path(flagship, dev, card):
     return paths, out
 
 
+ARTIFACT_ROUNDS = 2            # phase 10: the frames twice per route, frames 2-8 timed
+# phase 10's compiled route against the eager bf16 predictor: Inductor fuses
+# and reorders the bf16 arithmetic (GroupNorm's statistics, pointwise
+# chains), so an activation can round to the neighbouring bf16 value and
+# near-tied scores cross the top-k and NMS cuts. Detections pair by IoU > 0.99
+# with score and coordinates within one bf16 ulp, relative; at least this
+# share per frame (the detection tolerances' share is printed beside it)
+ARTIFACT_RTOL = 2.0 ** -7
+ARTIFACT_MIN_SHARE = 0.75
+
+
+def phase5_batch(dev):
+    """Phase 5's batch-8 queries (832x1216) and supports (416x416), drawn
+    from seed 5 on the card."""
+    from oneshotdet_tpu_torch.structures import ImageBatch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q_sizes = torch.tensor([[832, 1216], [800, 1200], [832, 1100], [704, 1216],
+                            [832, 1216], [768, 1024], [832, 1184], [640, 960]],
+                           dtype=torch.float32, device=dev)
+    s_sizes = torch.tensor([[416, 416], [300, 400], [400, 300], [416, 320],
+                            [256, 416], [416, 416], [350, 350], [200, 400]],
+                           dtype=torch.float32, device=dev)
+    images = ImageBatch(torch.randn(BATCH, *QUERY_HW, 3, generator=g, device=dev) * 50, q_sizes)
+    supps = ImageBatch(torch.randn(BATCH, *SUPP_HW, 3, generator=g, device=dev) * 50, s_sizes)
+    return images, supps
+
+
+def _frame_ms(predictor, frames, rounds=ARTIFACT_ROUNDS):
+    """ms per frame by the host clock (``run_on_image`` returns host arrays)
+    over every frame after the first, the frames ``rounds`` times."""
+    times = []
+    for _ in range(rounds):
+        for frame in frames:
+            t0 = time.perf_counter()
+            predictor.run_on_image(frame)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times[1:]))
+
+
+def _detection_gap(a, b):
+    """Largest relative score and box gaps between the detections of a and
+    their partners in b, over the detections whose highest-IoU partner has
+    IoU > 0.99 (``_best_partners``)."""
+    _, j, iou = _best_partners(a, b, 5e-4, 1e-3)
+    same = iou > 0.99
+    if not same.any():
+        return 0.0, 0.0
+    score = np.abs(b[1][j] - a[1]) / np.maximum(np.abs(a[1]), 1e-6)
+    box = np.abs(b[0][j] - a[0]) / np.maximum(np.abs(a[0]), 1.0)
+    return float(score[same].max()), float(box[same].max())
+
+
+def artifact_path(flagship, dev, card, supp, frames):
+    """Phase 10: the serving artifact at full width (export.py,
+    predictor.ArtifactPredictor). The flagship bf16 with seeded distinct
+    weights (``distinct_weights_``, seed 12): the serving bundle at batch 1
+    (832x1216 queries, 416x416 supports) exported unfused and with the fused
+    head, each with its AOTInductor pair, and the ``full`` kind at batch 8
+    unfused as an ExportedProgram; export and compile seconds and the
+    files' sizes. Each bundle served by ``ArtifactPredictor`` from the
+    compiled pair (``used_executable``) and from the ExportedProgram pair
+    alone, load seconds against building ``OneShotPredictor``. On phase 4's
+    support and frames: the ExportedProgram route equals ``OneShotPredictor``
+    bit for bit; at least ARTIFACT_MIN_SHARE of the compiled route's
+    detections pair up with its own per frame (IoU > 0.99, score and box
+    within one bf16 ulp, ``match_fraction``), the share within the detection
+    tolerances (score rtol 5e-4, box rtol 1e-3) and the largest gap printed
+    beside it. K1 launches 6 per ``set_support`` and 1 per frame
+    from inside both routes' programs, K3 1 per frame with the fused head
+    and 0 without, nothing else. The full artifact equals the eager forward
+    on phase 5's batch bit for bit (7 K1 launches). ms per frame over frames
+    2 and later for each route and ``OneShotPredictor``, and peak memory.
+    Returns (per-path launches, numbers)."""
+    from oneshotdet_tpu_torch import export as oexport
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.predictor import ArtifactPredictor, OneShotPredictor
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(flagship)
+    paths, out = {}, {"bundles": {}}
+    t0 = time.perf_counter()
+    eager = OneShotPredictor(cfg, confidence_threshold=0.0, query_bucket=QUERY_HW,
+                             supp_bucket=SUPP_HW, device=dev,
+                             generator=torch.Generator().manual_seed(1))
+    distinct_weights_(eager.model, torch.Generator().manual_seed(12))
+    torch.cuda.synchronize()
+    out["eager_build_s"] = time.perf_counter() - t0
+    model = eager.model
+    compile_s = {}
+    save_compiled = oexport.save_compiled
+
+    def timed_save_compiled(exported, path):
+        t = time.perf_counter()
+        ok = save_compiled(exported, path)
+        compile_s[path] = time.perf_counter() - t
+        return ok
+
+    with tempfile.TemporaryDirectory() as root:
+        oexport.save_compiled = timed_save_compiled
+        try:
+            for fused in (False, True):
+                name = "fused" if fused else "unfused"
+                model.config = dataclasses.replace(model.config, fused_roi_head=fused)
+                stem = os.path.join(root, name)
+                t0 = time.perf_counter()
+                if not oexport.export_serving(cfg, model, stem, query_hw=QUERY_HW,
+                                              supp_hw=SUPP_HW):
+                    raise AssertionError(f"export_serving {name}: no compiled pair")
+                total = time.perf_counter() - t0
+                files = {ext: os.path.getsize(stem + ext) for ext in
+                         (".support", ".detect", ".support.exec", ".detect.exec")}
+                out["bundles"][name] = dict(
+                    export_s=total - compile_s[stem], compile_s=compile_s[stem],
+                    compile_support_s=compile_s[stem + ".support"],
+                    compile_detect_s=compile_s[stem + ".detect"],
+                    mib={k: v / 2**20 for k, v in files.items()})
+                log(f"artifact {name}: export_serving {total:.1f} s (export + save "
+                    f"{total - compile_s[stem]:.1f} s, AOTInductor compile support "
+                    f"{compile_s[stem + '.support']:.1f} s + detect "
+                    f"{compile_s[stem + '.detect']:.1f} s); files "
+                    + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in files.items())
+                    + f" [{card}]")
+                # the ExportedProgram pair alone, without the compiled one
+                ep_stem = os.path.join(root, f"{name}_ep")
+                for ext in (".support", ".detect", ".meta.json"):
+                    os.link(stem + ext, ep_stem + ext)
+        finally:
+            oexport.save_compiled = save_compiled
+        model.config = dataclasses.replace(model.config, fused_roi_head=False)
+        t0 = time.perf_counter()
+        full = oexport.export_eval(cfg, model, batch=BATCH, query_hw=QUERY_HW, supp_hw=SUPP_HW,
+                                   kind="full")
+        full_export_s = time.perf_counter() - t0
+        oexport.save(full, os.path.join(root, "full.eval"))
+        full_mib = os.path.getsize(os.path.join(root, "full.eval")) / 2**20
+        t0 = time.perf_counter()
+        full = oexport.load(os.path.join(root, "full.eval")).module()
+        full_load_s = time.perf_counter() - t0
+        out["full"] = dict(export_s=full_export_s, mib=full_mib, load_s=full_load_s)
+        log(f"artifact full (batch {BATCH}, unfused, ExportedProgram): export "
+            f"{full_export_s:.1f} s, {full_mib:.1f} MiB, load {full_load_s:.1f} s [{card}]")
+
+        # -- the full artifact against the eager forward on phase 5's batch
+        zero = {k: 0 for k in _counters()}
+        images, supps = phase5_batch(dev)
+        tids = torch.ones((BATCH,), dtype=torch.int32, device=dev)
+        ref = model(images, supps)
+        reset_launches()
+        with torch.inference_mode():
+            got = full(images.pixels, images.sizes, supps.pixels, supps.sizes, tids)
+        torch.cuda.synchronize()
+        paths["artifact full, batch 8"] = read_launches()
+        want = (ref.xyxy, ref.get_field("scores"), ref.valid)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("artifact full: differs from the eager forward")
+        if paths["artifact full, batch 8"] != dict(zero, roi_align=7):
+            raise AssertionError(f"artifact full: launches {paths['artifact full, batch 8']}")
+        log(f"artifact full, batch {BATCH}: equal to the eager forward bit for bit "
+            f"({int(ref.valid.sum())} detections), 7 K1 launches from inside the program")
+        del full, images, supps, got, ref, want
+        torch.cuda.empty_cache()
+        out["peak_full_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+
+        # -- serving: both routes of each bundle against OneShotPredictor
+        ms = {}
+        for fused in (False, True):
+            name = "fused" if fused else "unfused"
+            model.config = dataclasses.replace(model.config, fused_roi_head=fused)
+            routes = {}
+            for route, stem in (("compiled", name), ("exported", f"{name}_ep")):
+                t0 = time.perf_counter()
+                routes[route] = ArtifactPredictor(os.path.join(root, stem), device=dev)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                if routes[route].used_executable != (route == "compiled"):
+                    raise AssertionError(f"artifact {name} {route}: used_executable "
+                                         f"{routes[route].used_executable}")
+                out["bundles"][name][f"{route}_load_s"] = load_s
+            eager.set_support(supp)
+            for route, ap in routes.items():
+                label = f"artifact {name} {route}"
+                reset_launches()
+                ap.set_support(supp)
+                torch.cuda.synchronize()
+                paths[f"{label}, set_support"] = read_launches()
+                if paths[f"{label}, set_support"] != dict(zero, roi_align=6):
+                    raise AssertionError(f"{label} set_support: {paths[f'{label}, set_support']}")
+                worst, n, paired, shares = (0.0, 0.0), 0, 0, []
+                total = dict(zero)
+                for frame in frames:
+                    want = eager.run_on_image(frame)
+                    reset_launches()
+                    got = ap.run_on_image(frame)
+                    torch.cuda.synchronize()
+                    frame_launches = read_launches()
+                    if frame_launches != dict(zero, roi_align=1, roi_head=int(fused)):
+                        raise AssertionError(f"{label} frame: launches {frame_launches}")
+                    total = {k: v + frame_launches[k] for k, v in total.items()}
+                    if route == "exported":
+                        if not (np.array_equal(got[0], want[0])
+                                and np.array_equal(got[1], want[1])):
+                            raise AssertionError(f"{label}: differs from OneShotPredictor")
+                    else:
+                        shares.append((match_fraction(got, want, ARTIFACT_RTOL, ARTIFACT_RTOL),
+                                       match_fraction(got, want)))
+                        gap = _detection_gap(got, want)
+                        worst = tuple(max(a, b) for a, b in zip(worst, gap))
+                    n += len(want[1])
+                    paired += len(got[1])
+                paths[f"{label}, {len(frames)} frames"] = total
+                if route == "compiled":
+                    out["bundles"][name]["compiled_gap"] = worst
+                    out["bundles"][name]["compiled_paired_share"] = shares
+                    if min(sh[0] for sh in shares) < ARTIFACT_MIN_SHARE:
+                        raise AssertionError(
+                            f"{label}: shares paired with OneShotPredictor's {shares}, required "
+                            f">= {ARTIFACT_MIN_SHARE} within {ARTIFACT_RTOL:.2e}")
+
+                log(f"{label}: {paired} detections over {len(frames)} frames "
+                    + ("equal to OneShotPredictor's bit for bit" if route == "exported" else
+                       f"against OneShotPredictor's {n}: share paired by IoU > 0.99 per frame "
+                       f"within one bf16 ulp ({ARTIFACT_RTOL:.2e} relative; required >= "
+                       f"{ARTIFACT_MIN_SHARE}) {[sh[0] for sh in shares]}, within score rtol "
+                       f"5e-4 and box rtol 1e-3 {[sh[1] for sh in shares]}; largest gap of "
+                       f"same boxes (IoU > 0.99): score {worst[0]:.2e}, box {worst[1]:.2e} "
+                       f"relative")
+                    + f"; per set_support 6 K1, per frame 1 K1 and {int(fused)} K3 launched "
+                    f"from inside the loaded programs, load {out['bundles'][name][route + '_load_s']:.2f} s")
+            ms[f"OneShotPredictor {name}"] = _frame_ms(eager, frames)
+            for route, ap in routes.items():
+                ms[f"artifact {name} {route}"] = _frame_ms(ap, frames)
+            del routes
+        out["frame_ms"] = ms
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"artifact serving ms per frame (host clock, frames 2-{ARTIFACT_ROUNDS * len(frames)}"
+            f", bf16, batch 1, 832x1216 / 416x416 buckets): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+            + f"; building OneShotPredictor {out['eager_build_s']:.2f} s; peak memory while "
+            f"serving {out['peak_gib']:.2f} GiB (exports and the batch-8 full program "
+            f"{out['peak_full_gib']:.2f} GiB) [{card}]")
+    del eager, model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: {out['phase_s']:.1f} s")
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -2352,8 +2611,11 @@ def main() -> int:
     from oneshotdet_tpu_torch.ops import roi_align as ra
     from oneshotdet_tpu_torch.ops import roi_head_fused as rf
     from oneshotdet_tpu_torch.predictor import OneShotPredictor
-    from oneshotdet_tpu_torch.structures import ImageBatch
 
+    # Inductor's and Triton's caches (phase 10's AOTInductor compiles) stay
+    # in the checkout's build/
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(ROOT, "build", "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
     card = card_line()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2443,15 +2705,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 5: batched eval forward, unfused and fused head ------------------
-    g = torch.Generator(device=dev).manual_seed(5)
-    q_sizes = torch.tensor([[832, 1216], [800, 1200], [832, 1100], [704, 1216],
-                            [832, 1216], [768, 1024], [832, 1184], [640, 960]],
-                           dtype=torch.float32, device=dev)
-    s_sizes = torch.tensor([[416, 416], [300, 400], [400, 300], [416, 320],
-                            [256, 416], [416, 416], [350, 350], [200, 400]],
-                           dtype=torch.float32, device=dev)
-    images = ImageBatch(torch.randn(BATCH, *QUERY_HW, 3, generator=g, device=dev) * 50, q_sizes)
-    supps = ImageBatch(torch.randn(BATCH, *SUPP_HW, 3, generator=g, device=dev) * 50, s_sizes)
+    images, supps = phase5_batch(dev)
     for label, path in (("preset EVAL_ROI_TOPK=512", preset), ("full 2000/img", flagship)):
         c = default_cfg.clone()
         c.merge_from_file(path)
@@ -2520,6 +2774,13 @@ def main() -> int:
     paths.update(train_paths)
     launches["train CLI run B"] = train_paths["train CLI run B"]["roi_align"]
 
+    # -- phase 10: the serving artifact (export, ArtifactPredictor) --------------
+    artifact_paths, artifact = artifact_path(flagship, dev, card, supp, frame_pixels)
+    paths.update(artifact_paths)
+    for label, n in artifact_paths.items():
+        launches[label] = n["roi_align"]
+        head_launches[label] = n["roi_head"]
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -2542,6 +2803,7 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": None,
         "p3_skew_fresh_ms": checks[("p3-skew R=16000", torch.bfloat16)]["ms"],
+        "artifact": artifact,
         "card": card,
     }, {
         "name": "roi_head",

@@ -320,28 +320,58 @@ class GeneralizedRCNN(nn.Module):
     def compute_support_features(self, images_supp: ImageBatch, batch_size: int = 1):
         """The support branch once: (list of (B, 1, 1, C) per level,
         (B, shot, 7, 7, C)), for reuse across query frames."""
+        return self._support_branch(images_supp, batch_size)
+
+    @torch.inference_mode()
+    def backbone_features(self, images: ImageBatch):
+        """Query backbone+FPN alone: P3..P7, channels_last NCHW."""
+        return self._backbone_features(images)
+
+    @torch.inference_mode()
+    def detect_with_support(self, images: ImageBatch, supp_pooled, supp_7x7,
+                            target_ids=None) -> Boxes:
+        """Eval forward with precomputed (cached) support features."""
+        return self._detect_with_support(images, supp_pooled, supp_7x7, target_ids)
+
+    @torch.inference_mode()
+    def detect_from_features(self, features, sizes_wh, supp_pooled, supp_7x7,
+                             target_ids=None) -> Boxes:
+        """Fusion -> stage 1 -> stage 2 -> postprocess. With RPN_ONLY, the
+        stage-1 proposals (the RPN settings, as the JAX package's
+        ``detect_from_features``)."""
+        return self._detect_from_features(features, sizes_wh, supp_pooled, supp_7x7,
+                                          target_ids)
+
+    @torch.inference_mode()
+    def forward(self, images: ImageBatch, images_supp: ImageBatch,
+                target_ids: Optional[torch.Tensor] = None) -> Boxes:
+        """Eval forward: padded detections (B, K) with fields 'scores' and
+        'labels' (or, with RPN_ONLY, the stage-1 detections)."""
+        return self._forward_eval(images, images_supp, target_ids)
+
+    # The bodies of the eval API, undecorated: ``export`` traces them under
+    # ``torch.no_grad()`` (an exported graph holds no inference-mode tensors
+    # and no profiler ranges; the ranges run once, at trace time).
+
+    def _support_branch(self, images_supp: ImageBatch, batch_size: int = 1):
+        """``compute_support_features``' body."""
         with record_function("support_backbone"):
             features_supp = self._supp_features(images_supp)
         with record_function("support_pool"):
             pooled = self._pool_supp_1x1(features_supp, images_supp.sizes, batch_size)
             return pooled, self._supp_roi_7x7(features_supp, images_supp.sizes, batch_size)
 
-    @torch.inference_mode()
-    def backbone_features(self, images: ImageBatch):
-        """Query backbone+FPN alone: P3..P7, channels_last NCHW."""
+    def _backbone_features(self, images: ImageBatch):
         with record_function("query_backbone"):
             return self._pyramid(self.backbone, images.pixels)
 
-    @torch.inference_mode()
-    def detect_with_support(self, images: ImageBatch, supp_pooled, supp_7x7,
-                            target_ids=None) -> Boxes:
-        """Eval forward with precomputed (cached) support features."""
-        return self.detect_from_features(self.backbone_features(images),
-                                         images.sizes_wh(), supp_pooled,
-                                         supp_7x7, target_ids)
+    def _detect_with_support(self, images: ImageBatch, supp_pooled, supp_7x7,
+                                   target_ids=None) -> Boxes:
+        """``detect_with_support``'s body."""
+        return self._detect_from_features(self._backbone_features(images), images.sizes_wh(),
+                                          supp_pooled, supp_7x7, target_ids)
 
-    @torch.inference_mode()
-    def detect_from_features(
+    def _detect_from_features(
         self,
         features: Sequence[torch.Tensor],   # query P3..P7, NCHW
         sizes_wh: torch.Tensor,             # (B, 2) true (w, h)
@@ -349,9 +379,6 @@ class GeneralizedRCNN(nn.Module):
         supp_7x7: torch.Tensor,             # (B or 1, shot, 7, 7, C)
         target_ids=None,                    # (B,) or a scalar
     ) -> Boxes:
-        """Fusion -> stage 1 -> stage 2 -> postprocess. With RPN_ONLY, the
-        stage-1 proposals (the RPN settings, as the JAX package's
-        ``detect_from_features``)."""
         c = self.config
         b = features[0].shape[0]
         dev = features[0].device
@@ -384,14 +411,12 @@ class GeneralizedRCNN(nn.Module):
                 BoxCoder(c.bbox_reg_weights), c.roi_score_thresh,
                 c.roi_nms_thresh, c.roi_detections_per_img, c.second_stage_cls_loss)
 
-    @torch.inference_mode()
-    def forward(self, images: ImageBatch, images_supp: ImageBatch,
-                target_ids: Optional[torch.Tensor] = None) -> Boxes:
-        """Eval forward: padded detections (B, K) with fields 'scores' and
-        'labels' (or, with RPN_ONLY, the stage-1 detections)."""
+    def _forward_eval(self, images: ImageBatch, images_supp: ImageBatch,
+                       target_ids: Optional[torch.Tensor] = None) -> Boxes:
+        """``forward``'s body."""
         b = images.batch_size
-        features = self.backbone_features(images)
-        supp_pooled, supp_7x7 = self.compute_support_features(images_supp, b)
+        features = self._backbone_features(images)
+        supp_pooled, supp_7x7 = self._support_branch(images_supp, b)
         c = self.config
         if c.rpn_only:
             # the FCOS stage-1 settings, as the JAX package's __call__
@@ -402,8 +427,8 @@ class GeneralizedRCNN(nn.Module):
                     c.fcos_pre_nms_top_n, c.fcos_nms_th, c.detections_per_img_rpn_only,
                     c.nms_pre_topk, c.inference_th, c.score_mode,
                     level_topk=c.strict_level_topk)
-        return self.detect_from_features(features, images.sizes_wh(),
-                                         supp_pooled, supp_7x7, target_ids)
+        return self._detect_from_features(features, images.sizes_wh(),
+                                          supp_pooled, supp_7x7, target_ids)
 
     # -- train ------------------------------------------------------------------
 

@@ -80,6 +80,9 @@ class ROIBoxHead(nn.Module):
         self.in_channels = c
         self.resolution = resolution
         self._fused_cache = {}         # dtype -> (parameter key, operands)
+        # set by ``export`` while it traces: the operands the exported
+        # program holds as its own buffers
+        self.operands_override = None
         self.compress_dim_conv = nn.Sequential(
             Conv2d(2 * c, 2 * c, 1), GroupNorm(32, 2 * c, eps=1e-5), nn.LeakyReLU(0.2),
             Conv2d(2 * c, c, 1), GroupNorm(32, c, eps=1e-5), nn.LeakyReLU(0.2),
@@ -94,7 +97,9 @@ class ROIBoxHead(nn.Module):
     def _fused_operands(self, dtype: torch.dtype):
         """Kernel operands of the current parameters for ``dtype``, packed
         once per dtype and packed again after any parameter changes
-        (load_state_dict, in-place edits)."""
+        (load_state_dict, in-place edits); ``operands_override`` where set."""
+        if self.operands_override is not None:
+            return self.operands_override
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         cached = self._fused_cache.get(dtype)
         if cached is None or cached[0] != key:

@@ -2,7 +2,9 @@
 
 Greedy NMS with the reference CUDA kernel's conventions: boxes sorted by
 score, a kept box suppresses later boxes with ``iou > threshold``, IoU with
-+1 extents. Padded slots (``valid=False``) neither survive nor suppress.
++1 extents. Padded slots (``valid=False``) neither survive nor suppress. The keep mask
+is a custom op (``ops.library``), so that its data-dependent loop stays out
+of an exported graph.
 """
 
 from __future__ import annotations
@@ -28,6 +30,16 @@ def _pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
 
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
                   valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask in the original index order: the op
+    ``oneshotdet::nms_keep_mask`` (``ops.library``), whose body is
+    ``nms_keep_mask_plain`` on every device."""
+    from .library import nms_keep_mask as op
+
+    return op(boxes, scores, valid, float(iou_threshold))
+
+
+def nms_keep_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                        valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask in the original index order.
 
     ``boxes`` (..., K, 4), ``scores`` and ``valid`` (..., K); leading dims are

@@ -7,12 +7,12 @@ The layout is the JAX package's: features are NHWC ``(B, H, W, C)`` maps,
 ``rois`` are ``(R, 5)`` rows ``(batch, x1, y1, x2, y2)`` in image pixels and
 the result is ``(R, pooled_h, pooled_w, C)``.
 
-``multilevel_roi_align`` dispatches on the device of its inputs: CPU tensors
-take the plain version (``multilevel_roi_align_plain``), which autograd
-differentiates; CUDA tensors go through ``MultilevelRoiAlign``, a
-``torch.autograd.Function`` whose forward launches the kernel of
-``csrc/roi_align.cu`` and whose backward launches ``csrc/roi_align_bwd.cu``,
-or raise. Both compute the exact bilinear ROIAlign of the JAX package's XLA
+``multilevel_roi_align`` calls the op ``oneshotdet::roi_align``
+(``ops.library``), which dispatches on the device of its inputs: CPU tensors
+take the plain version (``multilevel_roi_align_plain``) and, in the backward,
+``multilevel_roi_align_backward_plain``'s sums; CUDA tensors launch the kernel
+of ``csrc/roi_align.cu`` and, in the backward, ``csrc/roi_align_bwd.cu``, or
+raise. Both compute the exact bilinear ROIAlign of the JAX package's XLA
 version in float32 (bf16 inputs are read as they are and the result is
 rounded once to the input dtype), and both write zeros for slots whose
 ``valid`` flag is False. The gradient reaches the features only: the ROIs
@@ -219,6 +219,17 @@ def multilevel_roi_align_backward_plain(
     and ``valid=False`` ROIs carry nothing. Sums in a float32 workspace that
     holds the levels one after another, each as a contiguous (B, H, W, C)
     block, and casts once."""
+    shapes = [tuple(s) for s in feature_shapes]
+    ws = multilevel_roi_align_backward_workspace(grad_out, shapes, rois, levels, output_size,
+                                                 scales, sampling_ratio, valid)
+    return _split_workspace(ws, shapes, dtype)
+
+
+def multilevel_roi_align_backward_workspace(grad_out, feature_shapes, rois, levels,
+                                            output_size, scales, sampling_ratio,
+                                            valid=None) -> torch.Tensor:
+    """``multilevel_roi_align_backward_plain``'s float32 workspace, before
+    its cast: (rows of all levels, C), level-major."""
     pooled_h, pooled_w = output_size
     g = sampling_ratio
     dev = rois.device
@@ -231,7 +242,7 @@ def multilevel_roi_align_backward_plain(
     ws = torch.zeros((_level_offsets(shapes)[-1], c), dtype=torch.float32, device=dev)
     r = rois.shape[0]
     if r == 0:
-        return _split_workspace(ws, shapes, dtype)
+        return ws
 
     (oky, y_low, y_high, ly, hy), (okx, x_low, x_high, lx, hx) = _roi_axes(
         rois, levels, heights, widths, scales, output_size, g)
@@ -255,7 +266,7 @@ def multilevel_roi_align_backward_plain(
         w = torch.where(live, rep(wy) * til(wx), 0.0)
         idx = base + rep(yi) * w_r + til(xi)
         ws.index_add_(0, idx.reshape(-1), (w[..., None] * gq).reshape(-1, c))
-    return _split_workspace(ws, shapes, dtype)
+    return ws
 
 
 # -- the kernel's plan (csrc/roi_align.cu, steps 2-3), mirrored --------------
@@ -698,7 +709,21 @@ def multilevel_roi_align_backward_cuda(grad_out, feature_shapes, dtype, rois, le
     ``multilevel_roi_align_backward_plain``; raises on any input the kernel
     does not take. ``scratch`` (``bwd_scratch``) keeps the samples and bits
     for the caller (``bwd_tile_bits``). The gradients are views of one
-    allocation; the static checks run once per geometry."""
+    allocation (``multilevel_roi_align_backward_cuda_flat``); the static
+    checks run once per geometry."""
+    flat = multilevel_roi_align_backward_cuda_flat(grad_out, feature_shapes, dtype, rois,
+                                                   levels, output_size, scales,
+                                                   sampling_ratio, valid, scratch)
+    shapes = tuple(map(tuple, feature_shapes))
+    offsets = [o * shapes[0][3] for o in _level_offsets(shapes)]
+    return [flat[offsets[i]:offsets[i + 1]].view(s) for i, s in enumerate(shapes)]
+
+
+def multilevel_roi_align_backward_cuda_flat(grad_out, feature_shapes, dtype, rois, levels,
+                                            output_size, scales, sampling_ratio, valid=None,
+                                            scratch=None) -> torch.Tensor:
+    """``multilevel_roi_align_backward_cuda``'s one allocation: the levels'
+    gradients flat and level-major."""
     global roi_align_bwd_launches
     dev = rois.device
     _check(dev.type == "cuda", "rois must be a CUDA tensor")
@@ -747,45 +772,18 @@ def multilevel_roi_align_backward_cuda(grad_out, feature_shapes, dtype, rois, le
         err = lib.oneshot_roi_align_bwd_error_string(rc).decode()
         raise RuntimeError(f"roi_align backward kernel launch failed: {err} ({rc})")
     roi_align_bwd_launches += 1
-    return [flat[offsets[i]:offsets[i + 1]].view(s) for i, s in enumerate(shapes)]
-
-
-class MultilevelRoiAlign(torch.autograd.Function):
-    """Multi-level ROIAlign on the card: forward ``multilevel_roi_align_cuda``
-    (K1), backward ``multilevel_roi_align_backward_cuda`` (K1b). Gradients
-    reach the feature levels only; the ROIs, levels and ``valid`` get none.
-    Only the levels' shapes are kept for the backward, not the levels."""
-
-    @staticmethod
-    def forward(ctx, rois, levels, valid, output_size, scales, sampling_ratio, *features):
-        ctx.save_for_backward(rois, levels, valid)
-        ctx.geometry = (tuple(tuple(f.shape) for f in features), features[0].dtype,
-                        output_size, scales, sampling_ratio)
-        return multilevel_roi_align_cuda(list(features), rois, levels, output_size, scales,
-                                         sampling_ratio, valid)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        rois, levels, valid = ctx.saved_tensors
-        shapes, dtype, output_size, scales, sampling_ratio = ctx.geometry
-        wanted = ctx.needs_input_grad[6:]
-        grads = [None] * len(shapes)
-        if any(wanted):
-            grads = multilevel_roi_align_backward_cuda(
-                grad_out.contiguous(), shapes, dtype, rois, levels, output_size, scales,
-                sampling_ratio, valid)
-        return (None,) * 6 + tuple(gr if w else None for gr, w in zip(grads, wanted))
+    return flat
 
 
 def multilevel_roi_align(features, rois, levels, output_size, scales,
                          sampling_ratio, valid=None) -> torch.Tensor:
-    """Multi-level ROIAlign: the kernels (K1 forward, K1b backward) for
-    CUDA tensors, the plain version for CPU tensors."""
-    if rois.device.type == "cpu" and all(f.device.type == "cpu" for f in features):
-        return multilevel_roi_align_plain(features, rois, levels, output_size,
-                                          scales, sampling_ratio, valid)
-    return MultilevelRoiAlign.apply(rois, levels, valid, tuple(output_size), tuple(scales),
-                                    sampling_ratio, *features)
+    """Multi-level ROIAlign through the op ``oneshotdet::roi_align``: the
+    kernels (K1 forward, K1b backward) for CUDA tensors, the plain versions
+    for CPU tensors. Gradients reach the feature levels only."""
+    from .library import roi_align as op
+
+    return op(list(features), rois, levels, valid, [int(n) for n in output_size],
+              [float(s) for s in scales], int(sampling_ratio))
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor, output_size,

@@ -20,8 +20,9 @@ statistics per (ROI, group):
    flattened in (p, q, c) order and fc6's rows permuted to match;
 6. ``logits = mm(f, cls) + clsb``, ``deltas = mm(f, box) + boxb``.
 
-``fused_roi_head`` dispatches on the device of its inputs: CPU tensors take
-``fused_roi_head_plain``; CUDA tensors launch the kernel of
+``fused_roi_head`` calls the op ``oneshotdet::roi_head_fused``
+(``ops.library``), which dispatches on the device of its inputs: CPU tensors
+take ``fused_roi_head_plain``; CUDA tensors launch the kernel of
 ``csrc/roi_head.cu`` or raise.
 """
 
@@ -432,8 +433,13 @@ def fused_roi_head_cuda(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict
 
 def fused_roi_head(roi_feats: torch.Tensor, supp_7x7: torch.Tensor, w: Dict,
                    per_image: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused head: the kernel for CUDA tensors, the plain version for CPU
-    tensors. ``w``: ``pack_roi_head_params`` or ``kernel_operands``."""
-    if roi_feats.device.type == "cpu" and supp_7x7.device.type == "cpu":
-        return fused_roi_head_plain(roi_feats, supp_7x7, w, per_image)
-    return fused_roi_head_cuda(roi_feats, supp_7x7, w, per_image)
+    """The fused head through the op ``oneshotdet::roi_head_fused``: the
+    kernel for CUDA tensors, the plain version for CPU tensors. ``w``:
+    ``pack_roi_head_params`` or ``kernel_operands``."""
+    from .library import head_operand_lists, roi_head_fused as op
+
+    ops = kernel_operands(w, roi_feats.dtype, tiles=roi_feats.device.type != "cpu")
+    operands, tiles = head_operand_lists(ops)
+    if roi_feats.device.type == "cpu":
+        tiles = []
+    return op(roi_feats, supp_7x7, operands, tiles, ops["ncls"], per_image)

@@ -4,10 +4,15 @@
 features on the device; each ``run_on_image(frame)`` then resizes, normalizes
 and pads the frame on the device, runs the query branch against the cached
 support, and returns (boxes, scores) in the frame's own coordinates.
+``run_on_opencv_image`` draws them on a BGR frame (PIL, imported there).
+
+``ArtifactPredictor`` serves the same API from a serving bundle written by
+``export.export_serving``: no model-building Python and no config system.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -112,9 +117,146 @@ class OneShotPredictor:
         boxes = dets.xyxy[0].float().cpu().numpy()
         scores = dets.get_field("scores")[0].float().cpu().numpy()
         valid = dets.valid[0].cpu().numpy()
-        valid = valid & (scores > _select_threshold(self.confidence_threshold,
-                                                    self._supp_class_id))
-        boxes, scores = boxes[valid], scores[valid]
-        order = np.argsort(-scores, kind="stable")
-        boxes, scores = boxes[order], scores[order]
-        return boxes * np.array([w0 / ow, h0 / oh, w0 / ow, h0 / oh]), scores
+        return _select(boxes, scores, valid, self.confidence_threshold, self._supp_class_id,
+                       (h0, w0), (oh, ow))
+
+    # -- the annotated-frame API ------------------------------------------------
+
+    def overlay_boxes(self, image_rgb_u8: np.ndarray, boxes: np.ndarray,
+                      color=(255, 40, 40), width: int = 3) -> np.ndarray:
+        """Draw detection boxes on an RGB frame (PIL)."""
+        return overlay_boxes(image_rgb_u8, boxes, color, width)
+
+    def overlay_scores(self, image_rgb_u8: np.ndarray, boxes: np.ndarray,
+                       scores: np.ndarray, label: str = "match",
+                       color=(255, 255, 0)) -> np.ndarray:
+        """Write ``label: score`` at each box's top-left corner (PIL)."""
+        return overlay_scores(image_rgb_u8, boxes, scores, label, color)
+
+    def run_on_opencv_image(self, image_bgr_u8: np.ndarray) -> np.ndarray:
+        """BGR frame in, annotated BGR frame out: the cached support class's
+        boxes and scores. With MODEL.MASK_ON it raises NotImplementedError
+        (the mask head is not ported)."""
+        if self.cfg.MODEL.MASK_ON:
+            raise NotImplementedError("run_on_opencv_image: the mask head is not ported "
+                                      "(MODEL.MASK_ON)")
+        return annotate_bgr(self.run_on_image, image_bgr_u8)
+
+
+def overlay_boxes(image_rgb_u8: np.ndarray, boxes: np.ndarray, color=(255, 40, 40),
+                  width: int = 3) -> np.ndarray:
+    """Detection boxes drawn on an RGB frame (PIL, imported here)."""
+    from PIL import Image, ImageDraw
+
+    img = Image.fromarray(image_rgb_u8)
+    draw = ImageDraw.Draw(img)
+    for box in boxes:
+        draw.rectangle([float(v) for v in box], outline=color, width=width)
+    return np.asarray(img)
+
+
+def overlay_scores(image_rgb_u8: np.ndarray, boxes: np.ndarray, scores: np.ndarray,
+                   label: str = "match", color=(255, 255, 0)) -> np.ndarray:
+    """``label: score`` written at each box's top-left corner (PIL, imported
+    here; one-shot detection has the single class 'match')."""
+    from PIL import Image, ImageDraw
+
+    img = Image.fromarray(image_rgb_u8)
+    draw = ImageDraw.Draw(img)
+    for box, score in zip(boxes, scores):
+        draw.text((float(box[0]) + 2, float(box[1]) + 2), f"{label}: {score:.2f}", fill=color)
+    return np.asarray(img)
+
+
+def annotate_bgr(run_on_image, image_bgr_u8: np.ndarray) -> np.ndarray:
+    """A BGR frame with ``run_on_image``'s boxes and scores drawn on it."""
+    rgb = np.ascontiguousarray(image_bgr_u8[:, :, ::-1])
+    boxes, scores = run_on_image(rgb)
+    out = overlay_scores(overlay_boxes(rgb, boxes), boxes, scores)
+    return np.ascontiguousarray(out[:, :, ::-1])
+
+
+def _select(boxes, scores, valid, threshold, class_id, frame_hw, resized_hw):
+    """The valid detections above the (class's) threshold, by descending
+    score, rescaled from the resized frame to the frame's own coordinates."""
+    (h0, w0), (oh, ow) = frame_hw, resized_hw
+    valid = valid & (scores > _select_threshold(threshold, class_id))
+    boxes, scores = boxes[valid], scores[valid]
+    order = np.argsort(-scores, kind="stable")
+    boxes, scores = boxes[order], scores[order]
+    return boxes * np.array([w0 / ow, h0 / oh, w0 / ow, h0 / oh]), scores
+
+
+class ArtifactPredictor:
+    """``OneShotPredictor``'s streaming API served from a serving bundle
+    (``export.export_serving``): the AOTInductor pair where the bundle has
+    one for ``device`` (``used_executable``), else the ExportedProgram pair,
+    which must have been exported on ``device``'s type. ``device`` defaults
+    to "cuda". Preprocessing is ``preprocess_frame`` on that device, by the
+    bundle's meta."""
+
+    def __init__(self, path: str, confidence_threshold=0.0, device=None):
+        from . import export as oexport
+
+        with open(path + ".meta.json") as f:
+            self.meta = json.load(f)
+        self.device = torch.device("cuda" if device is None else device)
+        sup = oexport.load_compiled(path + ".support", device=self.device)
+        det = oexport.load_compiled(path + ".detect", device=self.device)
+        self.used_executable = sup is not None and det is not None
+        if not self.used_executable:
+            if self.meta["device"] != self.device.type:
+                raise ValueError(f"{path}: exported on {self.meta['device']}, has no compiled "
+                                 f"pair for {self.device.type}")
+            sup = oexport.load(path + ".support").module()
+            det = oexport.load(path + ".detect").module()
+        self._sup_call, self._det_call = sup, det
+        self.confidence_threshold = confidence_threshold
+        self.query_bucket = tuple(self.meta["query_bucket"])
+        self.supp_bucket = tuple(self.meta["supp_bucket"])
+        self._supp_cache = None
+        self._supp_class_id = 1
+
+    def _pixels(self, image_rgb_u8: np.ndarray, min_size: int, max_size: int, bucket):
+        """Resize + normalize + pad -> ((1, H, W, 3) pixels, (1, 2) sizes,
+        the resized (h, w))."""
+        m = self.meta
+        h0, w0 = image_rgb_u8.shape[:2]
+        oh, ow = get_resize_size((w0, h0), min_size, max_size)
+        oh, ow = min(oh, bucket[0]), min(ow, bucket[1])
+        pixels = torch.from_numpy(np.ascontiguousarray(image_rgb_u8)).to(self.device)
+        padded = preprocess_frame(pixels, (oh, ow), bucket, m["pixel_mean"], m["pixel_std"],
+                                  m["to_bgr255"])
+        sizes = torch.tensor([[oh, ow]], dtype=torch.float32, device=self.device)
+        return padded[None], sizes, (oh, ow)
+
+    def set_support(self, image_rgb_u8: np.ndarray, class_id: int = 1):
+        """Compute and cache the support features of one support crop."""
+        self._supp_class_id = int(class_id)
+        m = self.meta
+        pixels, sizes, _ = self._pixels(image_rgb_u8, m["supp_min_size_test"],
+                                        m["supp_max_size_test"], self.supp_bucket)
+        with torch.inference_mode():
+            self._supp_cache = self._sup_call(pixels, sizes)
+        return self._supp_cache
+
+    def run_on_image(self, image_rgb_u8: np.ndarray):
+        """Detect the cached support class in one frame: (boxes_xyxy, scores)
+        as numpy arrays in the frame's coordinates, by descending score."""
+        if self._supp_cache is None:
+            raise RuntimeError("call set_support() first")
+        m = self.meta
+        h0, w0 = image_rgb_u8.shape[:2]
+        pixels, sizes, (oh, ow) = self._pixels(image_rgb_u8, m["min_size_test"],
+                                               m["max_size_test"], self.query_bucket)
+        pooled, supp_7x7 = self._supp_cache
+        target_ids = torch.full((1,), self._supp_class_id, dtype=torch.int32, device=self.device)
+        with torch.inference_mode():
+            xyxy, scores, valid = self._det_call(pixels, sizes, pooled, supp_7x7, target_ids)
+        return _select(xyxy[0].float().cpu().numpy(), scores[0].float().cpu().numpy(),
+                       valid[0].cpu().numpy(), self.confidence_threshold, self._supp_class_id,
+                       (h0, w0), (oh, ow))
+
+    def run_on_opencv_image(self, image_bgr_u8: np.ndarray) -> np.ndarray:
+        """BGR frame in, annotated BGR frame out (``OneShotPredictor``'s)."""
+        return annotate_bgr(self.run_on_image, image_bgr_u8)

@@ -10,12 +10,23 @@ reads its ``"model"`` entry. Each save writes its path into
 Loading overlays: a file's tensors replace the model's where the names
 match (a leading ``module.``, from a run under DDP, stripped;
 ``num_batches_tracked`` and names the model lacks skipped; each reshaped to
-the model's shape) and every other tensor keeps its current value.
-Parameters whose name holds an UNLOAD keyword keep their current values
-too; buffers (FrozenBN statistics) are always loaded, as the JAX package
-applies ``merge_with_unload`` to its params only. The port's names are the
-reference's, so the JAX package's flax-path keyword ``fcos_head`` is
-``rpn.head`` here and ``roi_head`` is ``roi_heads``.
+the model's shape) and every other tensor keeps its current value. Tensors
+whose name holds an UNLOAD keyword keep their current values too, by the
+JAX package's two rules:
+
+- the port's own saves (the file's ``"optimizer"`` has the group layout of
+  the optimizer being restored), which stand in for the JAX package's orbax
+  saves: parameters and buffers alike, as its orbax branch unloads params
+  and constants;
+- any other file (a reference-layout ``.pth``, a ``.pkl``): parameters only,
+  buffers (FrozenBN statistics) always loaded, as its ``.pth`` branch
+  applies ``merge_with_unload`` to its params only.
+
+Likewise ``resume`` restores the iteration only from the port's own saves,
+where the optimizer state is restored: the JAX package keeps the state's
+fresh step for a ``.pth`` / ``.pkl``. The port's names are the reference's,
+so the JAX package's flax-path keyword ``fcos_head`` is ``rpn.head`` here
+and ``roi_head`` is ``roi_heads``.
 """
 
 from __future__ import annotations
@@ -36,9 +47,11 @@ def merge_with_unload(loaded: Mapping[str, torch.Tensor], fresh: Mapping[str, to
 
 
 def overlay_state_dict(model: torch.nn.Module, state: Mapping[str, object],
-                       unload_keywords: Sequence[str] = ()) -> Tuple[List[str], List[str]]:
-    """Copy ``state``'s tensors into ``model`` by the rules above; returns
-    the file's (matched, unmatched) names."""
+                       unload_keywords: Sequence[str] = (),
+                       unload_buffers: bool = False) -> Tuple[List[str], List[str]]:
+    """Copy ``state``'s tensors into ``model`` by the rules above (UNLOAD
+    keywords on buffers too with ``unload_buffers``, for the port's own
+    saves); returns the file's (matched, unmatched) names."""
     own = model.state_dict()
     params = {k for k, _ in model.named_parameters()}
     new, matched, unmatched = {}, [], []
@@ -49,7 +62,8 @@ def overlay_state_dict(model: torch.nn.Module, state: Mapping[str, object],
             continue
         new[name] = torch.as_tensor(value).reshape(own[name].shape)
         matched.append(key)
-    kept = merge_with_unload({k: v for k, v in new.items() if k in params}, own, unload_keywords)
+    kept = merge_with_unload({k: v for k, v in new.items() if unload_buffers or k in params},
+                             own, unload_keywords)
     new.update(kept)
     with torch.no_grad():
         for name, value in new.items():
@@ -110,7 +124,8 @@ class Checkpointer:
              f: Optional[str] = None, unload_keywords: Sequence[str] = (), resume: bool = True,
              prefer_tag: bool = True) -> int:
         """Overlay a checkpoint onto ``model``; returns the iteration to start
-        from: the file's ``"iteration"`` under ``resume``, else 0.
+        from: the file's ``"iteration"`` under ``resume`` where the file is
+        one of the port's own saves (its optimizer state restored), else 0.
 
         The save_dir's tag wins over ``f`` unless ``prefer_tag=False`` (pass
         that where ``f`` names the exact file to evaluate). ``catalog://``
@@ -120,7 +135,8 @@ class Checkpointer:
         the file has an ``"optimizer"`` of ``optimizer``'s group layout (the
         port's own saves), it and the ``"scheduler"`` are restored, whatever
         ``resume`` says, as the JAX package restores its optimizer state
-        (and with it the schedule's count)."""
+        (and with it the schedule's count), and UNLOAD keywords keep buffers
+        fresh too."""
         if prefer_tag and self.has_checkpoint():
             f = self.get_checkpoint_file()
         if not f:
@@ -140,15 +156,17 @@ class Checkpointer:
         else:
             ckpt = torch.load(f, map_location="cpu", weights_only=True)
             state = ckpt.get("model", ckpt)
-        matched, unmatched = overlay_state_dict(model, state, unload_keywords)
+        own_save = (optimizer is not None and "optimizer" in ckpt
+                    and _same_layout(optimizer, ckpt["optimizer"]))
+        matched, unmatched = overlay_state_dict(model, state, unload_keywords,
+                                                unload_buffers=own_save)
         self._log(f"checkpoint: {len(matched)} matched, {len(unmatched)} unmatched")
-        if optimizer is not None and "optimizer" in ckpt:
-            if _same_layout(optimizer, ckpt["optimizer"]):
-                optimizer.load_state_dict(ckpt["optimizer"])
-                if scheduler is not None and "scheduler" in ckpt:
-                    scheduler.load_state_dict(dict(ckpt["scheduler"]))
-                self._log("optimizer and scheduler state restored")
-            else:
-                self._log("optimizer state of another group layout left out")
-        return int(ckpt.get("iteration", 0)) if resume else 0
+        if own_save:
+            optimizer.load_state_dict(ckpt["optimizer"])
+            if scheduler is not None and "scheduler" in ckpt:
+                scheduler.load_state_dict(dict(ckpt["scheduler"]))
+            self._log("optimizer and scheduler state restored")
+        elif optimizer is not None and "optimizer" in ckpt:
+            self._log("optimizer state of another group layout left out")
+        return int(ckpt.get("iteration", 0)) if resume and own_save else 0
 

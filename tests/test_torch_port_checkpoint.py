@@ -8,7 +8,11 @@ full widths with the seeded weights of ``torch_port_common``:
     gives, compared through ``state_dict_from_flax``;
   - UNLOAD keywords keep the same parameters fresh as JAX's flax-path
     keywords (``rpn.head`` is JAX's ``fcos_head``, ``roi_heads`` its
-    ``roi_head``), buffers always load;
+    ``roi_head``): on a reference-layout file buffers always load, on each
+    package's own saves (JAX's orbax tree, the port's ``.pth`` with its
+    optimizer) buffers stay fresh too;
+  - RESUME restores the iteration from each package's own saves only: a
+    reference-layout file starts both at 0;
   - the FSS dual load (FSS_WEIGHT, then WEIGHT with ``rpn.head`` unloaded)
     equals JAX's;
   - the port's own saves read in JAX's ``load_torch_checkpoint`` with no
@@ -17,6 +21,9 @@ full widths with the seeded weights of ``torch_port_common``:
     optimizer and scheduler state (on a small module: the rules do not
     depend on the model).
 """
+
+import os
+import shutil
 
 import jax
 import numpy as np
@@ -92,8 +99,8 @@ def test_pth_overlay_equals_jax(weights, tmp_path, kind):
     path = _write(tmp_path / "ref.pth", weights["sd"]["B"], prefix, keep=keep)
     model = _port_model(weights)
     start = Checkpointer(str(tmp_path / "port")).load(model, f=path, resume=True)
-    assert start == 11
-    ref = JaxCheckpointer(str(tmp_path / "jax")).load(_jax_state(weights), f=path, resume=False)
+    ref = JaxCheckpointer(str(tmp_path / "jax")).load(_jax_state(weights), f=path, resume=True)
+    assert start == int(ref.step) == 0      # a reference file's iteration is not restored
     want = _jax_sd(ref)
     _assert_equal_sd(model, want)
     for k, v in want.items():
@@ -137,10 +144,11 @@ def test_fss_dual_load_equals_jax(weights, tmp_path):
     model = _port_model(weights)
     port = Checkpointer(str(tmp_path / "port"))
     port.load(model, f=fss, resume=False)
-    assert port.load(model, f=full, unload_keywords=("linz", "rpn.head"), resume=True) == 11
+    assert port.load(model, f=full, unload_keywords=("linz", "rpn.head"), resume=True) == 0
     jc = JaxCheckpointer(str(tmp_path / "jax"))
     state = jc.load(_jax_state(weights), f=fss, resume=False)
     state = jc.load(state, f=full, unload_keywords=("linz", "fcos_head"), resume=True)
+    assert int(state.step) == 0
     want = _jax_sd(state)
     _assert_equal_sd(model, want)
     params = {n for n, _ in model.named_parameters()}
@@ -161,6 +169,56 @@ def test_port_save_reads_in_jax(weights, tmp_path):
     assert unmatched == [] and len(matched) == len(model.state_dict())
     _assert_equal_sd(model, state_dict_from_flax(converted))
     ref = JaxCheckpointer(str(tmp_path / "jax")).load(_jax_state(weights), f=path, resume=False)
+    _assert_equal_sd(model, _jax_sd(ref))
+
+
+@pytest.mark.parametrize("port_kw,jax_kw", [("backbone", "backbone")] + UNLOAD[1:],
+                         ids=["backbone"] + [u[0] for u in UNLOAD[1:]])
+def test_unload_on_own_saves_keeps_buffers_fresh_as_jax(weights, tmp_path, port_kw, jax_kw):
+    """Each package saves B at iteration 3 with its own ``Checkpointer.save``
+    (the JAX package's orbax tree, the port's ``.pth`` with its optimizer)
+    and loads it into A with an UNLOAD keyword under resume: parameters and
+    FrozenBN buffers that hold the keyword stay A's in both, and both start
+    at 3."""
+    pcfg = weights["pcfg"]
+    src = _port_model(weights, "B")
+    opt = make_optimizer(pcfg, src)
+    path = Checkpointer(str(tmp_path / "port")).save("model_0000003", src, opt,
+                                                     make_lr_scheduler(pcfg, opt), 3)
+    model = _port_model(weights)
+    mopt = make_optimizer(pcfg, model)
+    start = Checkpointer(str(tmp_path / "other")).load(
+        model, mopt, make_lr_scheduler(pcfg, mopt), f=path, unload_keywords=(port_kw,),
+        resume=True)
+    jc = JaxCheckpointer(str(tmp_path / "jax"))
+    jpath = jc.save("model_0000003", _jax_state(weights, "B").replace(step=jax.numpy.asarray(3)))
+    ref = JaxCheckpointer(str(tmp_path / "jax_load")).load(
+        _jax_state(weights), f=jpath, unload_keywords=(jax_kw,), resume=True)
+    shutil.rmtree(tmp_path)           # two full-width saves
+    assert start == int(ref.step) == 3
+    want = _jax_sd(ref)
+    _assert_equal_sd(model, want)
+    fresh = {k for k in want if torch.equal(want[k], weights["sd"]["A"][k])}
+    assert fresh == {k for k in want if port_kw in k}
+    if port_kw == "backbone":
+        assert any(k.endswith("running_var") for k in fresh)
+
+
+@pytest.mark.parametrize("with_solver", [True, False], ids=["optimizer", "weights-only"])
+def test_resume_from_a_reference_file_starts_at_zero_as_jax(weights, tmp_path, with_solver):
+    """A reference-layout ``{"model", "iteration": 11}`` under RESUME: the
+    JAX package keeps its fresh step, and the port restores no iteration
+    where it restores no optimizer state."""
+    path = _write(tmp_path / "ref.pth", weights["sd"]["B"], extra=False)
+    model = _port_model(weights)
+    solver = {}
+    if with_solver:
+        opt = make_optimizer(weights["pcfg"], model)
+        solver = dict(optimizer=opt, scheduler=make_lr_scheduler(weights["pcfg"], opt))
+    start = Checkpointer(str(tmp_path / "port")).load(model, f=path, resume=True, **solver)
+    ref = JaxCheckpointer(str(tmp_path / "jax")).load(_jax_state(weights), f=path, resume=True)
+    os.remove(path)
+    assert start == int(ref.step) == 0
     _assert_equal_sd(model, _jax_sd(ref))
 
 
@@ -241,6 +299,6 @@ def test_solver_state_of_another_layout_is_left_out(tmp_path):
     fresh, fopt, fsched = _tiny(0.0, cfg)
     want = fopt.state_dict()
     assert Checkpointer(str(tmp_path / "o")).load(fresh, fopt, fsched,
-                                                  f=str(tmp_path / "ref.pth")) == 9
+                                                  f=str(tmp_path / "ref.pth")) == 0
     assert float(fresh.conv.weight.detach().flatten()[0]) == 1.0
     assert fopt.state_dict() == want and fsched.last_epoch == 0

@@ -39,6 +39,8 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.utils.synthetic, oneshotdet_tpu_torch.utils.model_zoo\n"
         "import oneshotdet_tpu_torch.utils.c2_import, oneshotdet_tpu_torch.tools.train_net\n"
         "import oneshotdet_tpu_torch.tools.remove_solver_states\n"
+        "import oneshotdet_tpu_torch.export, oneshotdet_tpu_torch.ops.library\n"
+        "import oneshotdet_tpu_torch.tools.export_model, oneshotdet_tpu_torch.tools.oneshot_demo\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -72,7 +74,10 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/utils/c2_import.py",
                  "oneshotdet_tpu_torch/data/paths_catalog.py",
                  "oneshotdet_tpu_torch/tools/train_net.py",
-                 "oneshotdet_tpu_torch/tools/remove_solver_states.py"):
+                 "oneshotdet_tpu_torch/tools/remove_solver_states.py",
+                 "oneshotdet_tpu_torch/export.py", "oneshotdet_tpu_torch/ops/library.py",
+                 "oneshotdet_tpu_torch/tools/export_model.py",
+                 "oneshotdet_tpu_torch/tools/oneshot_demo.py"):
         assert path in names
 
 

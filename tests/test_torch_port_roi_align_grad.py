@@ -4,9 +4,10 @@ ROIAlign against ``jax.grad`` of JAX's XLA ``multilevel_roi_align`` and
 ``roi_align`` (the gradient the JAX package trains with), on K1's ROI mixes
 (ordinary, over 5:1, partly and wholly outside, degenerate, sub-cell,
 invalid slots); ``multilevel_roi_align_backward_plain`` (the
-backward kernel's plain version) against that autograd; and the autograd
-Function that runs the kernels on the card, with its two wrappers swapped
-for their plain versions: gradients reach the features only.
+backward kernel's plain version) against that autograd; and the op
+``oneshotdet::roi_align``'s registered autograd, which runs the kernels on
+the card and the plain versions on the CPU: gradients reach the features
+only.
 
 Tolerance: 1e-5 abs, times the largest gradient where that exceeds 1. A
 pixel that many samples land on (gradients up to ~13 here) sums its terms in
@@ -72,9 +73,12 @@ def _levels(rois):
     return ra.fpn_level_map(_t(rois[:, 1:]), 3, 7).numpy()
 
 
-def _plain_grads(pyramid, rois, levels, valid, g, out_hw=(7, 7)):
+def _plain_grads(pyramid, rois, levels, valid, g, out_hw=(7, 7), fn=None):
+    """Autograd's gradient of the plain forward (of ``fn``, the op's
+    ``multilevel_roi_align``, where given)."""
     feats = [_t(f, grad=True) for f in pyramid]
-    out = ra.multilevel_roi_align(feats, _t(rois), _t(levels), out_hw, SCALES, 2, _t(valid))
+    out = (fn or ra.multilevel_roi_align_plain)(feats, _t(rois), _t(levels), out_hw, SCALES,
+                                                2, _t(valid))
     return torch.autograd.grad(out, feats, _t(g))
 
 
@@ -99,6 +103,23 @@ def test_multilevel_gradient_matches_jax(pyramid, mix):
         assert_close(a, b)
     if mix != "outside":
         assert sum(float(a.abs().sum()) for a in got) > 0
+
+
+@pytest.mark.parametrize("mix", ["ordinary", "outside", "degenerate", "subcell", "invalid"])
+def test_op_gradient_equals_plain_autograd(pyramid, mix):
+    """The op's registered backward (the explicit sums of
+    ``multilevel_roi_align_backward_plain`` on the CPU) against autograd of
+    the plain forward, which the test above holds to JAX."""
+    rng = np.random.RandomState(40 + ["ordinary", "outside", "degenerate", "subcell",
+                                      "invalid"].index(mix))
+    rois, valid = _rois(rng, mix)
+    levels = _levels(rois)
+    g = rng.randn(len(rois), 7, 7, 8).astype(np.float32)
+    want = _plain_grads(pyramid, rois, levels, valid, g)
+    got = _plain_grads(pyramid, rois, levels, valid, g, fn=ra.multilevel_roi_align)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert_close(a, b)
 
 
 @pytest.mark.parametrize("out_hw, level", [((7, 7), 0), ((1, 1), 1), ((1, 1), 4)])
@@ -151,29 +172,33 @@ def test_backward_plain_with_no_rois(pyramid):
 
 
 def test_function_routes_gradient_to_features_only(pyramid, monkeypatch):
-    """MultilevelRoiAlign with the kernels' wrappers swapped for the plain
-    versions: the features get autograd's gradient, the ROIs none, and each
-    wrapper is called once."""
+    """The op ``oneshotdet::roi_align`` (``multilevel_roi_align``) on CPU
+    tensors, its plain forward and backward sums counted: the features get
+    autograd's gradient of the plain forward, the ROIs none, and each is
+    called once."""
     calls = []
+    fwd_plain = ra.multilevel_roi_align_plain
+    bwd_plain = ra.multilevel_roi_align_backward_workspace
 
-    def fwd(features, rois, levels, out_hw, scales, g, valid=None):
+    def fwd(*args):
         calls.append("forward")
-        return ra.multilevel_roi_align_plain(features, rois, levels, out_hw, scales, g, valid)
+        return fwd_plain(*args)
 
     def bwd(*args):
         calls.append("backward")
-        return ra.multilevel_roi_align_backward_plain(*args)
+        return bwd_plain(*args)
 
-    monkeypatch.setattr(ra, "multilevel_roi_align_cuda", fwd)
-    monkeypatch.setattr(ra, "multilevel_roi_align_backward_cuda", bwd)
+    monkeypatch.setattr(ra, "multilevel_roi_align_plain", fwd)
+    monkeypatch.setattr(ra, "multilevel_roi_align_backward_workspace", bwd)
     rng = np.random.RandomState(30)
     rois, valid = _rois(rng, "invalid")
     levels = _levels(rois)
     g = rng.randn(len(rois), 7, 7, 8).astype(np.float32)
     feats = [_t(f, grad=True) for f in pyramid]
     r = _t(rois, grad=True)
-    out = ra.MultilevelRoiAlign.apply(r, _t(levels), _t(valid), (7, 7), SCALES, 2, *feats)
+    out = ra.multilevel_roi_align(feats, r, _t(levels), (7, 7), SCALES, 2, _t(valid))
     got = torch.autograd.grad(out, feats + [r], _t(g), allow_unused=True)
+    monkeypatch.undo()
     want = _plain_grads(pyramid, rois, levels, valid, g)
     assert calls == ["forward", "backward"]
     assert got[-1] is None
@@ -181,7 +206,7 @@ def test_function_routes_gradient_to_features_only(pyramid, monkeypatch):
         assert_close(a, b)
     # a level that needs no gradient gets none
     feats[2] = feats[2].detach()
-    out = ra.MultilevelRoiAlign.apply(r, _t(levels), _t(valid), (7, 7), SCALES, 2, *feats)
+    out = ra.multilevel_roi_align(feats, r, _t(levels), (7, 7), SCALES, 2, _t(valid))
     out.backward(_t(g))
     assert feats[2].grad is None and feats[0].grad is not None
 
