@@ -42,7 +42,7 @@ over that dataset from catalog:// Detectron-style R-50 blobs drawn from a
 seed, both backbones equal to the blobs; 3 steps saving model_0000003 and
 model_final, then a run resumed from the last_checkpoint tag with the saved
 weights bit for bit and the scheduled learning rate, 7 K1 and 7 K1b calls a
-step and 2 H1 launches a batch, ms/step with the loader, saves' seconds and
+step and 1 H1 launch a batch, ms/step with the loader, saves' seconds and
 peak memory; remove_solver_states; test_net --seq_test over the saved
 files), and the serving artifact (phase 10: export.export_serving of the
 batch-1 bundle unfused and with the fused head, each with its AOTInductor
@@ -1784,65 +1784,127 @@ def small_train_check(cfg_path, dev):
                                  f"(rtol 1e-4), gradients {r[key]:.2e} (bound 1e-3)")
     return result
 
-def h1_compare(resize, packed, bucket, norm, label):
-    """H1 against its plain version on the card, bit for bit (tolerance 0)."""
-    got = resize.resize_normalize_pad_cuda(packed, bucket, *norm)
-    want = resize.resize_normalize_pad_plain(packed, bucket, *norm)
+def h1_compare(resize, packed, slots, label):
+    """H1's one launch for ``packed`` into ``slots`` against its plain
+    version on the card, bit for bit (tolerance 0)."""
+    got = resize.resize_normalize_pad_slots_cuda(packed, slots)
+    want = resize.resize_normalize_pad_slots_plain(packed, slots)
     torch.cuda.synchronize()
-    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    err = float((got - want).abs().max())
-    log(f"H1 {label}: {len(packed)} images into {tuple(bucket)}, {differ} values differ from "
-        f"the plain version (max abs err {err})")
+    differ = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                 for g, w in zip(got, want))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    log(f"H1 {label}: {len(packed)} images into {[s.pad_hw for s in slots]}, one launch, "
+        f"{differ} values differ from the plain version (max abs err {err})")
     if differ:
         raise AssertionError(f"H1 {label}: {differ} values differ from the plain version")
     return err
 
 
-def h1_checks(resize, items, query_bucket, supp_bucket, dev, card):
-    """Phase 8: H1 bit for bit on every query and support of the first
-    batch and on edge cases; its time (CUDA events) on the batch's queries
-    and supports beside its bound, the plain version and F.interpolate."""
+def h1_steepest(resize, limit, shape):
+    """The largest n for which the wrapper's plan accepts the downscale
+    ``shape(n)`` = (h0, w0, oh, ow) at the card's shared-memory ``limit``."""
+    lo, hi = 2, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            resize.launch_plan([shape(mid)], limit)
+            lo = mid
+        except ValueError:
+            hi = mid
+    return lo
+
+
+def h1_parity(resize, items, query_bucket, supp_bucket, dev):
+    """H1 bit for bit against its plain version: the first batch's queries
+    and supports in one launch (and each alone), the edge cases of
+    ``ablate_resize.EDGES`` and: a strip partly in the padding, a target
+    width that is not a multiple of the strip, slots whose width is not a
+    multiple of 4 (4-byte stores), two outputs with different
+    normalizations, and the steepest vertical and horizontal downscales the
+    wrapper accepts. Returns the largest abs error (0)."""
+    from oneshotdet_tpu_torch.tools import ablate_resize
+
     first = items[0]["img"]
     norm = (first["mean"], first["std"], first["to_bgr255"])
     queries = [it["img"] for it in items]
     supports = [s for it in items for s in it["img_supp"]]
-    pq = resize.pack_images([q["u8"] for q in queries], [q["out_hw"] for q in queries], dev)
-    ps = resize.pack_images([s["u8"] for s in supports], [s["out_hw"] for s in supports], dev)
-    err = max(h1_compare(resize, pq, query_bucket, norm, "first batch's queries"),
-              h1_compare(resize, ps, supp_bucket, norm, "first batch's supports"))
-    rng = np.random.RandomState(8)
+    both = resize.pack_images([x["u8"] for x in queries + supports],
+                              [x["out_hw"] for x in queries + supports], dev,
+                              outputs=[0] * len(queries) + [1] * len(supports))
+    slots = (resize.slot(query_bucket, *norm), resize.slot(supp_bucket, *norm))
+    err = h1_compare(resize, both, slots, "first batch's queries and supports")
+    for label, xs, bucket in (("queries", queries, query_bucket),
+                              ("supports", supports, supp_bucket)):
+        alone = resize.pack_images([x["u8"] for x in xs], [x["out_hw"] for x in xs], dev)
+        err = max(err, h1_compare(resize, alone, (resize.slot(bucket, *norm),),
+                                  f"first batch's {label} alone"))
+    images, targets = ablate_resize.edge_sources()
+    err = max(err, h1_compare(resize, resize.pack_images(images, targets, dev),
+                              (resize.slot(QUERY_HW, *norm),),
+                              "edge cases (down, up, 1-pixel wide, 1 pixel)"))
+    rng = np.random.RandomState(9)
     src = lambda h, w: rng.randint(0, 256, (h, w, 3)).astype(np.uint8)  # noqa: E731
-    edges = [(src(900, 1300), (400, 578)), (src(2000, 3000), (200, 300)),   # downscale
-             (src(40, 60), (800, 1200)), (src(37, 53), (811, 1163)),       # upscale
-             (src(300, 1), (400, 2)), (src(1, 300), (2, 400)), (src(1, 1), (5, 7))]
-    err = max(err, h1_compare(resize, resize.pack_images([e[0] for e in edges],
-                                                         [e[1] for e in edges], dev),
-                              QUERY_HW, norm, "edge cases (down, up, 1-pixel wide, 1 pixel)"))
-    for bgr, mean, std in ((True, norm[0], norm[1]),
-                           (False, [0.485, 0.456, 0.406], [0.229, 0.224, 0.225])):
+    rgb = ([0.485, 0.456, 0.406], [0.229, 0.224, 0.225], False)
+    limit = resize._kernel().oneshot_resize_init()
+    steep_h = h1_steepest(resize, limit, lambda n: (n, 40, 1, 20))
+    steep_w = h1_steepest(resize, limit, lambda n: (8, n, 4, 1))
+    cases = [
+        ("strip partly padding, width not a multiple of the strip",
+         [src(123, 77), src(50, 70)], [(300, 100), (130, 181)], [(320, 224)], [norm]),
+        ("slots of width 17 and 53 (4-byte stores)",
+         [src(13, 17), src(20, 30)], [(13, 17), (35, 51)], [(13, 17), (37, 53)], [norm, rgb]),
+        ("two outputs, BGR255 and RGB/255 with std",
+         [src(375, 500), src(500, 375), src(120, 300), src(300, 120)],
+         [(800, 1066), (1066, 800), (160, 400), (400, 160)], [(1216, 1216), SUPP_HW],
+         [norm, rgb]),
+        (f"steepest vertical downscale the wrapper accepts ({steep_h}x40 -> 1x20)",
+         [src(steep_h, 40)], [(1, 20)], [(32, 32)], [norm]),
+        (f"steepest horizontal downscale the wrapper accepts (8x{steep_w} -> 4x1)",
+         [src(8, steep_w)], [(4, 1)], [(32, 32)], [norm]),
+    ]
+    for label, images, targets, buckets, norms in cases:
+        outputs = [0] * len(images) if len(buckets) == 1 else \
+            [i * len(buckets) // len(images) for i in range(len(images))]
+        packed = resize.pack_images(images, targets, dev, outputs=outputs)
+        err = max(err, h1_compare(resize, packed, tuple(resize.slot(b, *n) for b, n in
+                                                        zip(buckets, norms)), label))
+    for bgr, mean, std in ((True, norm[0], norm[1]), (False, *rgb[:2])):
         exact = resize.pack_images([src(*SUPP_HW)], [SUPP_HW], dev)
-        err = max(err, h1_compare(resize, exact, SUPP_HW, (mean, std, bgr),
+        err = max(err, h1_compare(resize, exact, (resize.slot(SUPP_HW, mean, std, bgr),),
                                   f"source of the slot's size, to_bgr255={bgr}"))
+    return err
 
-    out = {"max_abs_err": err}
-    for label, packed, bucket in (("queries", pq, query_bucket), ("supports", ps, supp_bucket)):
-        ms = time_ms(lambda: resize.resize_normalize_pad_cuda(packed, bucket, *norm))
-        plain_ms = time_ms(lambda: resize.resize_normalize_pad_plain(packed, bucket, *norm),
-                           reps=3, warmup=1)
-        floats = [torch.from_numpy(np.array(x["u8"])).to(dev).permute(2, 0, 1)[None]
-                  .float() for x in (queries if label == "queries" else supports)]
-        sizes = [x["out_hw"] for x in (queries if label == "queries" else supports)]
+
+def h1_checks(resize, items, query_bucket, supp_bucket, dev, card):
+    """Phase 8: H1 bit for bit (``h1_parity``); the device time of its
+    launches (torch.profiler) and the wrapper's host time apart, CUDA events
+    around one call, beside the bound, for the first batch's queries and
+    supports alone and for the batch's one launch; the plain version and
+    8 x F.interpolate on the queries and supports."""
+    from oneshotdet_tpu_torch.tools import ablate_resize
+
+    out = {"max_abs_err": h1_parity(resize, items, query_bucket, supp_bucket, dev)}
+    cases = ablate_resize.inputs(items, query_bucket, supp_bucket)
+    fns = ablate_resize.calls(resize, cases, dev)
+    for label in ("queries", "supports", "batch"):
+        fn, _, bound_ms = fns[label]
+        r = ablate_resize.measure(fn, reps=10)
+        out[label] = dict(r, bound_ms=bound_ms,
+                          bound_share=bound_ms / (r["device_ms"] or r["b2b_ms"]))
+        log(ablate_resize.report(f"H1 {label}", r, bound_ms, card))
+        if label == "batch":
+            continue
+        images, targets, bucket = cases[label]
+        packed = resize.pack_images(images, targets, dev)
+        plain_ms = time_ms(lambda: resize.resize_normalize_pad_plain(
+            packed, bucket, *cases["norm"]), reps=3, warmup=1)
+        floats = [torch.from_numpy(im).to(dev).permute(2, 0, 1)[None].float() for im in images]
         library_ms = time_ms(lambda: [torch.nn.functional.interpolate(
             f, size=hw, mode="bilinear", align_corners=False, antialias=True)
-            for f, hw in zip(floats, sizes)])
-        nbytes = packed.pixels.numel() + len(packed) * bucket[0] * bucket[1] * 3 * 4
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                          bound_share=bound_ms / ms, mbytes=nbytes / 1e6)
-        log(f"H1 batch of {len(packed)} {label} into {tuple(bucket)}: {ms:.4f} ms (CUDA events, "
-            f"median), bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; "
-            f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.3f} ms, "
-            f"{len(packed)} x F.interpolate(bilinear, antialias) {library_ms:.4f} ms [{card}]")
+            for f, hw in zip(floats, targets)])
+        out[label].update(plain_ms=plain_ms, library_ms=library_ms)
+        log(f"H1 {label}: plain {plain_ms:.3f} ms, {len(floats)} x F.interpolate(bilinear, "
+            f"antialias) {library_ms:.4f} ms (CUDA events, median) [{card}]")
     return out
 
 
@@ -1977,7 +2039,7 @@ def eval_cli_path(flagship, dev, card):
                     raise AssertionError(f"loader batch {i}: {k} differs from the CPU loader")
         buckets = sorted({tuple(b["query_pixels"].shape[1:3]) for b in card_batches})
         n_h1 = paths["eval loader, one pass"]["resize_normalize_pad"]
-        if n_h1 != 2 * len(card_batches) or \
+        if n_h1 != len(card_batches) or \
                 buckets != sorted(tuple(b) for b in cfg.TPU.QUERY_BUCKETS):
             raise AssertionError(f"loader: {n_h1} H1 launches for {len(card_batches)} batches, "
                                  f"query buckets {buckets}")
@@ -2012,7 +2074,7 @@ def eval_cli_path(flagship, dev, card):
             metrics, n_dets = check_eval_outputs(os.path.join(out_dir, "eval"), label)
             if rc != 0 or n["roi_align"] != 7 * CLI_STOP_ITER or \
                     n["roi_head"] != (CLI_STOP_ITER if fused else 0) or \
-                    n["resize_normalize_pad"] != 2 * len(marks):
+                    n["resize_normalize_pad"] != len(marks):
                 raise AssertionError(f"{label}: exit {rc}, launches {n} for {CLI_STOP_ITER} "
                                      f"batches ({len(marks)} handed over)")
             loaded = [m for m in collector.messages if m.startswith("Loading checkpoint from ")]
@@ -2137,7 +2199,7 @@ def train_cli_path(flagship, dev, card):
     FEW_SHOT.RESUME, loads the tag's file, starts at 3 with the weights of
     model_0000003.pth bit for bit and step 4's learning rate
     warmup_multistep_schedule(3), runs 7 K1 and 7 K1b calls (14 launches)
-    a step, 2 H1 launches a batch and no K2-K5, finite losses, and saves
+    a step, 1 H1 launch a batch and no K2-K5, finite losses, and saves
     model_0000006; remove_solver_states' copy of it loads; test_net
     --seq_test over the folder evaluates exactly model_0000003 and
     model_0000006. Returns (per-path launches, numbers)."""
@@ -2276,7 +2338,7 @@ def train_cli_path(flagship, dev, card):
             if not all(math.isfinite(v) for v in losses.values()):
                 raise AssertionError(f"train CLI step {st['it'] + 1}: losses {losses}")
             st["losses"] = losses
-        if n["resize_normalize_pad"] != 2 * len(marks) or len(marks) != run_b - run_a or \
+        if n["resize_normalize_pad"] != len(marks) or len(marks) != run_b - run_a or \
                 n["roi_align"] != 7 * len(steps) or n["roi_align_bwd"] != 7 * len(steps):
             raise AssertionError(f"train CLI run B: launches {n} for {len(marks)} batches")
         # steps 5-6: from the request of step 5's batch to the end of step 6's work
@@ -2926,7 +2988,7 @@ def main() -> int:
         "small_train_check": small_train,
         "card": card,
     })
-    h1 = evalcli["h1"]["queries"]
+    h1 = evalcli["h1"]
     kernels.append({
         "name": "resize_normalize_pad",
         "route": "cuda",
@@ -2934,19 +2996,26 @@ def main() -> int:
         "replaces": H1_REPLACES,
         "launches": paths["eval CLI (test_net)"]["resize_normalize_pad"],
         "launches_by_path": {label: n["resize_normalize_pad"] for label, n in paths.items()},
-        "launches_per_batch": 2,
-        "shape": "8 VOC-sized uint8 queries (500x375 / 375x500) -> (8, 832, 1216, 3) or "
-                 "(8, 1216, 832, 3) float32, resized to 800x1066 / 1066x800",
-        "max_abs_err": evalcli["h1"]["max_abs_err"],
+        "launches_per_batch": 1,
+        "shape": "one launch per batch: 8 VOC-sized uint8 queries (500x375 / 375x500) -> "
+                 "(8, 832, 1216, 3) or (8, 1216, 832, 3) float32, resized to 800x1066 / "
+                 "1066x800, and their 8 supports -> (8, 416, 416, 3)",
+        "max_abs_err": h1["max_abs_err"],
         "tolerance": "0 (bit for bit, every case)",
-        "ms": h1["ms"],
-        "plain_ms": h1["plain_ms"],
-        "bound_ms": h1["bound_ms"],
+        "ms": h1["batch"]["device_ms"] or h1["batch"]["b2b_ms"],
+        "ms_by": "torch.profiler, device time of the launch" if h1["batch"]["device_ms"]
+                 else "CUDA events, back to back (the profiler kept no kernel record)",
+        "host_ms": h1["batch"]["host_ms"],
+        "one_call_ms": h1["batch"]["one_call_ms"],
+        "plain_ms": h1["queries"]["plain_ms"] + h1["supports"]["plain_ms"],
+        "bound_ms": h1["batch"]["bound_ms"],
         "bound_by": "bytes",
-        "bound_share": h1["bound_share"],
-        "library_ms": h1["library_ms"],
-        "library": "8 x torch.nn.functional.interpolate(bilinear, antialias=True), resize only",
-        "supports": evalcli["h1"]["supports"],
+        "bound_share": h1["batch"]["bound_share"],
+        "library_ms": h1["queries"]["library_ms"] + h1["supports"]["library_ms"],
+        "library": "16 x torch.nn.functional.interpolate(bilinear, antialias=True) (the "
+                   "queries and the supports), resize only",
+        "queries": h1["queries"],
+        "supports": h1["supports"],
         "cli": evalcli["cli"],
         "loader": evalcli["loader"],
         "launches_train_cli_run_b": paths["train CLI run B"]["resize_normalize_pad"],

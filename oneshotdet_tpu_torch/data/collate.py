@@ -6,9 +6,10 @@ Per batch the collator picks the smallest query bucket of
 rounded up to 32), puts the supports in ``cfg.TPU.SUPP_BUCKET`` and pads the
 GT boxes to ``cfg.TPU.MAX_GT_BOXES`` with validity masks.
 
-The query pixels of a batch come from one ``resize_normalize_pad`` call
-and the supports' from another, on the collator's device (default "cuda";
-on the card, one kernel launch each, fed by one pinned uint8 upload each).
+The query and support pixels of a batch come from one
+``resize_normalize_pad_slots`` call on the collator's device (default
+"cuda"; on the card, one kernel launch for both, fed by one pinned upload
+of the batch's uint8 sources and their meta).
 ``query_pixels`` and ``supp_pixels`` are torch tensors on that device;
 sizes, ids and GT stay numpy arrays on the host. ``TPU.HOST_S2D`` is
 ignored: the port's stem takes (B, H, W, 3) pixels.
@@ -16,12 +17,12 @@ ignored: the port's stem takes (B, H, W, 3) pixels.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.resize import pack_images, resize_normalize_pad
+from ..ops.resize import pack_images, resize_normalize_pad_slots, slot
 
 
 def _pick_bucket(shapes, buckets):
@@ -35,12 +36,16 @@ def _pick_bucket(shapes, buckets):
     return (r(max_h), r(max_w))
 
 
-def _pixels(imgs: List[dict], bucket, device) -> torch.Tensor:
-    """One resize_normalize_pad call for the batch's images of one kind
-    (one transform made them all, so the first gives the normalization)."""
-    packed = pack_images([im["u8"] for im in imgs], [im["out_hw"] for im in imgs], device)
-    first = imgs[0]
-    return resize_normalize_pad(packed, bucket, first["mean"], first["std"], first["to_bgr255"])
+def _pixels(kinds: List[List[dict]], buckets, device) -> Tuple[torch.Tensor, ...]:
+    """One resize_normalize_pad_slots call for the batch's images of every
+    kind, each kind into its bucket (one transform made a kind's images, so
+    its first gives the normalization)."""
+    imgs = [im for kind in kinds for im in kind]
+    packed = pack_images([im["u8"] for im in imgs], [im["out_hw"] for im in imgs], device,
+                         outputs=[o for o, kind in enumerate(kinds) for _ in kind])
+    slots = [slot(bucket, kind[0]["mean"], kind[0]["std"], kind[0]["to_bgr255"])
+             for kind, bucket in zip(kinds, buckets)]
+    return resize_normalize_pad_slots(packed, slots)
 
 
 class BatchCollator:
@@ -70,10 +75,11 @@ class BatchCollator:
         supports = [s for it in items for s in it["img_supp"]]
         supp_hw = _pick_bucket([s["out_hw"] for s in supports], [self.supp_bucket])
         gts = [self._gt(it) for it in items]
+        query_pixels, supp_pixels = _pixels([queries, supports], [query_hw, supp_hw], self.device)
         return {
-            "query_pixels": _pixels(queries, query_hw, self.device),
+            "query_pixels": query_pixels,
             "query_sizes": np.array([q["out_hw"] for q in queries], np.float32),
-            "supp_pixels": _pixels(supports, supp_hw, self.device),
+            "supp_pixels": supp_pixels,
             "supp_sizes": np.array([s["out_hw"] for s in supports], np.float32),
             "gt_xyxy": np.stack([g[0] for g in gts]),
             "gt_valid": np.stack([g[1] for g in gts]),

@@ -32,7 +32,7 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.ops.group_norm, oneshotdet_tpu_torch.ops.roi_align_v3\n"
         "import oneshotdet_tpu_torch.ops.roi_align_v4, oneshotdet_tpu_torch.tools.tune_roi_head\n"
         "import oneshotdet_tpu_torch.tools.tune_roialign_v3, oneshotdet_tpu_torch.tools.ablate_v4\n"
-        "import oneshotdet_tpu_torch.tools.ablate_roi_align\n"
+        "import oneshotdet_tpu_torch.tools.ablate_roi_align, oneshotdet_tpu_torch.tools.ablate_resize\n"
         "import oneshotdet_tpu_torch.ops.resize, oneshotdet_tpu_torch.data.build\n"
         "import oneshotdet_tpu_torch.data.image_io, oneshotdet_tpu_torch.tools.test_net\n"
         "import oneshotdet_tpu_torch.utils.checkpoint, oneshotdet_tpu_torch.utils.logger\n"
@@ -64,6 +64,7 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/tools/ablate_v4.py",
                  "oneshotdet_tpu_torch/tools/tune_roi_head.py",
                  "oneshotdet_tpu_torch/tools/ablate_roi_align.py",
+                 "oneshotdet_tpu_torch/tools/ablate_resize.py",
                  "oneshotdet_tpu_torch/ops/resize.py", "oneshotdet_tpu_torch/data/build.py",
                  "oneshotdet_tpu_torch/data/collate.py",
                  "oneshotdet_tpu_torch/data/datasets/coco.py",

@@ -162,3 +162,131 @@ def test_wrapper_dispatch_and_checks():
         resize.pack_images([src], [(0, 8)], "cpu")
     with pytest.raises(ValueError, match="3 values"):
         resize.resize_normalize_pad(packed, (8, 8), [1.0, 2.0], STD_1)
+
+
+# -- one launch for several outputs (the collator's queries and supports) -------------
+
+# (source (h0, w0), target (oh, ow)) of a batch's queries and supports: the
+# supports' bucket differs from the queries'
+QUERIES = [((375, 500), (800, 1066)), ((500, 375), (1066, 800)), ((37, 53), (101, 147))]
+SUPPORTS = [((120, 300), (160, 400)), ((294, 218), (269, 200)), ((9, 1), (27, 3))]
+SLOTS = {"queries": (1216, 1216), "supports": (416, 416)}
+
+
+def _batch_sources(seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for (h, w), _ in QUERIES + SUPPORTS]
+
+
+@pytest.mark.parametrize("norms", [("bgr255", "bgr255"), ("bgr255", "rgb01 std"),
+                                   ("rgb01 std", "bgr255")])
+def test_slots_plain_equals_uncontracted_native_pass(uncontracted_lib, norms):
+    srcs = _batch_sources(11)
+    targets = [t for _, t in QUERIES + SUPPORTS]
+    outputs = [0] * len(QUERIES) + [1] * len(SUPPORTS)
+    packed = resize.pack_images(srcs, targets, "cpu", outputs=outputs)
+    specs = [(NORMS[n][1], NORMS[n][2], NORMS[n][0]) for n in norms]
+    slots = [resize.slot(SLOTS[kind], *spec) for kind, spec in zip(SLOTS, specs)]
+    got = resize.resize_normalize_pad_slots(packed, slots)
+    assert [tuple(g.shape) for g in got] == [(3, 1216, 1216, 3), (3, 416, 416, 3)]
+    for i, (src, out_hw, o) in enumerate(zip(srcs, targets, outputs)):
+        mean, std, bgr = specs[o]
+        want = _native(uncontracted_lib, src, out_hw, SLOTS[list(SLOTS)[o]], mean, std, bgr)
+        k = i - outputs.index(o)
+        np.testing.assert_array_equal(got[o][k].numpy().view(np.int32), want.view(np.int32))
+
+
+def test_slots_plain_equals_one_output_calls():
+    srcs = _batch_sources(12)
+    targets = [t for _, t in QUERIES + SUPPORTS]
+    n = len(QUERIES)
+    both = resize.pack_images(srcs, targets, "cpu", outputs=[0] * n + [1] * len(SUPPORTS))
+    slots = (resize.slot(SLOTS["queries"], MEAN_BGR, STD_1, True),
+             resize.slot(SLOTS["supports"], MEAN_RGB, STD_RGB, False))
+    got = resize.resize_normalize_pad_slots_plain(both, slots)
+    queries = resize.resize_normalize_pad_plain(resize.pack_images(srcs[:n], targets[:n], "cpu"),
+                                                SLOTS["queries"], MEAN_BGR, STD_1, True)
+    supports = resize.resize_normalize_pad_plain(
+        resize.pack_images(srcs[n:], targets[n:], "cpu"), SLOTS["supports"], MEAN_RGB, STD_RGB,
+        False)
+    for g, w in zip(got, (queries, supports)):
+        np.testing.assert_array_equal(g.numpy().view(np.int32), w.numpy().view(np.int32))
+
+
+def test_pack_meta_layout_and_slot_checks():
+    srcs = _batch_sources(13)[:4]
+    targets = [t for _, t in (QUERIES + SUPPORTS)[:4]]
+    packed = resize.pack_images(srcs, targets, "cpu", outputs=[0, 0, 1, 1])
+    assert packed.meta.shape == (4, resize.META_FIELDS) and packed.meta.dtype == torch.int64
+    assert packed.outputs == (0, 0, 1, 1) and len(packed) == 4
+    # meta and sources share one buffer: one upload on the card
+    assert packed.meta.untyped_storage().data_ptr() == packed.pixels.untyped_storage().data_ptr()
+    offsets = np.cumsum([0] + [s.size for s in srcs[:-1]])
+    for i, (src, (oh, ow), row) in enumerate(zip(srcs, targets, packed.meta.tolist())):
+        assert row == [offsets[i], *src.shape[:2], oh, ow, [0, 0, 1, 1][i], [0, 1, 0, 1][i]]
+        np.testing.assert_array_equal(
+            packed.pixels[row[0]:row[0] + src.size].numpy().reshape(src.shape), src)
+    slots = (resize.slot((1216, 1216), MEAN_BGR, STD_1), resize.slot((416, 416), MEAN_BGR, STD_1))
+    with pytest.raises(ValueError, match="count up from 0"):
+        resize.pack_images(srcs, targets, "cpu", outputs=[0, 1, 0, 1])
+    with pytest.raises(ValueError, match="count up from 0"):
+        resize.pack_images(srcs, targets, "cpu", outputs=[1, 1, 1, 1])
+    with pytest.raises(ValueError, match="count up from 0"):
+        resize.pack_images(srcs, targets, "cpu", outputs=[0, 0, 1])
+    with pytest.raises(ValueError, match="2 outputs, 1 slots"):
+        resize.resize_normalize_pad_slots(packed, slots[:1])
+    with pytest.raises(ValueError, match="2 outputs, 1 slots"):
+        resize.resize_normalize_pad(packed, (1216, 1216), MEAN_BGR, STD_1)
+    with pytest.raises(ValueError, match="exceeds the slot"):
+        resize.resize_normalize_pad_slots(packed, (slots[0], resize.slot((100, 416), MEAN_BGR,
+                                                                         STD_1)))
+    with pytest.raises(ValueError, match="resize.slot"):
+        resize.resize_normalize_pad_slots(packed, ((1216, 1216), (416, 416)))
+    with pytest.raises(ValueError, match="3 values"):
+        resize.slot((416, 416), MEAN_BGR, [1.0, 1.0])
+    with pytest.raises(ValueError, match="CUDA"):
+        resize.resize_normalize_pad_slots_cuda(packed, slots)
+
+
+def _parent_accepts(h0, w0, oh, ow):
+    """The refusal of the first kernel's wrapper: a 32 x 8 tile's filter
+    table and a 16-row chunk in a block's shared memory."""
+    kw, kh = resize.filter_size(w0, ow), resize.filter_size(h0, oh)
+    return (32 * kw + 8 * kh) * 8 + 16 * 32 * 3 * 4 <= 232448 - 1024
+
+
+SIZES = (1, 2, 3, 7, 40, 300, 1000, 1750, 3000, 9000)
+
+
+@pytest.mark.parametrize("h0", SIZES)
+def test_launch_plan_takes_what_the_first_kernel_took(h0):
+    for w0 in SIZES:
+        for oh in (1, 2, 5, 100, 800, 1066):
+            for ow in (1, 2, 7, 100, 1200):
+                if not _parent_accepts(h0, w0, oh, ow):
+                    continue
+                plan = resize.launch_plan([(h0, w0, oh, ow)])
+                assert plan.smem <= resize.DYNAMIC_LIMIT
+                assert plan.strip in (1, 2, 4, 8, 16, 32, 64)
+                assert plan.row_filters in (resize.RUN_MAX, resize.GROUP)
+                for v in (plan.ring_rows, plan.stage_rows):
+                    assert v >= 1 and v & (v - 1) == 0
+                assert all(o % 16 == 0 for o in plan.offsets) and plan.row_bytes % 16 == 0
+                assert plan.offsets == tuple(sorted(plan.offsets))
+
+
+@pytest.mark.parametrize("in_size,out_size", [(375, 800), (500, 1066), (294, 269), (3000, 300),
+                                              (1, 5), (300, 2), (37, 811), (1780, 1), (97, 17)])
+def test_span_bound_covers_the_filters(in_size, out_size):
+    # the kernel stages [first of a strip's first column, end of its last)
+    # in row_bytes and holds a group's source rows in the ring: both sized
+    # from _span, which must cover every run of n consecutive filters
+    first, count, _ = resize.filters(in_size, out_size)
+    end = first + count
+    for n in (1, 2, resize.GROUP, 16, resize.STRIP_MAX):
+        n = min(n, out_size)
+        spans = end[n - 1:] - first[:out_size - n + 1]
+        assert int(spans.max()) <= resize._span(in_size, out_size, n)
+    assert int(count.max()) <= resize.filter_size(in_size, out_size)
+    # first taps and ends ascend (the kernel's ring walks rows in order)
+    assert bool((first[1:] >= first[:-1]).all()) and bool((end[1:] >= end[:-1]).all())
