@@ -51,11 +51,20 @@ pair and from the ExportedProgram pair against OneShotPredictor on phase 4's
 support and frames -- bit for bit for the ExportedProgram route, paired within
 one bf16 ulp for the compiled one -- with K1, and K3 with the
 fused head, counted from inside the loaded programs; export, compile and
-load seconds, file sizes, ms per frame, peak memory) -- and checks small float32
-forwards and a small float32 train step on the card against the same model
-on the CPU. Every kernel's launch count is set to 0 before each path and
-read after it. Any failure raises and exits non-zero. The last two lines of
-stdout are the per-kernel JSON line and {"ok": true, "device": {...}}.
+load seconds, file sizes, ms per frame, peak memory), and the training
+variants (phase 11: three configs that between them turn on artificial
+proposals, soft labels, the mse, cxe and focal class losses, 'rn', remat,
+AdaBound, the reverse-order pass, linear fusion and negative supports, each
+trained at full width with 7 K1 and 7 K1b launches a step, 8 and 8 with
+negative supports, and peak memory with and without remat; the same configs'
+small float32 steps on the card against the CPU; K3 against its plain
+version at 9 and 14 predictor columns; the fused eval forward of the
+neg-support focal model with 1 K3 launch and of the linear-fusion model with
+none) -- and checks small float32 forwards and a small float32 train step on
+the card against the same model on the CPU. Every kernel's launch count is
+set to 0 before each path and read after it. Any failure raises and exits
+non-zero. The last two lines of stdout are the per-kernel JSON line and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2662,6 +2671,402 @@ def artifact_path(flagship, dev, card, supp, frames):
     return paths, out
 
 
+# phase 11: the training variants, each config's cfg overrides; "neg" feeds
+# negative supports (a second episode batch's supports) to forward_train and
+# "adabound" steps the config by the port's AdaBound
+VARIANTS = {
+    "art + soft transLinear + mse + rn + remat": dict(opts=[
+        "FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS", True, "FEW_SHOT.SOFT_LABELING", True,
+        "FEW_SHOT.SOFT_LABELING_FUNC", "transLinear", "FEW_SHOT.SECOND_STAGE_CLS_LOSS",
+        "mse_loss", "FEW_SHOT.SECOND_STAGE_METHOD", "rn", "TPU.REMAT_BACKBONE", True],
+        neg=False, adabound=True, extra=None),
+    "reverse order + cxe + linear fusion": dict(opts=[
+        "FEW_SHOT.REVERSE_ORDER", True, "FEW_SHOT.SECOND_STAGE_CLS_LOSS", "cxe_loss",
+        "FEW_SHOT.LINEAR_FUSION", True], neg=False, adabound=False, extra="loss_reverse"),
+    "neg support + focal": dict(opts=[
+        "FEW_SHOT.NEG_SUPPORT.TURN_ON", True, "FEW_SHOT.SECOND_STAGE_CLS_LOSS", "focal_loss"],
+        neg=True, adabound=False, extra="loss_cls_suppress"),
+}
+VARIANT_WARMUP, VARIANT_STEPS = 1, 2
+# K3 at the variants' predictor widths: (ncls, nreg) -> ncls + 4 nreg columns
+HEAD_WIDTHS = {9: (1, 2), 14: (2, 3)}
+HEAD_WIDTH_CASES = ((16000, 2000), (4096, 512))
+
+
+def variant_cfg(cfg_path, opts, small=False):
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(cfg_path)
+    cfg.merge_from_list((SMALL if small else []) + list(opts))
+    return cfg
+
+
+def variant_step(model, optimizer, scheduler, batch, neg_batch, gen, dev):
+    """One update of a variant config: ``engine.train_step`` or, with
+    negative supports, ``forward_train`` with them and the same backward,
+    optimizer and scheduler steps. Returns the detached losses."""
+    from oneshotdet_tpu_torch.engine import batch_to_inputs, train_step
+
+    if neg_batch is None:
+        return train_step(model, optimizer, scheduler, batch, gen)
+    images, supp, targets = batch_to_inputs(batch, dev)
+    optimizer.zero_grad(set_to_none=True)
+    losses = model.forward_train(images, supp, targets, generator=gen,
+                                 images_neg_supp=batch_to_inputs(neg_batch, dev)[1])
+    sum(losses.values()).backward()
+    optimizer.step()
+    scheduler.step()
+    return {k: v.detach() for k, v in losses.items()}
+
+
+def variant_full_width(cfg_path, dev, card, label, spec):
+    """Phase 11a: one variant config at full width (the flagship, bf16, batch
+    8, 832x1216 queries, 416x416 supports, seed-1 weights, fresh episodes):
+    VARIANT_WARMUP + VARIANT_STEPS steps; finite losses with the expected
+    keys, a non-zero gradient on the support backbone's layer4 (reached only
+    through K1b), 7 K1 and 7 K1b launches per step (8 and 8 with negative
+    supports); ms/step over the timed steps; peak memory of one step, and
+    with remat the same step without it."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.solver import make_lr_scheduler, make_optimizer, make_param_groups
+    from oneshotdet_tpu_torch.solver.adabound import AdaBound
+    from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
+
+    cfg = variant_cfg(cfg_path, spec["opts"])
+    steps = VARIANT_WARMUP + VARIANT_STEPS
+    batches = [make_episodic_batch(BATCH, QUERY_HW, SUPP_HW, max_gt=cfg.TPU.MAX_GT_BOXES,
+                                   seed=300 + i) for i in range(steps + 1)]
+    negs = [make_episodic_batch(BATCH, QUERY_HW, SUPP_HW, max_gt=cfg.TPU.MAX_GT_BOXES,
+                                seed=400 + i) for i in range(steps + 1)] if spec["neg"] \
+        else [None] * (steps + 1)
+    model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    model.train()
+    if spec["adabound"]:
+        optimizer = AdaBound(make_param_groups(cfg, model), lr=cfg.SOLVER.BASE_LR)
+    else:
+        optimizer = make_optimizer(cfg, model)
+    scheduler = make_lr_scheduler(cfg, optimizer)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    per_step = 8 if spec["neg"] else 7
+    keys = {"loss_cls", "loss_reg", "loss_centerness", "loss_classifier", "loss_box_reg"}
+    if spec["extra"]:
+        keys.add(spec["extra"])
+    reset_launches()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(steps)]
+    history = []
+    t0 = None
+    for i, ((start, end), batch, neg) in enumerate(zip(events, batches, negs)):
+        if i == VARIANT_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        start.record()
+        history.append(variant_step(model, optimizer, scheduler, batch, neg, gen, dev))
+        end.record()
+        if i == 0:
+            supp4 = [p.grad for n, p in model.named_parameters()
+                     if n.startswith("supp_backbone.body.layer4.")]
+            norm = math.sqrt(sum(float(g.float().norm()) ** 2 for g in supp4 if g is not None))
+            if not (len(supp4) and all(g is not None for g in supp4) and norm > 0
+                    and math.isfinite(norm)):
+                raise AssertionError(f"variant {label}: support backbone layer4 gradient "
+                                     f"norm {norm}")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / VARIANT_STEPS
+    launches = read_launches()
+    if launches["roi_align"] != per_step * steps or launches["roi_align_bwd"] != per_step * steps:
+        raise AssertionError(f"variant {label}: {launches['roi_align']} K1 and "
+                             f"{launches['roi_align_bwd']} K1b launches in {steps} steps, "
+                             f"expected {per_step * steps} each")
+    losses = [{k: float(v) for k, v in m.items()} for m in history]
+    for i, m in enumerate(losses):
+        if set(m) - {"loss_total"} != keys:
+            raise AssertionError(f"variant {label} step {i + 1}: loss keys {sorted(m)}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"variant {label} step {i + 1}: non-finite losses {m}")
+    event_ms = sorted(a.elapsed_time(b) for a, b in events[VARIANT_WARMUP:])
+    out = dict(ms_per_step=wall * 1e3, event_ms=event_ms, losses=losses,
+               k1_per_step=launches["roi_align"] // steps,
+               k1b_per_step=launches["roi_align_bwd"] // steps,
+               supp_layer4_grad_norm=norm, optimizer=type(optimizer).__name__)
+    # peak memory of one step on the same batch, with remat and (for a remat
+    # config) without it
+    remat = model.config.remat_backbone
+    for on in ((True, False) if remat else (False,)):
+        model.config = dataclasses.replace(model.config, remat_backbone=on)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        variant_step(model, optimizer, scheduler, batches[-1], negs[-1], gen, dev)
+        torch.cuda.synchronize()
+        out["peak_gib_remat" if on else "peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    mem = f"peak memory {out['peak_gib']:.2f} GiB"
+    if remat:
+        mem = (f"peak memory {out['peak_gib_remat']:.2f} GiB with remat, {out['peak_gib']:.2f} "
+               f"GiB without it on the same batch")
+    log(f"train variant '{label}', flagship bf16, batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]}, "
+        f"{type(optimizer).__name__}: {wall * 1e3:.1f} ms/step by the host clock over "
+        f"{VARIANT_STEPS} steps (CUDA events {', '.join(f'{x:.1f}' for x in event_ms)} ms); "
+        f"{mem}; {out['k1_per_step']} K1 and {out['k1b_per_step']} K1b launches per step; "
+        f"losses {losses[-1]} [{card}]")
+    del model, optimizer, scheduler, batches, negs
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+# The float32 gradients of two runs that round differently can take the
+# other branch of a ReLU (or leaky ReLU) where its input lies within rounding
+# of 0: with the supports' 2 x 2 layer4 maps at 64 x 64, one such element
+# can move a parameter's gradient past the 1e-3 bound. ``follow_kinks``
+# makes the card's backward take the CPU's branch there (inputs within
+# KINK_REL x the tensor's largest magnitude of 0) and counts the elements.
+KINK_REL = 1e-4
+
+
+class _KinkAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, slope, positive):
+        ctx.save_for_backward(positive)
+        ctx.slope = slope
+        return torch.where(x > 0, x, x * slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (positive,) = ctx.saved_tensors
+        return torch.where(positive, g, g * ctx.slope), None, None
+
+
+class follow_kinks:
+    """Patch ``F.relu`` and ``F.leaky_relu`` (every activation of the model,
+    ``nn.ReLU`` and ``nn.LeakyReLU`` included) for one run. With
+    ``recorded`` None, record each call's input (CPU copies, in call
+    order); else take the recorded run's branch where this run's input is
+    within KINK_REL x its largest magnitude of 0, and count in ``taken`` the
+    elements whose branch that changed."""
+
+    def __init__(self, recorded=None):
+        self.recorded = recorded
+        self.calls = []
+        self.taken = 0
+
+    def _act(self, x, slope, inplace=False):
+        if self.recorded is None:
+            self.calls.append(x.detach().cpu())
+            return self._orig[slope > 0](x, slope) if slope else self._orig[False](x)
+        ref = self.recorded[len(self.calls)].to(x.device)
+        self.calls.append(None)
+        own = x.detach() > 0
+        near = x.detach().abs() <= KINK_REL * x.detach().abs().max()
+        positive = torch.where(near, ref > 0, own)
+        self.taken += int((positive != own).sum())
+        return _KinkAct.apply(x, float(slope), positive)
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self._orig = {False: F.relu, True: F.leaky_relu}
+        F.relu = lambda x, inplace=False: self._act(x, 0.0)
+        F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self._act(x, negative_slope)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.relu, F.leaky_relu = self._orig[False], self._orig[True]
+
+
+def variant_small_check(cfg_path, dev, label, spec):
+    """Phase 11b: the variant config's float32 train step at the tier-1
+    tests' SMALL capacities (batch 2, 128x160 queries, 64x64 supports) on the
+    card and on the CPU: the same weights, batch, artificial jitters, draws
+    and negative supports; TF32 and cuDNN off; the card's activations
+    differentiated at the CPU's branch within rounding of their kink
+    (``follow_kinks``). Losses within rtol 1e-4, each parameter's gradient
+    within 1e-3 relative norm."""
+    from oneshotdet_tpu_torch.engine import batch_to_inputs
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.models.roi_head import draw_art_offsets
+    from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
+
+    cfg = variant_cfg(cfg_path, spec["opts"], small=True)
+    batch = make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=31)
+    neg = make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=32) if spec["neg"] else None
+    cpu = build_detection_model(cfg, device="cpu")
+    distinct_weights_(cpu, torch.Generator().manual_seed(33))
+    g, post = cfg.TPU.MAX_GT_BOXES, cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN
+    n = min(1000, 13 * g + post) if cfg.FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS else post + g
+    gen = torch.Generator().manual_seed(34)
+    art = draw_art_offsets((2, g), gen, "cpu")
+    draws = torch.rand((2, n), generator=gen)
+
+    def step(model, d, kinks):
+        model.train()
+        with kinks:
+            losses = model.forward_train(
+                *batch_to_inputs(batch, d), draws=draws.to(d), art_offsets=art.to(d),
+                images_neg_supp=batch_to_inputs(neg, d)[1] if neg is not None else None)
+            sum(losses.values()).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {n_: p.grad.detach().cpu() for n_, p in model.named_parameters()
+                 if p.grad is not None})
+
+    record = follow_kinks()
+    lc, gc = step(cpu, "cpu", record)
+    gpu = build_detection_model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    follow = follow_kinks(record.calls)
+    torch.backends.cudnn.enabled = False
+    try:
+        lg, gg = step(gpu, dev, follow)
+    finally:
+        torch.backends.cudnn.enabled = True
+    del gpu, record
+    if len(follow.calls) != len(follow.recorded):
+        raise AssertionError(f"small variant step '{label}': {len(follow.calls)} activations on "
+                             f"the card, {len(follow.recorded)} on the CPU")
+    if gc.keys() != gg.keys() or lc.keys() != lg.keys():
+        raise AssertionError(f"small variant step '{label}': card and CPU differ in their "
+                             f"losses or in which parameters have gradients")
+    loss_rel = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+    rel = sorted(((float((gg[k] - v).norm() / v.norm().clamp(min=1e-30)), k)
+                  for k, v in gc.items() if float(v.norm()) > 0), reverse=True)
+    log(f"small float32 train step '{label}', card against CPU (cuDNN off, TF32 off): losses "
+        f"within {loss_rel:.2e} relative, worst gradient {rel[0][0]:.2e} relative norm "
+        f"({rel[0][1]}); {follow.taken} activation elements at the CPU's branch "
+        f"(within {KINK_REL} x scale of the kink); losses {lc}")
+    if loss_rel > 1e-4 or rel[0][0] > 1e-3:
+        raise AssertionError(f"small variant step '{label}': losses {loss_rel:.2e} (rtol 1e-4), "
+                             f"gradients {rel[0][0]:.2e} (bound 1e-3)")
+    return dict(loss_rel=loss_rel, grad_rel=rel[0][0], grad_worst=rel[0][1],
+                kink_elements_taken=follow.taken)
+
+
+def head_width_checks(dev):
+    """Phase 11c: the fused head K3 against its plain version at the
+    variants' predictor widths, 9 (focal, mse, l1) and 14 (focal with
+    negative supports, 'rn' with mse or l1) columns, at R = 16 000 and 4096,
+    f32 and bf16 (HEAD_TOL), with times, plain times and the bound
+    (``head_work`` at that width)."""
+    from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead
+    from oneshotdet_tpu_torch.ops import roi_head_fused as rf
+
+    gen = torch.Generator().manual_seed(41)
+    results = {}
+    for cols, (ncls, nreg) in HEAD_WIDTHS.items():
+        head = ROIBoxHead(num_classes=ncls, num_bbox_reg=nreg)
+        distinct_weights_(head, gen)
+        head = head.to(dev).eval()
+        packed = rf.pack_roi_head_params(head)
+        for r, per_image in HEAD_WIDTH_CASES:
+            b = r // per_image
+            x32 = torch.randn(r, 7, 7, 256, generator=gen).to(dev)
+            s32 = torch.randn(b, 7, 7, 256, generator=gen).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, supp = x32.to(dtype), s32.to(dtype)
+                ops = rf.kernel_operands(packed, dtype)
+                with torch.inference_mode():
+                    kl, kd = rf.fused_roi_head_cuda(x, supp, ops, per_image)
+                    torch.cuda.synchronize()
+                    pl, pd = rf.fused_roi_head_plain(x, supp, ops, per_image)
+                if kl.shape != (r, ncls) or kd.shape != (r, 4 * nreg):
+                    raise AssertionError(f"roi_head {cols} columns: outputs {tuple(kl.shape)}, "
+                                         f"{tuple(kd.shape)}")
+                err = max(float((kl - pl).abs().max()), float((kd - pd).abs().max()))
+                tol = HEAD_TOL[dtype]
+                name = f"{cols} columns R={r} ({b} x {per_image}) {str(dtype)[6:]}"
+                if not (err <= tol and torch.isfinite(kl).all() and torch.isfinite(kd).all()):
+                    raise AssertionError(f"roi_head {name}: max abs err {err:.3e} "
+                                         f"(tolerance {tol})")
+                reps = 10 if dtype == torch.bfloat16 else 5
+                with torch.inference_mode():
+                    ms = time_ms(lambda: rf.fused_roi_head_cuda(x, supp, ops, per_image),
+                                 reps=reps)
+                    plain_ms = time_ms(lambda: rf.fused_roi_head_plain(x, supp, ops, per_image),
+                                       reps=3, warmup=1)
+                nbytes, flops = head_work(r, b, ops)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                if dtype == torch.bfloat16:
+                    t_ops, ops_by = flops / BF16_OPS_PER_S * 1e3, "operations"
+                else:
+                    t_fma, t_3x = flops / FP32_OPS_PER_S * 1e3, 3 * flops / TF32_OPS_PER_S * 1e3
+                    t_ops = min(t_fma, t_3x)
+                    ops_by = "3xtf32 ops" if t_3x <= t_fma else "fma ops"
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else ops_by
+                log(f"roi_head {name}: max abs err {err:.3e} (tolerance {tol} abs); kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+                    f"{nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} TFLOP), kernel at "
+                    f"{100 * bound / ms:.1f}% of its bound")
+                results[f"{cols} columns, R={r}, {str(dtype)[6:]}"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                del kl, kd, pl, pd, x, supp
+        del head
+        torch.cuda.empty_cache()
+    return results
+
+
+def variant_fused_forwards(cfg_path, dev, card):
+    """Phase 11c: one fused eval forward (batch 8, 832x1216, bf16, phase 5's
+    batch) of the neg-support model with the focal loss (14 predictor
+    columns: 1 K3 launch, 7 K1) and of the linear-fusion model (the JAX
+    package's gate: 0 K3 launches, 7 K1); detections checked."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+
+    images, supps = phase5_batch(dev)
+    out, paths = {}, {}
+    for label, opts, want in (
+            ("neg support + focal", VARIANTS["neg support + focal"]["opts"], 1),
+            ("linear fusion", ["FEW_SHOT.LINEAR_FUSION", True], 0)):
+        cfg = variant_cfg(cfg_path, opts)
+        model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        model.config = dataclasses.replace(model.config, fused_roi_head=True)
+        model(images, supps)                                  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        dets = model(images, supps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = read_launches()
+        if n["roi_head"] != want or n["roi_align"] != 7:
+            raise AssertionError(f"fused eval forward, {label}: {n['roi_head']} K3 and "
+                                 f"{n['roi_align']} K1 launches, expected {want} and 7")
+        check_detections(dets, BATCH, min(cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+                                          cfg.TPU.EVAL_ROI_TOPK
+                                          or cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST),
+                         images.sizes_wh())
+        ncls = model.roi_heads.box.predictor.cls_score.out_features
+        cols = ncls + model.roi_heads.box.predictor.bbox_pred.out_features
+        log(f"fused eval forward, {label} ({cols} predictor columns): {n['roi_head']} K3 and "
+            f"{n['roi_align']} K1 launches, {ms:.1f} ms (host clock, one forward), "
+            f"{int(dets.valid.sum())} detections [{card}]")
+        paths[f"train variants: fused eval forward, {label}"] = n
+        out[label] = dict(ms=ms, k3_launches=n["roi_head"], columns=cols)
+        del model, dets
+        torch.cuda.empty_cache()
+    return out, paths
+
+
+def train_variants_path(cfg_path, dev, card):
+    """Phase 11: the training variants (a) at full width, (b) small float32
+    on the card against the CPU, (c) K3 at the variants' predictor widths
+    and in their fused eval forwards."""
+    t_phase = time.perf_counter()
+    out = {"full_width": {}, "small": {}}
+    paths = {}
+    for label, spec in VARIANTS.items():
+        out["full_width"][label], paths[f"train variants: {label}"] = variant_full_width(
+            cfg_path, dev, card, label, spec)
+    for label, spec in VARIANTS.items():
+        out["small"][label] = variant_small_check(cfg_path, dev, label, spec)
+    out["head_widths"] = head_width_checks(dev)
+    out["fused_forwards"], fused_paths = variant_fused_forwards(cfg_path, dev, card)
+    paths.update(fused_paths)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: {out['phase_s']:.1f} s")
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -2843,6 +3248,13 @@ def main() -> int:
         launches[label] = n["roi_align"]
         head_launches[label] = n["roi_head"]
 
+    # -- phase 11: the training variants -----------------------------------------
+    variant_paths, variants = train_variants_path(flagship, dev, card)
+    paths.update(variant_paths)
+    for label, n in variant_paths.items():
+        launches[label] = n["roi_align"]
+        head_launches[label] = n["roi_head"]
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -2894,6 +3306,8 @@ def main() -> int:
         "ms_f32_r4096": head_checks_result[(4096, torch.float32)]["ms"],
         "unfused_head_ms_f32_r4096": head_checks_result[(4096, torch.float32)]["unfused_ms"],
         "f32_forward": f32_cells,
+        "variant_widths": variants["head_widths"],
+        "variant_fused_forwards": variants["fused_forwards"],
         "card": card,
     }]
     k2 = gn_checks[("relu", torch.bfloat16)]
@@ -2986,6 +3400,9 @@ def main() -> int:
         "bound_ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["bound_ms"],
         "train_step": {k: v for k, v in train.items() if k != "losses"},
         "small_train_check": small_train,
+        "train_variants": {"full_width": {k: {n: v for n, v in e.items() if n != "losses"}
+                                          for k, e in variants["full_width"].items()},
+                           "small": variants["small"]},
         "card": card,
     })
     h1 = evalcli["h1"]

@@ -15,16 +15,21 @@ CUDA kernels on the card (forward and, in training, backward), the plain
 version on the CPU.
 
 ``forward_train`` is the train step's forward: the FCOS losses, proposals
-under ``no_grad`` at the train capacities with the GT boxes appended, ROI
-matching and balanced sampling, the 7x7 pool of the sampled ROIs and the
-unfused relation head on shot 0, and the stage-2 losses x5 / x2.5.
+under ``no_grad`` at the train capacities with the GT boxes appended (with
+FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS, IoU-binned jitters of the GT boxes first
+and the whole capped at 1000 real boxes), ROI matching (with soft labels
+under FEW_SHOT.SOFT_LABELING) and balanced sampling, the 7x7 pool of the
+sampled ROIs and the unfused relation head on shot 0, the reverse-order pass
+(FEW_SHOT.REVERSE_ORDER) and the negative-support pass (NEG_SUPPORT, when
+negative supports are given), and the stage-2 losses x5 / x2.5 (the extra
+term x1 or x2.5). TPU.REMAT_BACKBONE recomputes both backbones' forwards in
+the backward pass (``torch.utils.checkpoint``).
 
 A config that turns on a part not ported yet raises ``NotImplementedError``
-(see ``detector_config_from_cfg``; train-only switches raise in
-``forward_train``). The stages are ``torch.profiler.record_function`` ranges
-(query_backbone, support_backbone, support_pool, fcos_head,
-fcos_postprocess, roi_pool, roi_head, roi_postprocess), so a profiler trace
-reads the time of each.
+(see ``detector_config_from_cfg``). The stages are
+``torch.profiler.record_function`` ranges (query_backbone, support_backbone,
+support_pool, fcos_head, fcos_postprocess, roi_pool, roi_head,
+roi_postprocess), so a profiler trace reads the time of each.
 """
 
 from __future__ import annotations
@@ -37,17 +42,21 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.box_coder import BoxCoder
 from ..ops.roi_align import fpn_level_map, multilevel_roi_align, roi_align
 from ..ops.roi_head_fused import check_kernel_widths
-from ..structures.boxes import Boxes, cat_boxes, truncate_boxes
+from ..structures.boxes import Boxes, cat_boxes, compact_boxes, truncate_boxes
 from ..structures.image_batch import ImageBatch
 from .fcos import FCOSModule, compute_locations, fcos_losses, fcos_postprocess, fcos_targets
 from .fpn import ResNetFPN
 from .layers import FrozenBatchNorm, Scale
-from .roi_head import (ROIHeads, predictor_num_classes, prepare_roi_targets, roi_head_loss,
+from .roi_head import (ROIHeads, draw_art_offsets, make_artificial_proposals,
+                       predictor_num_classes, prepare_roi_targets, roi_head_loss,
                        roi_head_postprocess)
+
+ART_PROPOSAL_CAP = 1000   # real boxes kept after the artificial proposals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +87,8 @@ class DetectorConfig:
     mlp_head_dim: int = 1024
     second_stage_method: str = "concat"
     second_stage_cls_loss: str = "ce_loss"
+    linear_fusion: bool = False
+    neg_support: bool = False
     bbox_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0)
     roi_score_thresh: float = 0.0
     roi_nms_thresh: float = 0.5
@@ -100,7 +111,11 @@ class DetectorConfig:
     roi_fg_iou: float = 0.5
     roi_bg_iou: float = 0.5
     loss_weighted: bool = False
-    train_not_ported: Tuple[str, ...] = ()   # switches forward_train raises on
+    add_artificial_proposals: bool = False
+    soft_labeling: bool = False
+    soft_labeling_func: str = "linear"
+    reverse_order: bool = False
+    remat_backbone: bool = False
 
 
 def _not_ported(cfg) -> List[str]:
@@ -112,31 +127,16 @@ def _not_ported(cfg) -> List[str]:
         "MODEL.KEYPOINT_ON": c.MODEL.KEYPOINT_ON,
         "MODEL.FCOS.DENSE_POINTS!=1": c.MODEL.FCOS.DENSE_POINTS != 1,
         "FEW_SHOT.SUPP_AUG": c.FEW_SHOT.SUPP_AUG,
-        "FEW_SHOT.NEG_SUPPORT.TURN_ON": c.FEW_SHOT.NEG_SUPPORT.TURN_ON,
-        "FEW_SHOT.LINEAR_FUSION": c.FEW_SHOT.LINEAR_FUSION,
-        "FEW_SHOT.SECOND_STAGE_METHOD!=concat": c.FEW_SHOT.SECOND_STAGE_METHOD != "concat",
         "TPU.QUANT": c.TPU.QUANT != "none",
-    }
-    return [name for name, on in checks.items() if on]
-
-
-def _train_not_ported(cfg) -> List[str]:
-    """Names of the train-only switches this cfg turns on that the port's
-    ``forward_train`` does not run (the eval path does not read them)."""
-    c = cfg
-    checks = {
-        "FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS": c.FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS,
-        "FEW_SHOT.SOFT_LABELING": c.FEW_SHOT.SOFT_LABELING,
-        "FEW_SHOT.REVERSE_ORDER": c.FEW_SHOT.REVERSE_ORDER,
-        "FEW_SHOT.SECOND_STAGE_CLS_LOSS!=ce_loss": c.FEW_SHOT.SECOND_STAGE_CLS_LOSS != "ce_loss",
-        "TPU.REMAT_BACKBONE": c.TPU.REMAT_BACKBONE,
     }
     return [name for name, on in checks.items() if on]
 
 
 def detector_config_from_cfg(cfg) -> DetectorConfig:
     """Map the cfg tree onto DetectorConfig; raises NotImplementedError for
-    switches whose code is not ported yet."""
+    switches whose code is not ported yet. The fused head's opt-in
+    (ONESHOT_PALLAS_ROI_HEAD=1) is read here and holds only without linear
+    fusion, the JAX package's gate."""
     missing = _not_ported(cfg)
     if missing:
         raise NotImplementedError(
@@ -166,6 +166,8 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         mlp_head_dim=cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM,
         second_stage_method=cfg.FEW_SHOT.SECOND_STAGE_METHOD,
         second_stage_cls_loss=cfg.FEW_SHOT.SECOND_STAGE_CLS_LOSS,
+        linear_fusion=cfg.FEW_SHOT.LINEAR_FUSION,
+        neg_support=cfg.FEW_SHOT.NEG_SUPPORT.TURN_ON,
         bbox_reg_weights=tuple(cfg.MODEL.ROI_HEADS.BBOX_REG_WEIGHTS),
         roi_score_thresh=cfg.MODEL.ROI_HEADS.SCORE_THRESH,
         roi_nms_thresh=cfg.MODEL.ROI_HEADS.NMS,
@@ -173,7 +175,8 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         eval_roi_topk=cfg.TPU.EVAL_ROI_TOPK,
         supp_roialign=cfg.FEW_SHOT.SUPP_ROIALIGN,
         # the JAX package's opt-in, read once here
-        fused_roi_head=os.environ.get("ONESHOT_PALLAS_ROI_HEAD") == "1",
+        fused_roi_head=(os.environ.get("ONESHOT_PALLAS_ROI_HEAD") == "1"
+                        and not cfg.FEW_SHOT.LINEAR_FUSION),
         center_sample=cfg.MODEL.FCOS.CENTER_SAMPLE,
         pos_radius=cfg.MODEL.FCOS.POS_RADIUS,
         loc_loss_type=cfg.MODEL.FCOS.LOC_LOSS_TYPE,
@@ -188,7 +191,11 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         roi_fg_iou=cfg.MODEL.ROI_HEADS.FG_IOU_THRESHOLD,
         roi_bg_iou=cfg.MODEL.ROI_HEADS.BG_IOU_THRESHOLD,
         loss_weighted=cfg.FEW_SHOT.LOSS_WEIGHTED,
-        train_not_ported=tuple(_train_not_ported(cfg)),
+        add_artificial_proposals=cfg.FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS,
+        soft_labeling=cfg.FEW_SHOT.SOFT_LABELING,
+        soft_labeling_func=cfg.FEW_SHOT.SOFT_LABELING_FUNC,
+        reverse_order=cfg.FEW_SHOT.REVERSE_ORDER,
+        remat_backbone=cfg.TPU.REMAT_BACKBONE,
     )
 
 
@@ -222,18 +229,24 @@ class GeneralizedRCNN(nn.Module):
                               num_levels=len(c.fpn_strides))
         if not c.rpn_only:
             ncls, nreg = predictor_num_classes(c.second_stage_method,
-                                               c.second_stage_cls_loss, False)
+                                               c.second_stage_cls_loss, c.neg_support)
             self.roi_heads = ROIHeads(
                 in_channels=c.out_channels, resolution=c.pooler_resolution,
                 representation_size=c.mlp_head_dim, num_classes=ncls,
-                num_bbox_reg=nreg)
+                num_bbox_reg=nreg, linear_fusion=c.linear_fusion)
 
     # -- helpers ----------------------------------------------------------
 
     def _pyramid(self, net: nn.Module, pixels: torch.Tensor):
-        """NHWC pixels -> P3..P7 as channels_last NCHW in ``self.dtype``."""
-        x = pixels.permute(0, 3, 1, 2).to(self.dtype)
-        return net(x.contiguous(memory_format=torch.channels_last))
+        """NHWC pixels -> P3..P7 as channels_last NCHW in ``self.dtype``.
+        With TPU.REMAT_BACKBONE, in training with grad enabled, the backbone
+        keeps no activations and runs its forward again in the backward
+        pass (FrozenBN has no state and there is no dropout: the same
+        computation)."""
+        x = pixels.permute(0, 3, 1, 2).to(self.dtype).contiguous(memory_format=torch.channels_last)
+        if self.config.remat_backbone and self.training and torch.is_grad_enabled():
+            return checkpoint(net, x, use_reentrant=False)
+        return net(x)
 
     def _supp_features(self, supp: ImageBatch):
         net = self.supp_backbone if self.config.siamese_backbone else self.backbone
@@ -434,21 +447,29 @@ class GeneralizedRCNN(nn.Module):
 
     def forward_train(self, images: ImageBatch, images_supp: ImageBatch, targets: Boxes,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                      draws: Optional[torch.Tensor] = None,
+                      images_neg_supp: Optional[ImageBatch] = None,
+                      art_offsets: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The train forward: a dict of scalar float32 losses, loss_cls,
         loss_reg and loss_centerness (FCOS) and, unless RPN_ONLY,
-        loss_classifier (x5) and loss_box_reg (x2.5).
+        loss_classifier (x5) and loss_box_reg (x2.5), with loss_reverse
+        (REVERSE_ORDER) or else loss_cls_suppress (x2.5; NEG_SUPPORT with
+        ``images_neg_supp`` given).
 
         ``targets``: (B, G) GT Boxes with field 'labels' (1 for the episode's
-        class, 0 on padding). ``draws``: (B, N) uniform sampling priorities
-        of the N = FPN_POST_NMS_TOP_N_TRAIN + G proposals (the GT boxes
-        appended); drawn from ``generator`` on the model's device (a
-        generator of that device) when None. Raises NotImplementedError
-        for a train-only switch that is not ported."""
+        class, 0 on padding). ``images_neg_supp``: one negative support per
+        image (another class's crop), read only with NEG_SUPPORT; its pass
+        runs with REVERSE_ORDER too, but only loss_reverse is returned then.
+
+        The random inputs, each drawn from ``generator`` on the model's
+        device (a generator of that device) when None, in this order:
+        ``art_offsets``, (B, G, 64, 4) jitters of the artificial proposals in
+        [thres - 1, 1 - thres), thres = 0.8499 (ADD_ARTIFICIAL_PROPOSALS
+        only); then ``draws``, (B, N) uniform sampling priorities of the N
+        proposals: N = FPN_POST_NMS_TOP_N_TRAIN + G (the GT boxes appended),
+        or with artificial proposals min(1000, 12 G + G +
+        FPN_POST_NMS_TOP_N_TRAIN), the capacity after the cap."""
         c = self.config
-        if c.train_not_ported:
-            raise NotImplementedError("not ported to oneshotdet_tpu_torch yet (training): "
-                                      + ", ".join(c.train_not_ported))
         b = images.batch_size
         with record_function("query_backbone"):
             features = self._pyramid(self.backbone, images.pixels)
@@ -475,27 +496,57 @@ class GeneralizedRCNN(nn.Module):
         with record_function("support_pool"):
             supp_7x7 = self._supp_roi_7x7(features_supp, images_supp.sizes, b)
         ones = torch.where(targets.valid, 1.0, 0.0)
-        proposals = cat_boxes(proposals, Boxes(
-            xyxy=targets.xyxy.to(torch.float32), valid=targets.valid, size=targets.size,
-            fields={"scores": ones, "objectness": ones}))
+        gt_props = Boxes(xyxy=targets.xyxy.to(torch.float32), valid=targets.valid,
+                         size=targets.size, fields={"scores": ones, "objectness": ones})
         dev = proposals.valid.device
+        if c.add_artificial_proposals:
+            # the jitters lead, then the GT boxes, then the scored proposals;
+            # the cap counts real boxes, so the valid ones move first
+            if art_offsets is None:
+                art_offsets = draw_art_offsets(targets.valid.shape, generator, dev)
+            art = make_artificial_proposals(art_offsets.to(dev), gt_props)
+            proposals = truncate_boxes(compact_boxes(
+                cat_boxes(cat_boxes(art, gt_props), proposals)), ART_PROPOSAL_CAP)
+        else:
+            proposals = cat_boxes(proposals, gt_props)
         if draws is None:
             draws = torch.rand(proposals.valid.shape, generator=generator, device=dev)
-        idx, s_valid, roi_labels, roi_reg_t, _ = prepare_roi_targets(
+        idx, s_valid, roi_labels, roi_reg_t, _, *soft = prepare_roi_targets(
             draws.to(dev), proposals, targets, BoxCoder(c.bbox_reg_weights),
-            c.roi_batch_size_per_image, c.roi_positive_fraction, c.roi_fg_iou, c.roi_bg_iou)
+            c.roi_batch_size_per_image, c.roi_positive_fraction, c.roi_fg_iou, c.roi_bg_iou,
+            c.soft_labeling, c.soft_labeling_func)
         sampled = Boxes(xyxy=torch.gather(proposals.xyxy, 1, idx[..., None].expand(-1, -1, 4)),
                         valid=s_valid, size=proposals.size)
         with record_function("roi_pool"):
             roi_feats = self._pool_rois(features, sampled).to(self.dtype)
+        head = self.roi_heads.box
         with record_function("roi_head"):
             # shot 0, the unfused head, as the JAX package trains
-            cls_logits, box_deltas = self.roi_heads.box(
-                roi_feats, supp_7x7[:, 0].to(self.dtype), use_fused=False)
-        loss_classifier, loss_box_reg = roi_head_loss(
+            supp_s0 = supp_7x7[:, 0].to(self.dtype)
+            cls_logits, box_deltas = head(roi_feats, supp_s0, use_fused=False)
+            rev_logits = neg_logits = None
+            if c.reverse_order:
+                # the support leads: broadcast to the ROIs, which take its place
+                n = roi_feats.shape[0]
+                supp_exp = supp_s0[:, None].expand(b, n // b, *supp_s0.shape[1:])
+                rev_logits, _ = head(supp_exp.reshape(roi_feats.shape), roi_feats)
+        if c.neg_support and images_neg_supp is not None:
+            with record_function("support_backbone"):
+                feats_neg = self._supp_features(images_neg_supp)
+            with record_function("support_pool"):
+                neg_7x7 = self._supp_roi_7x7(feats_neg, images_neg_supp.sizes, b)
+            with record_function("roi_head"):
+                neg_logits, _ = head(roi_feats, neg_7x7[:, 0].to(self.dtype))
+        out = roi_head_loss(
             cls_logits, box_deltas, roi_labels, roi_reg_t, s_valid, c.second_stage_cls_loss,
-            c.cls_agnostic_bbox_reg, c.loss_weighted)
-        losses.update(loss_classifier=loss_classifier * 5.0, loss_box_reg=loss_box_reg * 2.5)
+            c.cls_agnostic_bbox_reg, c.loss_weighted, soft_labels=soft[0] if soft else None,
+            neg_logits=neg_logits, rev_logits=rev_logits, focal_gamma=c.loss_gamma,
+            focal_alpha=c.loss_alpha)
+        if c.reverse_order:
+            losses["loss_reverse"] = out[2]
+        elif neg_logits is not None:
+            losses["loss_cls_suppress"] = out[2] * 2.5
+        losses.update(loss_classifier=out[0] * 5.0, loss_box_reg=out[1] * 2.5)
         return losses
 
 

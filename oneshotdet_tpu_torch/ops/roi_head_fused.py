@@ -42,11 +42,12 @@ MAX_PRED = 16     # ncls + 4 * nreg the kernel takes (csrc/roi_head.cu)
 fused_roi_head_launches = 0
 
 
-def fused_head_applies(per_image: int) -> bool:
-    """Whether an image's ROI count admits the fused head: a positive
-    multiple of 8, the choice of the JAX package's block-size rule
-    (``_pick_t(per_image) > 0`` at its default cap)."""
-    return per_image > 0 and per_image % 8 == 0
+def fused_head_applies(per_image: int, linear_fusion: bool = False) -> bool:
+    """Whether the fused head applies: a head without linear fusion (the
+    JAX package's gate, ``not self.linear_fusion``) and an image's ROI count
+    that is a positive multiple of 8, the choice of the JAX package's
+    block-size rule (``_pick_t(per_image) > 0`` at its default cap)."""
+    return not linear_fusion and per_image > 0 and per_image % 8 == 0
 
 
 def pack_roi_head_params(head) -> Dict[str, torch.Tensor]:

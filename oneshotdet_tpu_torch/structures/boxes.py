@@ -11,7 +11,7 @@ width = x2 - x1 + 1, and IoU uses the same +1 extents.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -93,3 +93,23 @@ def truncate_boxes(boxes: Boxes, k: int) -> Boxes:
         size=boxes.size,
         fields={n: v[:, :k] for n, v in boxes.fields.items()},
     )
+
+
+def compact_boxes(boxes: Boxes, out_capacity: Optional[int] = None) -> Boxes:
+    """Valid slots moved to the front of the capacity axis, in their order
+    (a stable sort), invalid ones after them; then, with ``out_capacity``,
+    the first ``out_capacity`` slots."""
+    order = torch.argsort((~boxes.valid).to(torch.uint8), dim=-1, stable=True)
+    k_axis = boxes.valid.dim() - 1
+
+    def take(x):
+        idx = order.reshape(order.shape + (1,) * (x.dim() - order.dim()))
+        return torch.gather(x, k_axis, idx.expand(order.shape + x.shape[order.dim():]))
+
+    out = Boxes(xyxy=take(boxes.xyxy), valid=take(boxes.valid), size=boxes.size,
+                fields={k: take(v) for k, v in boxes.fields.items()})
+    if out_capacity is None or out_capacity >= out.capacity:
+        return out
+    trunc = lambda x: x.narrow(k_axis, 0, out_capacity)
+    return Boxes(xyxy=trunc(out.xyxy), valid=trunc(out.valid), size=out.size,
+                 fields={k: trunc(v) for k, v in out.fields.items()})

@@ -324,15 +324,3 @@ def test_roi_head_loss_matches_jax(agnostic, weighted):
                                    cls_agnostic_bbox_reg=agnostic, loss_weighted=weighted)
     for a, c in zip(parts, ref_parts):
         close(a, c)
-
-
-@pytest.mark.parametrize("kwargs", [{"cls_loss_type": "focal_loss"},
-                                    {"cls_loss_type": "mse_loss"},
-                                    {"soft_labels": torch.zeros(1, 4)},
-                                    {"neg_logits": torch.zeros(4, 2)},
-                                    {"rev_logits": torch.zeros(4, 2)}])
-def test_roi_head_loss_unported_modes_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        roi_head.roi_head_loss(torch.zeros(4, 2), torch.zeros(4, 8),
-                               torch.zeros(1, 4, dtype=torch.int32), torch.zeros(1, 4, 4),
-                               torch.ones(1, 4, dtype=torch.bool), **kwargs)

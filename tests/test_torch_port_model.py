@@ -80,8 +80,7 @@ def test_backbone_p6_from_c5_matches_jax(setup):
 
 
 @pytest.mark.parametrize("switch", [
-    ("FEW_SHOT.SUPP_AUG", True), ("FEW_SHOT.NEG_SUPPORT.TURN_ON", True),
-    ("FEW_SHOT.LINEAR_FUSION", True), ("MODEL.MASK_ON", True),
+    ("FEW_SHOT.SUPP_AUG", True), ("MODEL.MASK_ON", True),
     ("MODEL.KEYPOINT_ON", True), ("MODEL.FCOS_ON", False), ("TPU.QUANT", "int8"),
 ])
 def test_unported_switches_raise(switch):

@@ -9,8 +9,9 @@ supports, the tests' small capacities) with the same seeded weights:
     ``state_dict_from_flax``, within 1e-4 relative norm (float32 sums in
     another order: ~1e-5 measured);
   - two ``train_step``s against two steps of JAX's ``make_train_step``;
-  - ``do_train`` with a ``MetricLogger``, ``make_episodic_batch`` against
-    JAX's, and the train-only switches that are not ported.
+  - ``do_train`` with a ``MetricLogger`` and ``make_episodic_batch`` against
+    JAX's. The training variants are in ``test_torch_port_train_{variants,
+    combined,reverse_neg}.py``.
 """
 
 import jax
@@ -194,17 +195,3 @@ def test_make_episodic_batch_matches_jax(args):
     for k in ref:
         assert port[k].dtype == ref[k].dtype, k
         np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
-
-
-@pytest.mark.parametrize("switch", [
-    ("FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS", True), ("FEW_SHOT.SOFT_LABELING", True),
-    ("FEW_SHOT.REVERSE_ORDER", True), ("FEW_SHOT.SECOND_STAGE_CLS_LOSS", "focal_loss"),
-    ("TPU.REMAT_BACKBONE", True),
-])
-def test_train_only_switches_raise_in_training(setup, switch):
-    """The model builds (the eval path does not read the switch), and the
-    train forward raises, naming it."""
-    _, pcfg = small_cfgs(*switch)
-    model = build_detection_model(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=switch[0]):
-        model.train().forward_train(*batch_to_inputs(setup["batches"][0]))
