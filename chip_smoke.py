@@ -60,7 +60,15 @@ negative supports, and peak memory with and without remat; the same configs'
 small float32 steps on the card against the CPU; K3 against its plain
 version at 9 and 14 predictor columns; the fused eval forward of the
 neg-support focal model with 1 K3 launch and of the linear-fusion model with
-none) -- and checks small float32 forwards and a small float32 train step on
+none), and the support-side and dense-point switches (phase 12: config A,
+FEW_SHOT.SUPP_AUG with the flip, the jitter and the conv merge, and
+MASK_SUPP, on a synthetic dataset with polygon segmentations: H1 bit for bit
+on the first batch's 24 support slots, tools.test_net with the fused head
+and tools.train_net, with ms per batch and per step, the loader's host ms
+and launches; config B, the max merge and 4 dense points per FCOS cell:
+train steps and an eval forward at full width; the small float32 forward
+and train step of the avg merge and of 5 dense points on the card against
+the CPU) -- and checks small float32 forwards and a small float32 train step on
 the card against the same model on the CPU. Every kernel's launch count is
 set to 0 before each path and read after it. Any failure raises and exits
 non-zero. The last two lines of stdout are the per-kernel JSON line and
@@ -1239,11 +1247,13 @@ def match_fraction(a, b, score_rtol=5e-4, box_rtol=1e-3):
     return 1.0 if n == 0 else float(_best_partners(a, b, score_rtol, box_rtol)[0].sum()) / n
 
 
-def small_forward_check(cfg_path, dev, fused=False):
+def small_forward_check(cfg_path, dev, fused=False, opts=(), aug=0, label=""):
     """A float32 forward (batch 2, 128x160 queries, 64x64 supports) on the
     card (the kernels) and on the CPU (the plain versions that the tier-1
     tests hold against the JAX package) with the same weights and inputs;
-    with ``fused``, both with the fused relation head."""
+    with ``fused``, both with the fused relation head; ``opts`` more cfg
+    overrides, ``aug`` each support followed by that many variants
+    (``aug_supports``)."""
     from oneshotdet_tpu_torch.config import cfg as default_cfg
     from oneshotdet_tpu_torch.models import build_detection_model
     from oneshotdet_tpu_torch.ops import roi_head_fused as rf
@@ -1253,12 +1263,14 @@ def small_forward_check(cfg_path, dev, fused=False):
     cfg.merge_from_file(cfg_path)
     cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32", "TPU.NMS_PRE_TOPK", 1024,
                          "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 128,
-                         "MODEL.ROI_HEADS.DETECTIONS_PER_IMG", 64])
+                         "MODEL.ROI_HEADS.DETECTIONS_PER_IMG", 64, *opts])
     gen = torch.Generator().manual_seed(11)
     q = torch.randn(2, 128, 160, 3, generator=gen) * 50
     s = torch.randn(2, 64, 64, 3, generator=gen) * 50
     qs = torch.tensor([[128.0, 160.0], [100.0, 150.0]])
     ss = torch.tensor([[64.0, 64.0], [60.0, 40.0]])
+    if aug:
+        s, ss = (torch.from_numpy(x) for x in aug_supports(s.numpy(), ss.numpy(), aug))
     cpu = build_detection_model(cfg, device="cpu")
     distinct_weights_(cpu, torch.Generator().manual_seed(12))
     gpu = build_detection_model(cfg, device=dev)
@@ -1277,8 +1289,9 @@ def small_forward_check(cfg_path, dev, fused=False):
             return (d.xyxy[i].cpu().numpy()[v], d.get_field("scores")[i].cpu().numpy()[v])
         match_detections(valid_dets(out), valid_dets(ref))
         n += int(out.valid[i].sum())
-    log(f"small float32 forward{', fused head' if fused else ''}: {n} detections on the "
-        f"card match the CPU plain path (score rtol 5e-4, box rtol 1e-3, TF32 off)")
+    log(f"small float32 forward{', fused head' if fused else ''}{label}: {n} detections on "
+        f"the card match the CPU plain path (score rtol 5e-4, box rtol 1e-3, TF32 off)")
+    return n
 
 
 STAGES = ("query_backbone", "support_backbone", "support_pool", "fcos_head",
@@ -2472,6 +2485,22 @@ def _detection_gap(a, b):
     return float(score[same].max()), float(box[same].max())
 
 
+def same_program(a, b) -> bool:
+    """Two ExportedPrograms with the same graph, signature, weights and
+    constants (values equal), so one compiled package serves both."""
+    if a.graph_module.code != b.graph_module.code or \
+            str(a.graph_signature) != str(b.graph_signature):
+        return False
+    for x, y in ((a.state_dict, b.state_dict), (a.constants, b.constants)):
+        if x.keys() != y.keys() or not all(
+                isinstance(x[k], torch.Tensor) == isinstance(y[k], torch.Tensor)
+                and (not isinstance(x[k], torch.Tensor) or (
+                    x[k].shape == y[k].shape and x[k].dtype == y[k].dtype
+                    and torch.equal(x[k], y[k]))) for k in x):
+            return False
+    return True
+
+
 def artifact_path(flagship, dev, card, supp, frames):
     """Phase 10: the serving artifact at full width (export.py,
     predictor.ArtifactPredictor). The flagship bf16 with seeded distinct
@@ -2492,7 +2521,10 @@ def artifact_path(flagship, dev, card, supp, frames):
     and 0 without, nothing else. The full artifact equals the eager forward
     on phase 5's batch bit for bit (7 K1 launches). ms per frame over frames
     2 and later for each route and ``OneShotPredictor``, and peak memory.
-    Returns (per-path launches, numbers)."""
+    The fused bundle's support program is the unfused one's (the same graph
+    and weights, ``same_program``), so its AOTInductor package is compiled
+    once and hard-linked into the fused bundle. Returns (per-path launches,
+    numbers)."""
     from oneshotdet_tpu_torch import export as oexport
     from oneshotdet_tpu_torch.config import cfg as default_cfg
     from oneshotdet_tpu_torch.predictor import ArtifactPredictor, OneShotPredictor
@@ -2511,12 +2543,27 @@ def artifact_path(flagship, dev, card, supp, frames):
     torch.cuda.synchronize()
     out["eager_build_s"] = time.perf_counter() - t0
     model = eager.model
-    compile_s = {}
+    compile_s, reused = {}, {}
     save_compiled = oexport.save_compiled
+    supports = {}
 
     def timed_save_compiled(exported, path):
+        """``save_compiled``, timed; a support program equal to one already
+        compiled (the unfused and fused bundles' support graphs and weights
+        are the same) gets that AOTInductor package, hard-linked, in place
+        of a second compile."""
         t = time.perf_counter()
-        ok = save_compiled(exported, path)
+        twin = next((p for p, e in supports.items() if same_program(e, exported)), None) \
+            if path.endswith(".support") else None
+        if twin is not None:
+            for ext in (".exec", ".exec.json"):
+                os.link(twin + ext, path + ext)
+            ok = True
+        else:
+            ok = save_compiled(exported, path)
+        if path.endswith(".support"):
+            supports[path] = exported
+            reused[path] = twin
         compile_s[path] = time.perf_counter() - t
         return ok
 
@@ -2534,14 +2581,19 @@ def artifact_path(flagship, dev, card, supp, frames):
                 total = time.perf_counter() - t0
                 files = {ext: os.path.getsize(stem + ext) for ext in
                          (".support", ".detect", ".support.exec", ".detect.exec")}
+                twin = reused[stem + ".support"]
                 out["bundles"][name] = dict(
                     export_s=total - compile_s[stem], compile_s=compile_s[stem],
                     compile_support_s=compile_s[stem + ".support"],
                     compile_detect_s=compile_s[stem + ".detect"],
+                    support_package_from=os.path.basename(twin) if twin else None,
                     mib={k: v / 2**20 for k, v in files.items()})
+                support_how = (f"support package of {os.path.basename(twin)} reused (the same "
+                               f"graph and weights) in {compile_s[stem + '.support']:.2f} s"
+                               if twin else
+                               f"AOTInductor compile support {compile_s[stem + '.support']:.1f} s")
                 log(f"artifact {name}: export_serving {total:.1f} s (export + save "
-                    f"{total - compile_s[stem]:.1f} s, AOTInductor compile support "
-                    f"{compile_s[stem + '.support']:.1f} s + detect "
+                    f"{total - compile_s[stem]:.1f} s, {support_how} + detect "
                     f"{compile_s[stem + '.detect']:.1f} s); files "
                     + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in files.items())
                     + f" [{card}]")
@@ -2735,11 +2787,13 @@ def variant_full_width(cfg_path, dev, card, label, spec):
 
     cfg = variant_cfg(cfg_path, spec["opts"])
     steps = VARIANT_WARMUP + VARIANT_STEPS
-    batches = [make_episodic_batch(BATCH, QUERY_HW, SUPP_HW, max_gt=cfg.TPU.MAX_GT_BOXES,
-                                   seed=300 + i) for i in range(steps + 1)]
-    negs = [make_episodic_batch(BATCH, QUERY_HW, SUPP_HW, max_gt=cfg.TPU.MAX_GT_BOXES,
-                                seed=400 + i) for i in range(steps + 1)] if spec["neg"] \
-        else [None] * (steps + 1)
+    aug = spec.get("aug", 0)
+    batches = [aug_episode(make_episodic_batch(BATCH, QUERY_HW, SUPP_HW,
+                                               max_gt=cfg.TPU.MAX_GT_BOXES, seed=300 + i), aug)
+               for i in range(steps + 1)]
+    negs = [aug_episode(make_episodic_batch(BATCH, QUERY_HW, SUPP_HW,
+                                            max_gt=cfg.TPU.MAX_GT_BOXES, seed=400 + i), aug)
+            for i in range(steps + 1)] if spec["neg"] else [None] * (steps + 1)
     model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
     model.train()
     if spec["adabound"]:
@@ -2889,8 +2943,10 @@ def variant_small_check(cfg_path, dev, label, spec):
     from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
 
     cfg = variant_cfg(cfg_path, spec["opts"], small=True)
-    batch = make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=31)
-    neg = make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=32) if spec["neg"] else None
+    aug = spec.get("aug", 0)
+    batch = aug_episode(make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=31), aug)
+    neg = aug_episode(make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=32),
+                      aug) if spec["neg"] else None
     cpu = build_detection_model(cfg, device="cpu")
     distinct_weights_(cpu, torch.Generator().manual_seed(33))
     g, post = cfg.TPU.MAX_GT_BOXES, cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN
@@ -3067,6 +3123,272 @@ def train_variants_path(cfg_path, dev, card):
     return paths, out
 
 
+# -- phase 12: the support-side and dense-point switches -------------------------
+
+def aug_supports(pixels, sizes, num_aug):
+    """Each support (N, h, w, 3) of true size (h, w) followed by its
+    ``num_aug`` variants, as the loader lays them out: the flip of its true
+    extent, then a colour change standing in for the jitter (synthetic
+    float pixels). Returns the (N * (1 + num_aug), ...) pixels and sizes
+    (float32 numpy)."""
+    pixels, sizes = np.asarray(pixels, np.float32), np.asarray(sizes, np.float32)
+    out = []
+    for s, (h, w) in zip(pixels, sizes.astype(int)):
+        flip = s.copy()
+        flip[:h, :w] = s[:h, :w][:, ::-1]
+        jit = s.copy()
+        jit[:h, :w] = s[:h, :w] * np.float32(0.7) + np.float32(0.1)
+        out += [s, flip, jit][:1 + num_aug]
+    return np.stack(out), np.repeat(sizes, 1 + num_aug, axis=0)
+
+
+def aug_episode(batch, num_aug):
+    """A ``make_episodic_batch`` dict with its supports expanded by
+    ``aug_supports`` (unchanged for 0)."""
+    if not num_aug:
+        return batch
+    pixels, sizes = aug_supports(batch["supp_pixels"], batch["supp_sizes"], num_aug)
+    return dict(batch, supp_pixels=pixels, supp_sizes=sizes)
+
+
+# Config A: the loader's augmentation (the flip and the PIL-free jitter),
+# the conv merge and masked supports, through both CLIs with the fused head
+# in eval; config B: the max merge of a support and its flip and 4 dense
+# points per FCOS cell, trained on synthetic episodes (no loader)
+SUPP_A = ["FEW_SHOT.SUPP_AUG", True, "FEW_SHOT.NUM_SUPP_AUG", 2,
+          "FEW_SHOT.SUPP_AUG_METHOD", "conv", "FEW_SHOT.MASK_SUPP", True]
+SUPP_B = dict(opts=["FEW_SHOT.SUPP_AUG", True, "FEW_SHOT.NUM_SUPP_AUG", 1,
+                    "FEW_SHOT.SUPP_AUG_METHOD", "max", "MODEL.FCOS.DENSE_POINTS", 4],
+              neg=False, adabound=False, extra=None, aug=1)
+# config A's model on synthetic episodes (no loader, no mask): its steps and
+# its eval forward once warm, beside the CLIs' first batches and steps
+SUPP_A_MODEL = dict(opts=SUPP_A[:6], neg=False, adabound=False, extra=None, aug=2)
+SUPP_CLI_BATCHES = 2          # eval CLI batches: one warm-up, one timed
+SUPP_CLI_STEPS = 3            # train CLI steps: one warm-up, two timed
+# the small float32 checks on the card against the CPU: the avg merge of 3
+# variants, and 5 dense points
+SUPP_SMALL = {
+    "avg, 2 augs": dict(opts=["FEW_SHOT.SUPP_AUG", True, "FEW_SHOT.NUM_SUPP_AUG", 2],
+                        neg=False, adabound=False, extra=None, aug=2),
+    "dense points 5": dict(opts=["MODEL.FCOS.DENSE_POINTS", 5], neg=False, adabound=False,
+                           extra=None, aug=0),
+}
+
+
+def supp_aug_cli(flagship, dev, card, plain_loader_ms):
+    """Phase 12a: config A at full width (the flagship, bf16, batch 8) on a
+    synthetic COCO-style dataset with polygon segmentations
+    (``write_synthetic_coco(segmentation=True)``): H1 bit for bit against
+    its plain version on the first eval batch (8 queries and 24 supports,
+    each support followed by its flip and its jitter, masked) in one launch;
+    ``tools.test_net`` with the fused head over SUPP_CLI_BATCHES batches of
+    a .pth of seed-1 weights (7 K1 and 1 K3 launches a batch, 1 H1 a batch);
+    ``tools.train_net`` from that .pth for SUPP_CLI_STEPS steps (7 K1 and 7
+    K1b launches a step, 1 H1 a batch): ms per batch and per step, the
+    loader's host ms per batch, peak memory."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.data import build as data_build
+    from oneshotdet_tpu_torch.data import make_data_loader
+    from oneshotdet_tpu_torch.engine import trainer
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.ops import resize
+    from oneshotdet_tpu_torch.tools import test_net, train_net
+    from oneshotdet_tpu_torch.utils import checkpoint as ckpt_mod
+    from oneshotdet_tpu_torch.utils.synthetic import write_synthetic_coco
+
+    paths, out = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        img_dir, ann_file = write_synthetic_coco(root, num_images=DATA_IMAGES, sizes=DATA_SIZES,
+                                                 box_side=DATA_BOX_SIDE, seed=0,
+                                                 segmentation=True)
+        env = {"ONESHOT_CUSTOM_IMG_DIR": img_dir, "ONESHOT_CUSTOM_ANN_FILE": ann_file}
+        os.environ.update(env)
+        opts = [str(v) for v in ["DATASETS.TRAIN", "('custom',)", "DATASETS.TEST",
+                                 "('custom',)", "FEW_SHOT.TRAINING_EXCL_CATS", "[]",
+                                 "TEST.IMS_PER_BATCH", BATCH, "SOLVER.IMS_PER_BATCH", BATCH,
+                                 *SUPP_A]]
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(flagship)
+        cfg.merge_from_list(opts)
+        model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        ckpt = os.path.join(root, "seed1.pth")
+        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+        del model
+        torch.cuda.empty_cache()
+
+        # H1 on the first augmented batch: 8 queries and 24 supports, one launch
+        loader, _ = make_data_loader(cfg, is_train=False, device=dev)
+        fresh = data_build.build_dataset(cfg, "custom", False)
+        items = [fresh.load(fresh.plan(i)) for i in next(iter(loader.batch_iter()))]
+        queries = [it["img"] for it in items]
+        supports = [x for it in items for x in it["img_supp"]]
+        first = queries[0]
+        norm = (first["mean"], first["std"], first["to_bgr255"])
+        query_bucket = loader.collator.query_bucket_for([q["out_hw"] for q in queries])
+        packed = resize.pack_images([x["u8"] for x in queries + supports],
+                                    [x["out_hw"] for x in queries + supports], dev,
+                                    outputs=[0] * len(queries) + [1] * len(supports))
+        slots = (resize.slot(query_bucket, *norm), resize.slot(SUPP_HW, *norm))
+        out["h1_max_abs_err"] = h1_compare(
+            resize, packed, slots, f"first augmented batch ({len(queries)} queries, "
+            f"{len(supports)} supports: each with its flip and jitter, masked)")
+        out["h1_support_slots"] = len(supports)
+        if len(supports) != 3 * BATCH:
+            raise AssertionError(f"first augmented batch: {len(supports)} supports")
+        del loader, fresh, items, packed
+
+        collector = _cli_logger()
+        # -- the eval CLI with the fused head
+        marks = []
+        orig = _timed_loader(data_build, marks)
+        os.environ["ONESHOT_PALLAS_ROI_HEAD"] = "1"
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            rc = test_net.main(["--config-file", flagship, "--ckpt", ckpt, *opts, "OUTPUT_DIR",
+                                os.path.join(root, "eval"), "FEW_SHOT.STOP_ITER",
+                                str(SUPP_CLI_BATCHES)])
+        finally:
+            data_build.PrefetchingLoader.__iter__ = orig
+            os.environ.pop("ONESHOT_PALLAS_ROI_HEAD", None)
+        torch.cuda.synchronize()
+        label = "supp aug A: eval CLI (test_net), fused head"
+        paths[label] = n = read_launches()
+        metrics, n_dets = check_eval_outputs(os.path.join(root, "eval", "eval"), label)
+        if rc != 0 or n["roi_align"] != 7 * SUPP_CLI_BATCHES or \
+                n["roi_head"] != SUPP_CLI_BATCHES or n["resize_normalize_pad"] != len(marks):
+            raise AssertionError(f"{label}: exit {rc}, launches {n} for {SUPP_CLI_BATCHES} "
+                                 f"batches ({len(marks)} handed over)")
+        starts = [m[0] for m in marks]
+        ms_batch = 1e3 * (starts[SUPP_CLI_BATCHES] - starts[1]) / (SUPP_CLI_BATCHES - 1)
+        host_ms = [1e3 * (b - a) for a, b in marks]
+        out["eval_cli"] = dict(ms_per_batch=ms_batch, loader_host_ms=host_ms, detections=n_dets,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                               k1_per_batch=n["roi_align"] // SUPP_CLI_BATCHES,
+                               k3_per_batch=n["roi_head"] // SUPP_CLI_BATCHES)
+        log(f"{label}: {SUPP_CLI_BATCHES} batches of {BATCH} (24 supports each), "
+            f"{ms_batch:.1f} ms per batch over batches 2-{SUPP_CLI_BATCHES} (host clock, loader "
+            f"included); loader host ms per batch {[round(v, 1) for v in host_ms]} (phase 8, "
+            f"no augmentation: {[round(v, 1) for v in plain_loader_ms]}); per batch "
+            f"{n['roi_align'] // SUPP_CLI_BATCHES} K1, {n['roi_head'] // SUPP_CLI_BATCHES} K3 "
+            f"and 1 H1 launches; peak memory {out['eval_cli']['peak_gib']:.2f} GiB; {n_dets} "
+            f"detections inside their images [{card}]")
+        torch.cuda.empty_cache()
+
+        # -- the train CLI from the .pth
+        marks = []
+        orig = _timed_loader(data_build, marks)
+        collector.messages.clear()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            with _TrainProbe(ckpt_mod, trainer, lambda *a: None) as probe:
+                probe.max_iter = SUPP_CLI_STEPS
+                rc = train_net.main(["--config-file", flagship, *opts, "MODEL.WEIGHT", ckpt,
+                                     "SOLVER.MAX_ITER", str(SUPP_CLI_STEPS),
+                                     "SOLVER.CHECKPOINT_PERIOD", str(10 * SUPP_CLI_STEPS),
+                                     "OUTPUT_DIR", os.path.join(root, "train")])
+        finally:
+            data_build.PrefetchingLoader.__iter__ = orig
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        label = "supp aug A: train CLI (train_net)"
+        paths[label] = n = read_launches()
+        steps = probe.steps
+        for st in steps:
+            k = st["launches"]
+            losses = {name: float(v) for name, v in st["metrics"].items()}
+            if k["roi_align"] != 7 or k["roi_align_bwd"] != 7 or k["roi_head"] or \
+                    not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"{label} step {st['it'] + 1}: launches {k}, losses {losses}")
+            st["losses"] = losses
+        if rc != 0 or len(steps) != SUPP_CLI_STEPS or \
+                n["resize_normalize_pad"] != len(marks) or len(marks) != SUPP_CLI_STEPS:
+            raise AssertionError(f"{label}: exit {rc}, {len(steps)} steps, launches {n} for "
+                                 f"{len(marks)} batches")
+        ms_step = 1e3 * (probe.end - marks[1][0]) / (SUPP_CLI_STEPS - 1)
+        host_ms = [1e3 * (b - a) for a, b in marks]
+        out["train_cli"] = dict(ms_per_step=ms_step, loader_host_ms=host_ms, peak_gib=peak,
+                                losses=steps[-1]["losses"], k1_per_step=7, k1b_per_step=7)
+        log(f"{label}: {SUPP_CLI_STEPS} steps from the .pth, {ms_step:.1f} ms/step over steps "
+            f"2-{SUPP_CLI_STEPS} (host clock, loader included; bf16, batch {BATCH}, 24 "
+            f"supports); loader host ms per batch {[round(v, 1) for v in host_ms]}; per step 7 "
+            f"K1 and 7 K1b calls, 1 H1 launch a batch; peak memory {peak:.2f} GiB; losses "
+            f"{steps[-1]['losses']} [{card}]")
+        del steps, probe.steps
+        logging.getLogger("oneshotdet_tpu_torch").handlers.clear()
+        for key in env:
+            os.environ.pop(key, None)
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def supp_aug_eval_forward(cfg_path, dev, card, label, spec, fused):
+    """Phase 12b: a config's eval forward (batch 8, 832x1216, bf16, phase
+    5's batch, each support followed by ``spec["aug"]`` variants, seed-1
+    weights): 7 K1 launches and 1 K3 with ``fused``, the detections checked;
+    host ms of one forward after a warm-up."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.structures import ImageBatch
+
+    images, supps = phase5_batch(dev)
+    a = spec["aug"]
+    pixels = torch.stack([x for s in supps.pixels for x in (s, s.flip(1), s * 0.7)[:1 + a]])
+    supps = ImageBatch(pixels, supps.sizes.repeat_interleave(1 + a, dim=0))
+    cfg = variant_cfg(cfg_path, spec["opts"])
+    model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    model.config = dataclasses.replace(model.config, fused_roi_head=fused)
+    model(images, supps)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    dets = model(images, supps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = read_launches()
+    if n["roi_align"] != 7 or n["roi_head"] != int(fused):
+        raise AssertionError(f"{label} eval forward: launches {n}")
+    check_detections(dets, BATCH, min(cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+                                      cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST), images.sizes_wh())
+    log(f"{label} eval forward ({len(pixels)} supports{', fused head' if fused else ''}): "
+        f"{ms:.1f} ms (host clock, one forward after a warm-up), {n['roi_align']} K1 and "
+        f"{n['roi_head']} K3 launches, {int(dets.valid.sum())} detections [{card}]")
+    del model, dets, images, supps
+    torch.cuda.empty_cache()
+    return dict(ms=ms), n
+
+
+def supp_aug_path(cfg_path, dev, card, plain_loader_ms):
+    """Phase 12: SUPP_AUG, MASK_SUPP and DENSE_POINTS on the card: config A
+    through the loader and both CLIs (``supp_aug_cli``), A's model and
+    config B on synthetic episodes (``variant_full_width``: 1 warm-up and 2
+    timed steps) and their eval forwards (A's with the fused head), and the small float32
+    forward and train steps of the avg merge of 3 variants and of 5 dense
+    points against the CPU (``small_forward_check``,
+    ``variant_small_check``)."""
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    for key, label, spec, fused in (
+            ("a", "supp aug A's model: conv merge of 24 supports", SUPP_A_MODEL, True),
+            ("b", "supp aug B: max merge + dense points 4", SUPP_B, False)):
+        out[f"train_{key}"], paths[f"{label}, train steps"] = variant_full_width(
+            cfg_path, dev, card, label, spec)
+        out[f"eval_{key}"], paths[f"{label}, eval forward"] = supp_aug_eval_forward(
+            cfg_path, dev, card, label, spec, fused)
+        if key == "a":      # the CLIs after A's shapes have run once
+            cli_paths, out["cli"] = supp_aug_cli(cfg_path, dev, card, plain_loader_ms)
+            paths.update(cli_paths)
+    out["small"] = {}
+    for name, spec in SUPP_SMALL.items():
+        n = small_forward_check(cfg_path, dev, opts=spec["opts"], aug=spec["aug"],
+                                label=f" ({name})")
+        out["small"][name] = dict(forward_detections=n,
+                                  **variant_small_check(cfg_path, dev, name, spec))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['phase_s']:.1f} s")
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -3093,6 +3415,14 @@ def main() -> int:
     log("torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
     flagship = os.path.join(ROOT, "configs", "oneshot_fcos_r50.yaml")
     preset = os.path.join(ROOT, "configs", "oneshot_fcos_r50_fast_eval.yaml")
+    phase_s, t_last = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        """Seconds since the previous phase ended, kept and printed."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_last[0]
+        t_last[0] = now
+        log(f"{name}: {phase_s[name]:.1f} s since the previous phase")
 
     # -- phase 2: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -3118,6 +3448,8 @@ def main() -> int:
     log(f"roi_align.cu: {k1.oneshot_roi_align_blocks_per_sm(1)} resident blocks per SM in bf16, "
         f"{k1.oneshot_roi_align_blocks_per_sm(0)} in f32 (one ROI per block)")
 
+    phase_done("phase 2 (build)")
+
     # -- phase 3: kernels against plain ----------------------------------------
     checks = kernel_checks(ra, dev)
     bwd_checks = roi_align_bwd_checks(ra, dev)
@@ -3130,6 +3462,8 @@ def main() -> int:
     # launches of every kernel on each path, counts set to 0 just before it
     paths = {"FusedGroupNorm, 5 tower levels": fused_group_norm_path(dev)}
     paths.update(tool_runs())
+
+    phase_done("phase 3 (kernels, tools)")
 
     # -- phase 4: predictor, unfused and fused head --------------------------
     cfg = default_cfg.clone()
@@ -3170,6 +3504,8 @@ def main() -> int:
         raise AssertionError(f"predictor: {launches['predictor']} roi_align launches, expected {expected}")
     del pred
     torch.cuda.empty_cache()
+
+    phase_done("phase 4 (predictor)")
 
     # -- phase 5: batched eval forward, unfused and fused head ------------------
     images, supps = phase5_batch(dev)
@@ -3213,6 +3549,8 @@ def main() -> int:
     paths.update(f32_paths)
     del images, supps
 
+    phase_done("phase 5 (eval forwards)")
+
     # -- phase 6: the eval engine, fused head ------------------------------------
     c = default_cfg.clone()
     c.merge_from_file(flagship)
@@ -3224,10 +3562,14 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    phase_done("phase 6 (engine)")
+
     # -- phase 7: the one-shot train step at full width --------------------------
     paths["train step"], train = train_path(flagship, dev, card)
     steps = TRAIN_WARMUP + TRAIN_STEPS
     launches[f"train step, {steps} steps"] = paths["train step"]["roi_align"]
+
+    phase_done("phase 7 (train step)")
 
     # -- phase 8: the episodic eval data path and the eval CLI ---------------------
     cli_paths, evalcli = eval_cli_path(flagship, dev, card)
@@ -3236,10 +3578,14 @@ def main() -> int:
         launches[label] = cli_paths[label]["roi_align"]
         head_launches[label] = cli_paths[label]["roi_head"]
 
+    phase_done("phase 8 (eval data path, CLI)")
+
     # -- phase 9: the train CLI (checkpoints, model zoo, resume, --seq_test) -----
     train_paths, traincli = train_cli_path(flagship, dev, card)
     paths.update(train_paths)
     launches["train CLI run B"] = train_paths["train CLI run B"]["roi_align"]
+
+    phase_done("phase 9 (train CLI)")
 
     # -- phase 10: the serving artifact (export, ArtifactPredictor) --------------
     artifact_paths, artifact = artifact_path(flagship, dev, card, supp, frame_pixels)
@@ -3248,12 +3594,26 @@ def main() -> int:
         launches[label] = n["roi_align"]
         head_launches[label] = n["roi_head"]
 
+    phase_done("phase 10 (serving artifact)")
+
     # -- phase 11: the training variants -----------------------------------------
     variant_paths, variants = train_variants_path(flagship, dev, card)
     paths.update(variant_paths)
     for label, n in variant_paths.items():
         launches[label] = n["roi_align"]
         head_launches[label] = n["roi_head"]
+
+    phase_done("phase 11 (training variants)")
+
+    # -- phase 12: SUPP_AUG, MASK_SUPP and DENSE_POINTS ----------------------------
+    supp_paths, supp_aug = supp_aug_path(
+        flagship, dev, card, evalcli["cli"]["eval CLI (test_net), fused head"]["loader_host_ms"])
+    paths.update(supp_paths)
+    for label, n in supp_paths.items():
+        launches[label] = n["roi_align"]
+        head_launches[label] = n["roi_head"]
+
+    phase_done("phase 12 (support switches)")
 
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
@@ -3278,6 +3638,7 @@ def main() -> int:
         "library_ms": None,
         "p3_skew_fresh_ms": checks[("p3-skew R=16000", torch.bfloat16)]["ms"],
         "artifact": artifact,
+        "supp_aug": supp_aug,
         "card": card,
     }, {
         "name": "roi_head",
@@ -3436,12 +3797,16 @@ def main() -> int:
         "cli": evalcli["cli"],
         "loader": evalcli["loader"],
         "launches_train_cli_run_b": paths["train CLI run B"]["resize_normalize_pad"],
+        "supp_aug_batch": {"support_slots": supp_aug["cli"]["h1_support_slots"],
+                           "max_abs_err": supp_aug["cli"]["h1_max_abs_err"]},
         "train_cli": {k: v for k, v in traincli.items() if k != "losses"},
         "card": card,
     })
     for k in kernels[2:]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched on its own path")
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; total {sum(phase_s.values()):.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

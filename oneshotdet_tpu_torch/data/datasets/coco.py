@@ -20,11 +20,28 @@ Differences from the JAX dataset:
     (``plan``), and decodes in its threads (``load``), so its episodes equal
     the JAX loader's at ``DATALOADER.NUM_WORKERS=0`` whatever its own
     worker count;
+  - with ``FEW_SHOT.SUPP_AUG`` and ``NUM_SUPP_AUG`` 2, the jitter's four
+    factors per support (Color, Brightness, Contrast, Sharpness) are drawn
+    from that stream too, right after the support pick and before the query
+    transform's draw: the JAX dataset draws them from the global
+    ``np.random`` inside ``__getitem__``. The factors travel in the
+    ``Episode``, so ``load`` draws nothing;
   - images are read by ``image_io.read_image_rgb`` (numpy for binary PPM,
     PIL for anything else) and cropped by ``image_io.crop`` (PIL's rounding
-    and zero fill), so no PIL is needed for a PPM dataset;
-  - ``MASK_ON``, ``KEYPOINT_ON``, ``FEW_SHOT.MASK_SUPP`` and
-    ``FEW_SHOT.SUPP_AUG`` raise ``NotImplementedError``.
+    and zero fill), the support mask of ``FEW_SHOT.MASK_SUPP`` is filled by
+    ``structures.segmentation_mask`` and the jitter is
+    ``transforms.color_jitter`` (both numpy, PIL's bytes), so no PIL is
+    needed for a PPM dataset;
+  - ``FEW_SHOT.SUPP_AUG`` with ``NUM_SUPP_AUG`` other than 1 or 2 raises
+    ``ValueError``: the augmentation makes at most two variants of a support
+    (the flip and the jitter), so any other count disagrees with the
+    ``1 + NUM_SUPP_AUG`` images per shot the model merges;
+  - ``MASK_ON`` and ``KEYPOINT_ON`` raise ``NotImplementedError``.
+
+Support augmentation (``FEW_SHOT.SUPP_AUG``): each picked support becomes
+[original, horizontally flipped, colour-jittered] (the jitter only with
+``NUM_SUPP_AUG`` 2), consecutive per shot, each variant with its own
+transform draw, in every picker, in eval as in training.
 """
 
 from __future__ import annotations
@@ -37,8 +54,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ...structures.segmentation_mask import PolygonInstance
 from ..coco_api import LiteCOCO
 from ..image_io import crop, read_image_rgb
+from ..transforms import color_jitter, draw_jitter
 
 
 def _has_valid_annotation(anno) -> bool:
@@ -54,8 +73,6 @@ def _not_ported(cfg) -> List[str]:
     checks = {
         "MODEL.MASK_ON": cfg.MODEL.MASK_ON,
         "MODEL.KEYPOINT_ON": cfg.MODEL.KEYPOINT_ON,
-        "FEW_SHOT.MASK_SUPP": cfg.FEW_SHOT.MASK_SUPP,
-        "FEW_SHOT.SUPP_AUG": cfg.FEW_SHOT.SUPP_AUG,
     }
     return [name for name, on in checks.items() if on]
 
@@ -67,7 +84,10 @@ class Episode:
 
     supports: per support, ("ann", image id, annotation) for a crop of a
       dataset image, or ("file", path) for a selected support file.
-    query_draw / supp_draws: the transforms' draws (``FusedPreprocess.draw``).
+    query_draw / supp_draws: the transforms' draws (``FusedPreprocess.draw``),
+      one per support image after the augmentation.
+    jitters: per support, the colour jitter's four factors (SUPP_AUG with
+      NUM_SUPP_AUG 2), else empty.
     """
 
     idx: int
@@ -76,6 +96,7 @@ class Episode:
     supports: List[tuple]
     query_draw: Optional[tuple]
     supp_draws: List[Optional[tuple]]
+    jitters: List[tuple]
 
 
 class COCODataset:
@@ -95,6 +116,16 @@ class COCODataset:
         self.choose_selected = cfg.FEW_SHOT.CHOOSE_SELECTED
         self.selected_cls = cfg.FEW_SHOT.TEST_SELECTED_CLS
         self.selected_order = cfg.FEW_SHOT.TEST_SELECTED_SUPP
+        self.mask_supp = cfg.FEW_SHOT.MASK_SUPP
+        self.supp_aug = cfg.FEW_SHOT.SUPP_AUG
+        # the variants after each support's original: the flip, then the jitter
+        self.num_aug = cfg.FEW_SHOT.NUM_SUPP_AUG if self.supp_aug else 0
+        if self.supp_aug and self.num_aug not in (1, 2):
+            raise ValueError(
+                f"FEW_SHOT.NUM_SUPP_AUG={self.num_aug}: the support augmentation makes 1 + 1 "
+                "(the flip) or 1 + 2 (and the colour jitter) images per shot, so the model's "
+                f"1 + {self.num_aug} per shot cannot be met")
+        self.actual_num_imgs = self.shot * (1 + self.num_aug)
 
         if isinstance(transforms, (list, tuple)):
             self._transforms, self._supp_transforms = transforms[0], transforms[1]
@@ -249,11 +280,13 @@ class COCODataset:
             supports = self.selected_supports(cat, shot=self.shot)
         else:
             supports = self.random_supports(cat, img_id, shot=self.shot)
-        query_draw, supp_draws = None, [None] * len(supports)
+        jitters = [draw_jitter(self.rng) for _ in supports] if self.num_aug > 1 else []
+        n_supp = len(supports) * (1 + self.num_aug)
+        query_draw, supp_draws = None, [None] * n_supp
         if self._transforms is not None:
             query_draw = self._transforms.draw(self.rng)
-            supp_draws = [self._supp_transforms.draw(self.rng) for _ in supports]
-        return Episode(idx, img_id, cat, supports, query_draw, supp_draws)
+            supp_draws = [self._supp_transforms.draw(self.rng) for _ in range(n_supp)]
+        return Episode(idx, img_id, cat, supports, query_draw, supp_draws, jitters)
 
     def _image(self, img_id: int) -> np.ndarray:
         path = self.coco.loadImgs(img_id)[0]["file_name"]
@@ -264,7 +297,25 @@ class COCODataset:
             return read_image_rgb(support[1])
         _, img_id, ann = support
         x, y, w, h = ann["bbox"]
-        return crop(self._image(img_id), (x, y, x + w, y + h))
+        return crop(self._masked(self._image(img_id), ann), (x, y, x + w, y + h))
+
+    def _masked(self, img: np.ndarray, ann: dict) -> np.ndarray:
+        """FEW_SHOT.MASK_SUPP: the image times its annotation's polygon mask
+        (before the crop); an RLE or missing segmentation leaves it as is."""
+        seg = ann.get("segmentation")
+        if not self.mask_supp or not isinstance(seg, list) or not seg:
+            return img
+        mask = PolygonInstance(seg, (img.shape[1], img.shape[0])).rasterize()
+        return img * (mask[:, :, None] > 0)
+
+    def _augmented(self, supports: List[np.ndarray], jitters) -> List[np.ndarray]:
+        """SUPP_AUG: each support followed by its flip (and its jitter)."""
+        if not self.supp_aug:
+            return supports
+        out = []
+        for k, im in enumerate(supports):
+            out += [im, im[:, ::-1]] + ([color_jitter(im, jitters[k])] if jitters else [])
+        return out
 
     def load(self, ep: Episode) -> dict:
         """The item of a planned episode: decode, crop, transform. Draws
@@ -285,7 +336,8 @@ class COCODataset:
         keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
         boxes, labels = boxes[keep], labels[keep]
 
-        img_supp = [self._support_pixels(s) for s in ep.supports]
+        img_supp = self._augmented([self._support_pixels(s) for s in ep.supports],
+                                   ep.jitters)
         if self._transforms is not None:
             img, boxes = self._transforms.apply(img, boxes, ep.query_draw)
             img_supp = [self._supp_transforms.apply(s, None, d)[0]

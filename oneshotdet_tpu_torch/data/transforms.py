@@ -1,6 +1,6 @@
 """Host-side transforms of the data path (counterpart of
 ``oneshotdet_tpu/data/transforms.py``: ``get_resize_size``,
-``FusedHostPreprocess`` and ``build_fused_transforms``).
+``FusedHostPreprocess``, ``build_fused_transforms`` and ``color_jitter``).
 
 The port has one route, the one the JAX package takes whenever its native
 library loads: a transform resizes and flips the boxes and returns the
@@ -12,6 +12,11 @@ A transform's random draws are split from its work: ``draw(rng)`` takes
 them from the caller's ``random.Random`` in the JAX package's order (the
 short side, then the flip where ``flip_prob > 0``), and ``apply`` uses them,
 so a loader can draw in one thread and decode in others.
+
+``color_jitter`` is the support augmentation's PIL ``ImageEnhance`` chain
+(Color, Brightness, Contrast, Sharpness) in numpy, byte for byte: its four
+factors are arguments (``draw_jitter`` takes them from a ``random.Random``),
+where the JAX function draws them from the global ``np.random``.
 """
 
 from __future__ import annotations
@@ -108,3 +113,70 @@ def build_fused_transforms(cfg, is_train: bool = True):
         FusedPreprocess(min_size, max_size, flip_prob, *args),
         FusedPreprocess(supp_min_size, supp_max_size, flip_prob, *args),
     ]
+
+
+# -- the support augmentation's colour jitter ---------------------------------
+
+JITTER_RANGE = (0.1, 2.0)      # each factor ~ U(0.1, 2)
+
+
+def draw_jitter(rng: random.Random) -> Tuple[float, float, float, float]:
+    """The jitter's (Color, Brightness, Contrast, Sharpness) factors, drawn
+    from ``rng`` in that order."""
+    return tuple(rng.uniform(*JITTER_RANGE) for _ in range(4))
+
+
+def _luma(arr: np.ndarray) -> np.ndarray:
+    """PIL's RGB -> L: fixed-point ITU-R 601-2 luma, (H, W) uint8."""
+    a = arr.astype(np.int32)
+    return ((a[..., 0] * 19595 + a[..., 1] * 38470 + a[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def _blend(degenerate: np.ndarray, image: np.ndarray, factor: float) -> np.ndarray:
+    """PIL's ``Image.blend(degenerate, image, factor)``: in1 + alpha * (in2 -
+    in1) in float32, truncated; clipped to [0, 255] only when alpha (a
+    float32) lies outside [0, 1]."""
+    alpha = np.float32(factor)
+    out = degenerate.astype(np.float32) + alpha * (
+        image.astype(np.int16) - degenerate.astype(np.int16)).astype(np.float32)
+    if 0.0 <= alpha <= 1.0:
+        return out.astype(np.uint8)
+    return np.where(out <= 0, 0, np.where(out >= 255, 255, out)).astype(np.uint8)
+
+
+def _smooth(arr: np.ndarray) -> np.ndarray:
+    """PIL's ``filter(ImageFilter.SMOOTH)``: the 3 x 3 kernel [1 1 1; 1 5 1;
+    1 1 1] / 13 in float32 with 0.5 added and truncated, the border rows
+    and columns copied; an image under 3 x 3 is returned unchanged."""
+    h, w = arr.shape[:2]
+    if h < 3 or w < 3:
+        return arr.copy()
+    f = arr.astype(np.float32)
+    k1 = np.float32(1) / np.float32(13)
+    k5 = np.float32(5) / np.float32(13)
+
+    def row(r, mid):
+        return (r[:, :-2] * k1 + r[:, 1:-1] * mid) + r[:, 2:] * k1
+
+    ss = np.float32(0.5) + row(f[2:], k1)
+    ss = ss + row(f[1:-1], k5)
+    ss = ss + row(f[:-2], k1)
+    out = arr.copy()
+    out[1:-1, 1:-1] = np.where(ss <= 0, 0, np.where(ss >= 255, 255, ss)).astype(np.uint8)
+    return out
+
+
+def color_jitter(arr: np.ndarray, factors) -> np.ndarray:
+    """The support jitter on (H, W, 3) uint8 RGB: ``ImageEnhance`` Color,
+    Brightness, Contrast and Sharpness with the four ``factors``, in that
+    order, each a blend of the image with its degenerate (its luma as RGB,
+    black, the luma's mean rounded, the smoothed image)."""
+    f_color, f_bright, f_contrast, f_sharp = factors
+    arr = np.asarray(arr, np.uint8)
+    arr = _blend(np.repeat(_luma(arr)[..., None], 3, axis=-1), arr, f_color)
+    arr = _blend(np.zeros_like(arr), arr, f_bright)
+    luma = _luma(arr)
+    mean = int(float(luma.sum(dtype=np.int64)) / luma.size + 0.5) if luma.size else 0
+    arr = _blend(np.full_like(arr, mean), arr, f_contrast)
+    return _blend(_smooth(arr), arr, f_sharp)

@@ -2,10 +2,15 @@
 ``oneshotdet_tpu/models/detector.py``).
 
   stage 0: query and support through their own ResNet-50-FPN (SIAMESE_BACKBONE);
+           with FEW_SHOT.SUPP_AUG, each shot's 1 + NUM_SUPP_AUG augmented
+           supports (consecutive) merged per level into one map by their
+           mean, their element-wise max, or a 3x3 conv over their
+           channels concatenated (SUPP_AUG_METHOD avg | max | conv);
   fusion:  the support pooled to 1x1 per FPN level by ROIAlign over the whole
            support box [0, 0, w, h], shot-averaged, and multiplied channel-wise
            into the query pyramid;
-  stage 1: class-agnostic FCOS on the fused pyramid -> padded proposals;
+  stage 1: class-agnostic FCOS on the fused pyramid (MODEL.FCOS.DENSE_POINTS
+           1, 4 or 5 points per cell) -> padded proposals;
   stage 2: 7x7 ROIAlign of the raw query pyramid over the proposals and of the
            whole support -> relation head -> detections.
 
@@ -51,7 +56,7 @@ from ..structures.boxes import Boxes, cat_boxes, compact_boxes, truncate_boxes
 from ..structures.image_batch import ImageBatch
 from .fcos import FCOSModule, compute_locations, fcos_losses, fcos_postprocess, fcos_targets
 from .fpn import ResNetFPN
-from .layers import FrozenBatchNorm, Scale
+from .layers import Conv2d, FrozenBatchNorm, Scale
 from .roi_head import (ROIHeads, draw_art_offsets, make_artificial_proposals,
                        predictor_num_classes, prepare_roi_targets, roi_head_loss,
                        roi_head_postprocess)
@@ -69,6 +74,7 @@ class DetectorConfig:
     siamese_backbone: bool = True
     fpn_strides: Tuple[int, ...] = (8, 16, 32, 64, 128)
     num_convs: int = 4
+    dense_points: int = 1
     prior_prob: float = 0.01
     score_mode: str = "BINARY"
     rpn_only: bool = False
@@ -95,6 +101,9 @@ class DetectorConfig:
     roi_detections_per_img: int = 2000
     eval_roi_topk: int = 0
     supp_roialign: bool = True
+    supp_aug: bool = False
+    num_supp_aug: int = 1
+    supp_aug_method: str = "avg"   # avg | max | conv
     fused_roi_head: bool = False    # ONESHOT_PALLAS_ROI_HEAD=1: the fused head kernel
     # training
     center_sample: bool = True
@@ -125,8 +134,6 @@ def _not_ported(cfg) -> List[str]:
         "MODEL.FCOS_ON=False (anchor RPN / RetinaNet stage 1)": not c.MODEL.FCOS_ON,
         "MODEL.MASK_ON": c.MODEL.MASK_ON,
         "MODEL.KEYPOINT_ON": c.MODEL.KEYPOINT_ON,
-        "MODEL.FCOS.DENSE_POINTS!=1": c.MODEL.FCOS.DENSE_POINTS != 1,
-        "FEW_SHOT.SUPP_AUG": c.FEW_SHOT.SUPP_AUG,
         "TPU.QUANT": c.TPU.QUANT != "none",
     }
     return [name for name, on in checks.items() if on]
@@ -148,6 +155,7 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         siamese_backbone=cfg.FEW_SHOT.SIAMESE_BACKBONE,
         fpn_strides=tuple(cfg.MODEL.FCOS.FPN_STRIDES),
         num_convs=cfg.MODEL.FCOS.NUM_CONVS,
+        dense_points=cfg.MODEL.FCOS.DENSE_POINTS,
         prior_prob=cfg.MODEL.FCOS.PRIOR_PROB,
         score_mode=cfg.LOSS.CLS_LOSS,
         rpn_only=cfg.MODEL.RPN_ONLY,
@@ -174,6 +182,9 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         roi_detections_per_img=cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
         eval_roi_topk=cfg.TPU.EVAL_ROI_TOPK,
         supp_roialign=cfg.FEW_SHOT.SUPP_ROIALIGN,
+        supp_aug=cfg.FEW_SHOT.SUPP_AUG,
+        num_supp_aug=cfg.FEW_SHOT.NUM_SUPP_AUG,
+        supp_aug_method=cfg.FEW_SHOT.SUPP_AUG_METHOD,
         # the JAX package's opt-in, read once here
         fused_roi_head=(os.environ.get("ONESHOT_PALLAS_ROI_HEAD") == "1"
                         and not cfg.FEW_SHOT.LINEAR_FUSION),
@@ -225,8 +236,12 @@ class GeneralizedRCNN(nn.Module):
         self.backbone = ResNetFPN(c.depth, c.out_channels, c.use_c5_for_p6)
         if c.siamese_backbone:
             self.supp_backbone = ResNetFPN(c.depth, c.out_channels, c.use_c5_for_p6)
+        if c.supp_aug and c.supp_aug_method == "conv":
+            # the variants' channels concatenated, aug-major, 3x3 to C
+            self.supp_aug_conv = Conv2d((1 + c.num_supp_aug) * c.out_channels, c.out_channels,
+                                        3, padding=1, bias=False)
         self.rpn = FCOSModule(in_channels=c.out_channels, num_convs=c.num_convs,
-                              num_levels=len(c.fpn_strides))
+                              num_levels=len(c.fpn_strides), dense_points=c.dense_points)
         if not c.rpn_only:
             ncls, nreg = predictor_num_classes(c.second_stage_method,
                                                c.second_stage_cls_loss, c.neg_support)
@@ -250,7 +265,42 @@ class GeneralizedRCNN(nn.Module):
 
     def _supp_features(self, supp: ImageBatch):
         net = self.supp_backbone if self.config.siamese_backbone else self.backbone
-        return self._pyramid(net, supp.pixels)
+        return self._merge_supp_aug(self._pyramid(net, supp.pixels))
+
+    def _merge_supp_aug(self, feats):
+        """FEW_SHOT.SUPP_AUG: per level, the 1 + NUM_SUPP_AUG consecutive
+        variants of each support, (N, C, H, W) channels_last, merged into
+        (N / (1 + NUM_SUPP_AUG), C, H, W) channels_last: their mean, their
+        max (``amax``: tied variants share the gradient equally, as
+        ``jnp.max``'s), or ``supp_aug_conv`` over their channels
+        concatenated variant-major (channel a * C + c)."""
+        c = self.config
+        if not c.supp_aug:
+            return feats
+        a = 1 + c.num_supp_aug
+        out = []
+        for f in feats:
+            n, ch, h, w = f.shape
+            if n % a:
+                raise ValueError(f"{n} support images are not a whole number of groups of "
+                                 f"1 + FEW_SHOT.NUM_SUPP_AUG = {a} augmented variants")
+            if c.supp_aug_method == "avg":
+                g = _nhwc(f).reshape(n // a, a, h, w, ch).mean(dim=1)
+            elif c.supp_aug_method == "max":
+                g = torch.amax(_nhwc(f).reshape(n // a, a, h, w, ch), dim=1)
+            elif c.supp_aug_method == "conv":
+                x = _nhwc(f).reshape(n // a, a, h, w, ch).permute(0, 2, 3, 1, 4)
+                g = _nhwc(self.supp_aug_conv(x.reshape(n // a, h, w, a * ch).permute(0, 3, 1, 2)))
+            else:
+                raise ValueError(c.supp_aug_method)
+            out.append(g.contiguous().permute(0, 3, 1, 2))
+        return out
+
+    def _supp_sizes(self, supp: ImageBatch) -> torch.Tensor:
+        """One (h, w) per merged support: the first variant's (the variants
+        of a support share its size)."""
+        c = self.config
+        return supp.sizes[::1 + c.num_supp_aug] if c.supp_aug else supp.sizes
 
     def _pool_supp_1x1(self, features_supp, supp_sizes_hw, batch_size):
         """Per level: 1x1 ROIAlign over the whole support (or the spatial
@@ -324,7 +374,8 @@ class GeneralizedRCNN(nn.Module):
                         for f, p in zip(features, supp_pooled)]
             logits, bbox_reg, ctrness = self.rpn.head(combined)
         locations = compute_locations([(f.shape[2], f.shape[3]) for f in combined],
-                                      self.config.fpn_strides, device=combined[0].device)
+                                      self.config.fpn_strides, device=combined[0].device,
+                                      dense_points=self.config.dense_points)
         return locations, logits, bbox_reg, ctrness
 
     # -- public eval API ------------------------------------------------------
@@ -371,8 +422,9 @@ class GeneralizedRCNN(nn.Module):
         with record_function("support_backbone"):
             features_supp = self._supp_features(images_supp)
         with record_function("support_pool"):
-            pooled = self._pool_supp_1x1(features_supp, images_supp.sizes, batch_size)
-            return pooled, self._supp_roi_7x7(features_supp, images_supp.sizes, batch_size)
+            sizes = self._supp_sizes(images_supp)
+            pooled = self._pool_supp_1x1(features_supp, sizes, batch_size)
+            return pooled, self._supp_roi_7x7(features_supp, sizes, batch_size)
 
     def _backbone_features(self, images: ImageBatch):
         with record_function("query_backbone"):
@@ -407,7 +459,8 @@ class GeneralizedRCNN(nn.Module):
             proposals = fcos_postprocess(
                 *stage1, sizes_wh,
                 c.pre_nms_top_n_test, c.rpn_nms_thresh, c.fpn_post_nms_top_n_test,
-                c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk)
+                c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk,
+                dense_points=c.dense_points)
         if c.rpn_only:
             return proposals
         if c.eval_roi_topk:
@@ -439,7 +492,7 @@ class GeneralizedRCNN(nn.Module):
                     *stage1, images.sizes_wh().to(torch.float32),
                     c.fcos_pre_nms_top_n, c.fcos_nms_th, c.detections_per_img_rpn_only,
                     c.nms_pre_topk, c.inference_th, c.score_mode,
-                    level_topk=c.strict_level_topk)
+                    level_topk=c.strict_level_topk, dense_points=c.dense_points)
         return self._detect_from_features(features, images.sizes_wh(),
                                           supp_pooled, supp_7x7, target_ids)
 
@@ -460,6 +513,8 @@ class GeneralizedRCNN(nn.Module):
         class, 0 on padding). ``images_neg_supp``: one negative support per
         image (another class's crop), read only with NEG_SUPPORT; its pass
         runs with REVERSE_ORDER too, but only loss_reverse is returned then.
+        With SUPP_AUG both hold each support's 1 + NUM_SUPP_AUG variants,
+        consecutive.
 
         The random inputs, each drawn from ``generator`` on the model's
         device (a generator of that device) when None, in this order:
@@ -475,15 +530,16 @@ class GeneralizedRCNN(nn.Module):
             features = self._pyramid(self.backbone, images.pixels)
         with record_function("support_backbone"):
             features_supp = self._supp_features(images_supp)
+        supp_sizes = self._supp_sizes(images_supp)
         with record_function("support_pool"):
-            supp_pooled = self._pool_supp_1x1(features_supp, images_supp.sizes, b)
+            supp_pooled = self._pool_supp_1x1(features_supp, supp_sizes, b)
         locations, logits, bbox_reg, ctrness = self._fcos_head(features, supp_pooled)
         labels, reg_targets = fcos_targets(
             locations, c.fpn_strides, targets.xyxy, targets.get_field("labels"), targets.valid,
             c.center_sample, c.pos_radius)
         loss_cls, loss_reg, loss_ctr = fcos_losses(
             logits, bbox_reg, ctrness, labels, reg_targets, c.loss_gamma, c.loss_alpha,
-            c.loc_loss_type, c.focal_mode)
+            c.loc_loss_type, c.focal_mode, dense_points=c.dense_points)
         losses = {"loss_cls": loss_cls, "loss_reg": loss_reg, "loss_centerness": loss_ctr}
         if c.rpn_only:
             return losses
@@ -492,9 +548,10 @@ class GeneralizedRCNN(nn.Module):
             proposals = fcos_postprocess(
                 locations, logits, bbox_reg, ctrness, images.sizes_wh().to(torch.float32),
                 c.pre_nms_top_n_train, c.rpn_nms_thresh, c.fpn_post_nms_top_n_train,
-                c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk)
+                c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk,
+                dense_points=c.dense_points)
         with record_function("support_pool"):
-            supp_7x7 = self._supp_roi_7x7(features_supp, images_supp.sizes, b)
+            supp_7x7 = self._supp_roi_7x7(features_supp, supp_sizes, b)
         ones = torch.where(targets.valid, 1.0, 0.0)
         gt_props = Boxes(xyxy=targets.xyxy.to(torch.float32), valid=targets.valid,
                          size=targets.size, fields={"scores": ones, "objectness": ones})
@@ -534,7 +591,7 @@ class GeneralizedRCNN(nn.Module):
             with record_function("support_backbone"):
                 feats_neg = self._supp_features(images_neg_supp)
             with record_function("support_pool"):
-                neg_7x7 = self._supp_roi_7x7(feats_neg, images_neg_supp.sizes, b)
+                neg_7x7 = self._supp_roi_7x7(feats_neg, self._supp_sizes(images_neg_supp), b)
             with record_function("roi_head"):
                 neg_logits, _ = head(roi_feats, neg_7x7[:, 0].to(self.dtype))
         out = roi_head_loss(

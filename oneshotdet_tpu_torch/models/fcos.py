@@ -3,7 +3,10 @@
   - head: NUM_CONVS x (3x3 conv + GN32 + ReLU) twin towers shared over the
     levels; cls_logits (one class), centerness from the cls tower,
     bbox_pred = exp(Scale_l(conv)); logits, deltas and centerness in float32;
-  - locations: x = i * stride + stride // 2;
+  - locations: x = i * stride + stride // 2; with MODEL.FCOS.DENSE_POINTS 4
+    or 5, each cell holds 4 (or 5) sub-points at +-stride // 4 (and its
+    centre), the sub-point index varying fastest, as the head's outputs
+    hold dense_points values per cell, sub-point-major;
   - postprocess: sigmoid(cls) * sigmoid(centerness), locations outside the
     true image masked, per-level top-k (``level_topk``) or one global top
     ``nms_pre_topk``, ltrb decode, clip, class-agnostic NMS, top
@@ -14,8 +17,8 @@
     losses: focal / (num_pos + B), GIoU weighted by centerness targets, and
     BCE centerness over positives.
 
-Head outputs are NHWC, flattened per level as (B, H*W) in y*W + x order, as
-in the JAX package.
+Head outputs are NHWC, flattened per level as (B, H*W*dense_points) in
+(y*W + x)*dense_points + sub-point order, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,13 +41,15 @@ OBJECT_SIZES_OF_INTEREST = ((-1.0, 64.0), (64.0, 128.0), (128.0, 256.0), (256.0,
 
 
 class FCOSHead(nn.Module):
-    def __init__(self, in_channels: int = 256, num_convs: int = 4, num_levels: int = 5):
+    def __init__(self, in_channels: int = 256, num_convs: int = 4, num_levels: int = 5,
+                 dense_points: int = 1):
         super().__init__()
+        dp = dense_points
         self.cls_tower = nn.Sequential(*[m for _ in range(num_convs) for m in conv_gn_relu(in_channels)])
         self.bbox_tower = nn.Sequential(*[m for _ in range(num_convs) for m in conv_gn_relu(in_channels)])
-        self.cls_logits = Conv2d(in_channels, 1, 3, padding=1)   # one class
-        self.bbox_pred = Conv2d(in_channels, 4, 3, padding=1)
-        self.centerness = Conv2d(in_channels, 1, 3, padding=1)
+        self.cls_logits = Conv2d(in_channels, dp, 3, padding=1)   # one class per point
+        self.bbox_pred = Conv2d(in_channels, 4 * dp, 3, padding=1)
+        self.centerness = Conv2d(in_channels, dp, 3, padding=1)
         self.scales = nn.ModuleList([Scale() for _ in range(num_levels)])
 
     def forward(self, features: Sequence[torch.Tensor]):
@@ -70,15 +75,33 @@ class FCOSModule(nn.Module):
         self.head = FCOSHead(**head_kwargs)
 
 
+def dense_offsets(dense_points: int, stride: int) -> torch.Tensor:
+    """(dense_points, 2) (x, y) offsets of a cell's sub-points: 4 at
+    +-stride // 4, or those 4 and the centre between the first two and the
+    last two. Other counts than 4 and 5 raise ValueError."""
+    s = float(stride // 4)
+    if dense_points == 4:
+        return torch.tensor([[-s, -s], [s, -s], [-s, s], [s, s]])
+    if dense_points == 5:
+        return torch.tensor([[-s, -s], [s, -s], [0.0, 0.0], [-s, s], [s, s]])
+    raise ValueError("dense points only support 1, 4, 5")
+
+
 def compute_locations(feature_shapes: Sequence[Tuple[int, int]],
-                      strides: Sequence[int], device=None) -> List[torch.Tensor]:
-    """Per-level (H*W, 2) float32 (x, y) grids in y*W + x order."""
+                      strides: Sequence[int], device=None,
+                      dense_points: int = 1) -> List[torch.Tensor]:
+    """Per-level (H*W*dense_points, 2) float32 (x, y) grids in y*W + x
+    order, each cell's sub-points consecutive."""
     out = []
     for (h, w), stride in zip(feature_shapes, strides):
         xs = torch.arange(w, dtype=torch.float32, device=device) * stride + stride // 2
         ys = torch.arange(h, dtype=torch.float32, device=device) * stride + stride // 2
         yy, xx = torch.meshgrid(ys, xs, indexing="ij")
-        out.append(torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1))
+        loc = torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
+        if dense_points != 1:
+            pts = dense_offsets(dense_points, stride).to(device)
+            loc = (loc[:, None, :] + pts[None, :, :]).reshape(-1, 2)
+        out.append(loc)
     return out
 
 
@@ -155,10 +178,11 @@ def fcos_losses(
     alpha: float = 0.25,
     loc_loss_type: str = "giou",
     focal_mode: str = "SIGMOID",
+    dense_points: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(cls_loss, reg_loss, centerness_loss) over the levels flattened in
-    y * W + x order."""
-    n, c = logits[0].shape[0], logits[0].shape[-1]
+    (y * W + x) * dense_points + sub-point order."""
+    n, c = logits[0].shape[0], logits[0].shape[-1] // dense_points
     cls_flat = torch.cat([x.reshape(n, -1, c) for x in logits], dim=1).reshape(-1, c)
     reg_flat = torch.cat([x.reshape(n, -1, 4) for x in bbox_reg], dim=1).reshape(-1, 4)
     ctr_flat = torch.cat([x.reshape(n, -1) for x in ctrness], dim=1).reshape(-1)
@@ -196,14 +220,17 @@ def fcos_postprocess(
     pre_nms_thresh: float = 0.0,
     score_mode: str = "BINARY",
     level_topk: bool = True,
+    dense_points: int = 1,
 ) -> Boxes:
     """Decode + top-k + cross-level NMS -> padded proposal Boxes with
-    xyxy (B, post_top_n, 4) and fields 'scores' and 'objectness'."""
+    xyxy (B, post_top_n, 4) and fields 'scores' and 'objectness'. With
+    ``dense_points``, each location of ``locations`` is one sub-point of a
+    cell, and the head's values per cell split into one per sub-point."""
     b = logits[0].shape[0]
     sizes_wh = image_sizes_wh.to(torch.float32)
 
     def level_scores(loc, lg, ct):
-        c = lg.shape[-1]
+        c = lg.shape[-1] // dense_points
         if score_mode == "BINARY":
             cls = torch.sigmoid(lg.reshape(b, -1, c))[..., 0]
         else:

@@ -7,7 +7,8 @@ crops of the same colour, in the data pipeline's layout. The same seed gives
 the same numpy arrays as the JAX package's copy.
 
 ``write_synthetic_coco``: a COCO-style dataset on disk (binary PPM images
-and an instances JSON) for the data path, made with numpy from a seed.
+and an instances JSON, optionally with polygon segmentations) for the data
+path, made with numpy from a seed.
 
 ``write_synthetic_c2_resnet``: a Detectron-style pickle of ResNet blobs
 (``{"blobs": {"conv1_w": ..., "res2_0_branch2a_w": ...}}``, with the
@@ -69,15 +70,41 @@ def make_episodic_batch(batch_size: int = 2, query_hw=(128, 128), supp_hw=(64, 6
     }
 
 
+def _polygon_rings(rng, x, y, w, h):
+    """The segmentation of a box (x, y, w, h): one convex ring, one concave
+    (a star) or two rings, their vertices inside the box on a half-pixel
+    grid."""
+    def ring(cx, cy, rx, ry, n, concave):
+        ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+        rad = rng.uniform(0.6, 1.0, n)
+        if concave:
+            rad[1::2] *= 0.45
+        px = np.clip(np.round((cx + rx * rad * np.cos(ang)) * 2) / 2, x, x + w)
+        py = np.clip(np.round((cy + ry * rad * np.sin(ang)) * 2) / 2, y, y + h)
+        return [float(v) for xy in zip(px, py) for v in xy]
+
+    kind = rng.randint(3)
+    if kind < 2:
+        return [ring(x + w / 2, y + h / 2, w / 2, h / 2, rng.randint(5, 11), kind == 1)]
+    return [ring(x + w / 4, y + h / 2, w / 4, h / 2, rng.randint(3, 7), False),
+            ring(x + 3 * w / 4, y + h / 2, w / 4, h / 2, rng.randint(6, 11), True)]
+
+
 def write_synthetic_coco(root, num_images: int = 24, sizes=((375, 500), (500, 375)),
-                         num_categories: int = 3, box_side=(90.0, 300.0), seed: int = 0):
+                         num_categories: int = 3, box_side=(90.0, 300.0), seed: int = 0,
+                         segmentation: bool = False):
     """Write ``num_images`` binary PPM images (sizes (h, w) taken in turn)
     with 1-4 boxes each and the instances JSON under ``root``. Boxes are
     rectangles of their category's colour on noise, with sides drawn from
     ``box_side`` (capped by the image), corners on a half-pixel grid, and
     one box in eight running past the right or bottom edge. Every category
-    has at least one box. Returns (image directory, annotation file)."""
+    has at least one box. With ``segmentation``, each annotation also gets
+    polygons inside its box (one convex ring, a concave one, or two rings;
+    half-pixel vertices) from a stream of their own, so images and boxes are
+    those of the same seed without them. Returns (image directory,
+    annotation file)."""
     rng = np.random.RandomState(seed)
+    seg_rng = np.random.RandomState(seed + 1) if segmentation else None
     img_dir = os.path.join(str(root), "images")
     os.makedirs(img_dir, exist_ok=True)
     colors = rng.randint(40, 256, (num_categories, 3))
@@ -101,9 +128,11 @@ def write_synthetic_coco(root, num_images: int = 24, sizes=((375, 500), (500, 37
             x0, y0 = int(x), int(y)
             patch = arr[y0:int(y + bh), x0:int(x + bw)]
             patch[:] = np.clip(colors[cat - 1] + rng.randint(-20, 21, patch.shape), 0, 255)
-            annotations.append({"id": len(annotations) + 1, "image_id": i + 1,
-                                "category_id": int(cat), "bbox": [x, y, bw, bh],
-                                "area": bw * bh, "iscrowd": 0})
+            ann = {"id": len(annotations) + 1, "image_id": i + 1, "category_id": int(cat),
+                   "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": 0}
+            if seg_rng is not None:
+                ann["segmentation"] = _polygon_rings(seg_rng, x, y, bw, bh)
+            annotations.append(ann)
         name = f"{i:06d}.ppm"
         write_ppm(os.path.join(img_dir, name), arr)
         images.append({"id": i + 1, "file_name": name, "width": w, "height": h})

@@ -3,7 +3,9 @@
 The port's own copy of the name map of
 ``oneshotdet_tpu/utils/torch_export.py::map_flax_leaf`` and its layout
 transforms: HWIO conv kernels -> OIHW, (in, out) dense kernels -> (out, in),
-scalar FCOS scales () -> (1,). The result loads into
+scalar FCOS scales () -> (1,). Beyond the JAX package's map it carries
+``supp_aug_conv`` (FEW_SHOT.SUPP_AUG_METHOD 'conv'), under the reference
+module's name. The result loads into
 ``models.GeneralizedRCNN`` with ``load_state_dict(strict=True)``.
 """
 
@@ -68,6 +70,9 @@ def map_flax_leaf(collection: str, path: Tuple[str, ...]) -> Optional[Tuple[str,
 
     if collection != "params":
         return None
+
+    if p == ("supp_aug_conv", "kernel"):
+        return "supp_aug_conv.weight", "conv"
 
     if p[0] == "fcos_head":
         m = re.match(r"^(cls_tower|bbox_tower)_(\d+)$", p[1])

@@ -404,8 +404,7 @@ def test_compute_thresholds_for_classes_equals_jax():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("switch", ["MODEL.MASK_ON", "MODEL.KEYPOINT_ON", "FEW_SHOT.MASK_SUPP",
-                                    "FEW_SHOT.SUPP_AUG"])
+@pytest.mark.parametrize("switch", ["MODEL.MASK_ON", "MODEL.KEYPOINT_ON"])
 def test_unported_switches_raise(dataset_files, switch):
     img_dir, ann_file = dataset_files
     _, pcfg = data_cfgs(switch, True)

@@ -41,6 +41,8 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.tools.remove_solver_states\n"
         "import oneshotdet_tpu_torch.export, oneshotdet_tpu_torch.ops.library\n"
         "import oneshotdet_tpu_torch.tools.export_model, oneshotdet_tpu_torch.tools.oneshot_demo\n"
+        "import oneshotdet_tpu_torch.structures.segmentation_mask\n"
+        "import oneshotdet_tpu_torch.data.transforms\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -78,8 +80,23 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/tools/remove_solver_states.py",
                  "oneshotdet_tpu_torch/export.py", "oneshotdet_tpu_torch/ops/library.py",
                  "oneshotdet_tpu_torch/tools/export_model.py",
-                 "oneshotdet_tpu_torch/tools/oneshot_demo.py"):
+                 "oneshotdet_tpu_torch/tools/oneshot_demo.py",
+                 "oneshotdet_tpu_torch/structures/segmentation_mask.py",
+                 "oneshotdet_tpu_torch/data/transforms.py"):
         assert path in names
+
+
+@pytest.mark.parametrize("module", ["structures/segmentation_mask.py", "data/transforms.py",
+                                    "data/datasets/coco.py"])
+def test_support_mask_and_jitter_never_import_pil(module):
+    """The polygon fill and the colour jitter are numpy: PIL is imported by
+    none of these modules, not even inside a function (the port reads PIL
+    only to decode a non-PPM image, in ``data/image_io.py``)."""
+    tree = ast.parse((ROOT / "oneshotdet_tpu_torch" / module).read_text())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        assert not any(n == "PIL" or n.startswith("PIL.") for n in names), node.lineno
 
 
 def test_forbidden_name_matching():

@@ -80,8 +80,8 @@ def test_backbone_p6_from_c5_matches_jax(setup):
 
 
 @pytest.mark.parametrize("switch", [
-    ("FEW_SHOT.SUPP_AUG", True), ("MODEL.MASK_ON", True),
-    ("MODEL.KEYPOINT_ON", True), ("MODEL.FCOS_ON", False), ("TPU.QUANT", "int8"),
+    ("MODEL.MASK_ON", True), ("MODEL.KEYPOINT_ON", True), ("MODEL.FCOS_ON", False),
+    ("TPU.QUANT", "int8"),
 ])
 def test_unported_switches_raise(switch):
     _, pcfg = small_cfgs(*switch)

@@ -1,5 +1,7 @@
 """One config of several training variants (soft transLinear labels, the
-cxe class loss, the reverse-order pass and linear fusion) against the JAX
+cxe class loss, the reverse-order pass, linear fusion and the support
+augmentation's max merge of a support and its flip, both cut inside their
+bucket so that their padding ties) against the JAX
 package on the CPU (float32, the test size and seeded weights of
 ``tests/test_torch_port_train.py``): ``forward_train``'s losses within rtol
 5e-4 and every parameter's gradient within 1e-4 relative norm of
@@ -24,7 +26,8 @@ from torch_port_common import (LOSS_RTOL, TrainVariants, capture_head_kinks, com
 
 COMBINED = ["FEW_SHOT.SOFT_LABELING", True, "FEW_SHOT.SOFT_LABELING_FUNC", "transLinear",
             "FEW_SHOT.SECOND_STAGE_CLS_LOSS", "cxe_loss", "FEW_SHOT.REVERSE_ORDER", True,
-            "FEW_SHOT.LINEAR_FUSION", True]
+            "FEW_SHOT.LINEAR_FUSION", True, "FEW_SHOT.SUPP_AUG", True,
+            "FEW_SHOT.NUM_SUPP_AUG", 1, "FEW_SHOT.SUPP_AUG_METHOD", "max"]
 KEYS = {"loss_cls", "loss_reg", "loss_centerness", "loss_classifier", "loss_box_reg",
         "loss_reverse"}
 
@@ -44,7 +47,7 @@ def test_gradients_match_jax(variants):
 
 def test_two_train_steps_match_jax(variants):
     """The combined config (soft transLinear labels, cxe, reverse order,
-    linear fusion): JAX's make_train_step folds the step count into its rng,
+    linear fusion, the max merge): JAX's make_train_step folds the step count into its rng,
     the port's train_step takes the draws that rng gives. Losses of both
     steps within rtol 5e-4; every parameter within 1e-6 of JAX's after the
     two steps and its update within 1e-3 of the update's norm plus two
@@ -55,7 +58,8 @@ def test_two_train_steps_match_jax(variants):
     jm, variables = variants.weights(COMBINED)
     tx, _ = jax_make_optimizer(jcfg, variables["params"])
     state = create_train_state(jm, tx, variables)
-    batches = [{n: jnp.asarray(v) for n, v in b.items()} for b in variants.batches[:2]]
+    episodes = [variants.batch(k, COMBINED) for k in range(2)]
+    batches = [{n: jnp.asarray(v) for n, v in b.items()} for b in episodes]
     step = compile_fast(make_train_step(jm, tx), state, batches[0], variants.rng)
 
     def kinks_at(params, batch, rng):
@@ -64,9 +68,9 @@ def test_two_train_steps_match_jax(variants):
                             capture_intermediates=capture_head_kinks, mutable=["intermediates"])
         return inter["intermediates"]["roi_head"]
 
-    kinks_at = compile_fast(kinks_at, state.params, variants.batches[0], variants.rng)
+    kinks_at = compile_fast(kinks_at, state.params, episodes[0], variants.rng)
     ref_metrics, kinks = [], []
-    for k, batch in enumerate(variants.batches[:2]):
+    for k, batch in enumerate(episodes):
         inter = kinks_at(state.params, batch, jax.random.fold_in(variants.rng, k))
         kinks.append({n: [np.asarray(x) for x in c["__call__"]] for n, c in inter.items()})
         state, m = step(state, batches[k], variants.rng)
@@ -80,7 +84,7 @@ def test_two_train_steps_match_jax(variants):
     opt = make_optimizer(pcfg, model)
     sched = make_lr_scheduler(pcfg, opt)
     n = train_proposal_count(pcfg)
-    for k, batch in enumerate(variants.batches[:2]):
+    for k, batch in enumerate(episodes):
         draws = jax_sampling_draws(jax.random.fold_in(variants.rng, k), n)
         with head_kinks_as_jax(model.roi_heads.box, kinks[k]):
             metrics = train_step(model, opt, sched, batch, draws=draws)

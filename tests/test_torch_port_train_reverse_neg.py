@@ -5,8 +5,9 @@ supports are a third ``make_episodic_batch``'s): the losses within rtol 5e-4
 and every parameter's gradient within 1e-4 relative norm of
 ``jax.value_and_grad``, with the focal class loss (2 classes with negative
 supports), and with the reverse-order pass too (and trans4thLinear soft
-labels with the cxe loss), where only loss_reverse is returned, as in the
-JAX package, while the negative pass still runs.
+labels with the cxe loss, and the support augmentation's avg merge of 3
+variants, on the negative supports too), where only loss_reverse is
+returned, as in the JAX package, while the negative pass still runs.
 """
 
 import pytest
@@ -23,7 +24,8 @@ CASES = {
     "reverse order and neg support, soft trans4thLinear, cxe": (
         ["FEW_SHOT.REVERSE_ORDER", True, "FEW_SHOT.NEG_SUPPORT.TURN_ON", True,
          "FEW_SHOT.SOFT_LABELING", True, "FEW_SHOT.SOFT_LABELING_FUNC", "trans4thLinear",
-         "FEW_SHOT.SECOND_STAGE_CLS_LOSS", "cxe_loss"], True, FCOS | STAGE2 | {"loss_reverse"}),
+         "FEW_SHOT.SECOND_STAGE_CLS_LOSS", "cxe_loss", "FEW_SHOT.SUPP_AUG", True,
+         "FEW_SHOT.NUM_SUPP_AUG", 2], True, FCOS | STAGE2 | {"loss_reverse"}),
 }
 
 

@@ -5,8 +5,10 @@ draws (the sampling uniforms of ``fold_in(rng, 1)`` and the artificial
 jitters of ``fold_in(rng, 3)``): the losses within rtol 5e-4 and every
 parameter's gradient within 1e-4 relative norm of ``jax.value_and_grad``.
 Two configs that between them take artificial proposals, remat, the
-discrete and linear soft labels, the mse and l1 class losses and the 'rn'
-method (2 classes, 3 regression slots; the other soft-label shapes are in
+discrete and linear soft labels, the mse and l1 class losses, the 'rn'
+method (2 classes, 3 regression slots), FCOS's dense points (5 and 4) and
+the support augmentation's conv merge of 2 variants (``supp_aug_conv``'s
+gradient included; the other soft-label shapes and merges are in
 ``test_torch_port_train_{combined,reverse_neg}.py``); and remat on the port
 bit for bit against the same model without it.
 
@@ -26,12 +28,17 @@ from torch_port_common import (TrainVariants, jax_sampling_draws, small_cfgs, st
 
 SOFT = ["FEW_SHOT.SOFT_LABELING", True, "FEW_SHOT.SOFT_LABELING_FUNC"]
 LOSS = "FEW_SHOT.SECOND_STAGE_CLS_LOSS"
-ART = ["FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS", True, *SOFT, "discrete", LOSS, "mse_loss"]
-CASES = {   # name -> (the port's overrides, JAX's where they differ)
+ART = ["FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS", True, *SOFT, "discrete", LOSS, "mse_loss",
+       "MODEL.FCOS.DENSE_POINTS", 5]
+CONV_AUG = ["FEW_SHOT.SUPP_AUG", True, "FEW_SHOT.NUM_SUPP_AUG", 2,
+            "FEW_SHOT.SUPP_AUG_METHOD", "conv", "MODEL.FCOS.DENSE_POINTS", 4]
+CASES = {   # name -> (the port's overrides, JAX's where they differ); the
+    # first also takes 5 dense points, the second 4 and the conv merge
     "artificial proposals, remat, soft discrete, mse": (
         [*ART, "TPU.REMAT_BACKBONE", True], ART),
     "rn, soft linear, l1": (
-        ["FEW_SHOT.SECOND_STAGE_METHOD", "rn", *SOFT, "linear", LOSS, "l1_loss"], None),
+        ["FEW_SHOT.SECOND_STAGE_METHOD", "rn", *SOFT, "linear", LOSS, "l1_loss", *CONV_AUG],
+        None),
 }
 FIVE = {"loss_cls", "loss_reg", "loss_centerness", "loss_classifier", "loss_box_reg"}
 

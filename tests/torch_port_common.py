@@ -292,6 +292,21 @@ def capture_head_kinks(mdl, method):
         mdl.parent is not None and getattr(mdl.parent, "name", None) == "roi_head"
 
 
+# The FCOS towers' ReLUs, whose inputs are their GroupNorms' outputs, have
+# the same kinks: one tower element within rounding of 0 moves the towers',
+# the backbones' and the FPNs' gradients past 1e-4 (seen with the support
+# augmentation's avg merge).
+TOWER_KINKS = tuple(f"{t}_{i}" for t in ("cls_tower", "bbox_tower") for i in range(4))
+
+
+def capture_kinks(mdl, method):
+    """``capture_intermediates`` filter: the relation head's and the FCOS
+    towers' pre-activations."""
+    parent = getattr(mdl.parent, "name", None) if mdl.parent is not None else None
+    return capture_head_kinks(mdl, method) or (
+        method == "__call__" and mdl.name == "GroupNorm_0" and parent in TOWER_KINKS)
+
+
 class _Kink(torch.autograd.Function):
     """relu (slope 0) or leaky_relu: the forward as the port computes it; the
     backward's branch from ``positive`` (a bool mask)."""
@@ -324,7 +339,7 @@ class head_kinks_as_jax:
         k = self.calls.get(name, 0)
         self.calls[name] = k + 1
         ref = torch.from_numpy(self.kinks[name][k])
-        if name == "aggreg_gn":
+        if name == "aggreg_gn" or name in TOWER_KINKS:
             ref = ref.permute(0, 3, 1, 2)            # the port's conv layout, NCHW
         ref = ref.reshape(x.shape)
         own = x > 0
@@ -380,6 +395,35 @@ class head_kinks_as_jax:
         self._rh.F = self._f
 
 
+class tower_kinks_as_jax(head_kinks_as_jax):
+    """The same for the FCOS head's towers (``kinks`` by TOWER_KINKS name,
+    one call per level): each tower block's ReLU (``nn.Sequential`` index
+    3 i + 2) differentiated at JAX's branch within KINK_TOL of 0."""
+
+    def __enter__(self):
+        outer = self
+
+        class Relu(nn.Module):
+            def __init__(self, name):
+                super().__init__()
+                self.kink = name
+
+            def forward(self, x):
+                return _Kink.apply(x, 0.0, outer._positive(self.kink, x, 0.0))
+
+        self._restore = []
+        for name in TOWER_KINKS:
+            tower, i = name.rsplit("_", 1)
+            seq, j = getattr(self.head, tower), 3 * int(i) + 2
+            self._restore.append((seq, j, seq[j]))
+            seq[j] = Relu(name)
+        return self
+
+    def __exit__(self, *exc):
+        for seq, i, mod in self._restore:
+            seq[i] = mod
+
+
 # XLA's CPU backend without its LLVM optimizations: the train programs compile
 # in about two thirds of the time and run in about a second at this size
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
@@ -406,7 +450,10 @@ def head_shapes(jcfg):
 def variant_variables(base, jcfg):
     """Seeded flax variables of a config: ``base`` (the default config's
     draws) with the relation head's leaves of another path or shape (the
-    predictor's, or linear fusion's 3x3 conv) drawn anew (seed 5)."""
+    predictor's, or linear fusion's 3x3 conv) drawn anew (seed 5), and,
+    where the config has them, ``supp_aug_conv`` (SUPP_AUG_METHOD 'conv')
+    and the FCOS head's final convs at DENSE_POINTS values per cell drawn
+    anew (seed 7)."""
     shapes = head_shapes(jcfg)
     old = dict(_leaves(base["params"]["roi_head"]))
     fresh = dict(_leaves(random_tree(shapes, np.random.RandomState(5))))
@@ -414,15 +461,30 @@ def variant_variables(base, jcfg):
     for path, leaf in _leaves(shapes):
         same = path in old and old[path].shape == tuple(leaf.shape)
         _set(head, path, old[path] if same else fresh[path])
-    return {"params": dict(base["params"], roi_head=head), "constants": base["constants"]}
+    params = dict(base["params"], roi_head=head)
+    rng = np.random.RandomState(7)
+    dp, c = jcfg.MODEL.FCOS.DENSE_POINTS, jcfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
+    if dp != 1:
+        fcos = dict(params["fcos_head"])
+        for name, out in (("bbox_pred", 4 * dp), ("centerness", dp), ("cls_logits", dp)):
+            fcos[name] = random_tree({"bias": np.empty((out,)),
+                                      "kernel": np.empty((3, 3, c, out))}, rng)
+        params["fcos_head"] = fcos
+    if jcfg.FEW_SHOT.SUPP_AUG and jcfg.FEW_SHOT.SUPP_AUG_METHOD == "conv":
+        a = 1 + jcfg.FEW_SHOT.NUM_SUPP_AUG
+        params["supp_aug_conv"] = random_tree({"kernel": np.empty((3, 3, a * c, c))}, rng)
+    return {"params": params, "constants": base["constants"]}
 
 
 class TrainVariants:
     """Per config (the cfg overrides and whether negative supports are
     given): JAX's value_and_grad of the train apply on the first episode
-    with the train rng PRNGKey(2), with the relation head's pre-activations;
+    (its supports expanded by ``aug_batch`` under FEW_SHOT.SUPP_AUG)
+    with the train rng PRNGKey(2), with the relation head's and the FCOS
+    towers' pre-activations;
     and the port's forward_train and backward of that config with the same
-    weights, fed JAX's draws, its head's kinks at JAX's branch. Each is
+    weights, fed JAX's draws, its head's and towers' kinks at JAX's branch.
+    Each is
     computed once and shared by the config's tests (one instance per test
     module, a module-scoped fixture)."""
 
@@ -431,6 +493,12 @@ class TrainVariants:
         self.rng = jax.random.PRNGKey(2)
         self._refs, self._ports = {}, {}
         self._variables = None
+
+    def batch(self, k, overrides):
+        """Episode batch ``k`` as the config takes it: with SUPP_AUG its
+        supports cut inside their bucket and expanded by ``aug_batch``."""
+        n = supp_aug_of(overrides)
+        return aug_batch(self.batches[k], n) if n else self.batches[k]
 
     def weights(self, overrides):
         """(JAX model, variables) of the config (``variant_variables``)."""
@@ -445,16 +513,16 @@ class TrainVariants:
         key = (tuple(overrides), neg)
         if key not in self._refs:
             jm, variables = self.weights(overrides)
-            neg_supp = jax_train_inputs(self.batches[2], supp_only=True) if neg else None
+            neg_supp = jax_train_inputs(self.batch(2, overrides), supp_only=True) if neg else None
 
             def loss_fn(params, batch, rng):
                 losses, state = jm.apply(
                     {"params": params, "constants": variables["constants"]},
                     *jax_train_inputs(batch), train=True, rng=rng, images_neg_supp=neg_supp,
-                    capture_intermediates=capture_head_kinks, mutable=["intermediates"])
-                return sum(losses.values()), (losses, state["intermediates"]["roi_head"])
+                    capture_intermediates=capture_kinks, mutable=["intermediates"])
+                return sum(losses.values()), (losses, state["intermediates"])
 
-            args = (variables["params"], self.batches[0], self.rng)
+            args = (variables["params"], self.batch(0, overrides), self.rng)
             (_, (losses, kinks)), grads = compile_fast(
                 jax.value_and_grad(loss_fn, has_aux=True), *args)(*args)
             self._refs[key] = dict(
@@ -462,14 +530,17 @@ class TrainVariants:
                 grads=state_dict_from_flax({"params": grads}),
                 state_dict=state_dict_from_flax(variables),
                 kinks={name: [np.asarray(x) for x in calls["__call__"]]
-                       for name, calls in kinks.items()})
+                       for name, calls in kinks["roi_head"].items()},
+                tower_kinks={name: [np.asarray(x) for x in
+                                    kinks["fcos_head"][name]["GroupNorm_0"]["__call__"]]
+                             for name in TOWER_KINKS})
         return self._refs[key]
 
     def port(self, overrides, neg=False, ref_overrides=None):
         """The port's (losses, gradients by name, support layer4 gradients)
         of forward_train and its backward on JAX's draws, with the head's
-        kinks at JAX's branch (of the config ``ref_overrides`` where
-        given)."""
+        and the towers' kinks at JAX's branch (of the config
+        ``ref_overrides`` where given)."""
         from oneshotdet_tpu_torch.engine import batch_to_inputs
 
         key = (tuple(overrides), neg, None if ref_overrides is None else tuple(ref_overrides))
@@ -480,11 +551,12 @@ class TrainVariants:
         model = build_detection_model(pcfg, device="cpu")
         model.load_state_dict(ref["state_dict"], strict=True)
         model.train()
-        neg_supp = batch_to_inputs(self.batches[2])[1] if neg else None
+        neg_supp = batch_to_inputs(self.batch(2, overrides))[1] if neg else None
         art = jax_art_offsets(self.rng) if pcfg.FEW_SHOT.ADD_ARTIFICIAL_PROPOSALS else None
-        with head_kinks_as_jax(model.roi_heads.box, ref["kinks"]):
+        with head_kinks_as_jax(model.roi_heads.box, ref["kinks"]), \
+                tower_kinks_as_jax(model.rpn.head, ref["tower_kinks"]):
             losses = model.forward_train(
-                *batch_to_inputs(self.batches[0]),
+                *batch_to_inputs(self.batch(0, overrides)),
                 draws=jax_sampling_draws(self.rng, train_proposal_count(pcfg)),
                 images_neg_supp=neg_supp, art_offsets=art)
         sum(losses.values()).backward()
@@ -506,9 +578,9 @@ class TrainVariants:
     def check_grads(self, overrides, neg=False, ref_overrides=None):
         """Every parameter's gradient within GRAD_REL relative norm of JAX's
         (a parameter JAX gives an all-zero gradient must get zeros), with
-        the relation head's activations differentiated at JAX's branch
-        where their input lies within float32 rounding of the kink
-        (``head_kinks_as_jax``); the support backbone's layer4, reached only
+        the relation head's and the FCOS towers' activations differentiated
+        at JAX's branch where their input lies within float32 rounding of
+        the kink (``head_kinks_as_jax``, ``tower_kinks_as_jax``); the support backbone's layer4, reached only
         through the ROIAlign backward, gets a non-zero one.
         ``ref_overrides``: JAX's config, where it is not the port's."""
         ref = self.reference(overrides if ref_overrides is None else ref_overrides, neg)["grads"]
@@ -523,3 +595,41 @@ class TrainVariants:
             assert rel <= GRAD_REL, f"{name}: {rel:.2e}"
         supp = [g for n, g in grads.items() if n.startswith("supp_backbone.body.layer4")]
         assert all(g is not None and float(g.abs().sum()) > 0 for g in supp)
+
+
+# -- support augmentation (FEW_SHOT.SUPP_AUG) ---------------------------------
+
+def aug_supports(pixels, sizes, num_aug):
+    """Each support (N, h, w, 3) of true size (h, w) followed by its
+    ``num_aug`` variants, as the loader lays them out: the flip of its true
+    extent (the padding stays where it was), then a colour change standing
+    in for the jitter. Returns the (N * (1 + num_aug), ...) pixels and
+    sizes (float32 numpy)."""
+    pixels, sizes = np.asarray(pixels, np.float32), np.asarray(sizes, np.float32)
+    out = []
+    for s, (h, w) in zip(pixels, sizes.astype(int)):
+        flip = s.copy()
+        flip[:h, :w] = s[:h, :w][:, ::-1]
+        jit = s.copy()
+        jit[:h, :w] = s[:h, :w] * np.float32(0.7) + np.float32(0.1)
+        out += [s, flip, jit][:1 + num_aug]
+    return np.stack(out), np.repeat(sizes, 1 + num_aug, axis=0)
+
+
+def aug_batch(batch, num_aug, true_hw=(26, 30)):
+    """A flat batch dict whose supports, cut to ``true_hw`` inside their
+    bucket (zeros beyond, the padding every variant shares), are expanded
+    by ``aug_supports``."""
+    (h, w), pixels = true_hw, np.array(batch["supp_pixels"], np.float32)
+    pixels[:, h:] = 0.0
+    pixels[:, :, w:] = 0.0
+    sizes = np.tile(np.array([[h, w]], np.float32), (len(pixels), 1))
+    pixels, sizes = aug_supports(pixels, sizes, num_aug)
+    return dict(batch, supp_pixels=pixels, supp_sizes=sizes)
+
+
+def supp_aug_of(overrides):
+    """NUM_SUPP_AUG of a list of cfg overrides with FEW_SHOT.SUPP_AUG on,
+    else 0."""
+    opts = dict(zip(overrides[::2], overrides[1::2]))
+    return int(opts.get("FEW_SHOT.NUM_SUPP_AUG", 1)) if opts.get("FEW_SHOT.SUPP_AUG") else 0
