@@ -68,8 +68,16 @@ and tools.train_net, with ms per batch and per step, the loader's host ms
 and launches; config B, the max merge and 4 dense points per FCOS cell:
 train steps and an eval forward at full width; the small float32 forward
 and train step of the avg merge and of 5 dense points on the card against
-the CPU) -- and checks small float32 forwards and a small float32 train step on
-the card against the same model on the CPU. Every kernel's launch count is
+the CPU), and the mask and keypoint heads (phase 13: K1 and K1b at their
+14x14 pools against their plain versions -- K1 on P4 at R = 16 000 and
+1024, over P3-P4 and at its edge cases, K1b at R = 1024 random and
+GT-clustered, bit-identical run to run; then the flagship with MASK_ON and
+KEYPOINT_ON at full width: eval forwards unfused and fused with 9 K1
+launches each, tools.test_net with segm_* and keypoints_*, tools.train_net
+with loss_mask and loss_kp and 9 K1 and 9 K1b calls a step, small float32
+forward and train checks against the CPU, the predictor's masks and
+contours) -- and checks small float32 forwards and a small float32 train
+step on the card against the same model on the CPU. Every kernel's launch count is
 set to 0 before each path and read after it. Any failure raises and exits
 non-zero. The last two lines of stdout are the per-kernel JSON line and
 {"ok": true, "device": {...}}.
@@ -612,6 +620,158 @@ def roi_align_bwd_checks(ra, dev):
         rand_ms = results[("proposals 7x7 R=1024", dtype)]["ms"]
         log(f"roi_align_bwd crowded tiles: GT-clustered R=1024 {str(dtype)[6:]} {crowd_ms:.4f} "
             f"ms against random ROIs {rand_ms:.4f} ms ({crowd_ms / rand_ms:.2f}x)")
+    return results
+
+
+MASK_POOL = (14, 14)           # the mask and keypoint heads' pools (POOLER_RESOLUTION 14)
+PLAIN_CHUNK = 1000             # ROIs per call of a plain 14x14 version (its (R, 784, C) temporaries)
+
+
+def _plain_chunked(fn, rois, levels, valid, chunk=PLAIN_CHUNK):
+    """The plain forward ``fn(rois, levels, valid)`` over ``chunk`` ROIs at a
+    time, concatenated (a ROI's output depends on that ROI alone)."""
+    outs = []
+    for i in range(0, rois.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        outs.append(fn(rois[sl], levels[sl], None if valid is None else valid[sl]))
+    return torch.cat(outs)
+
+
+def k1_compare_chunked(ra, name, dtype, args):
+    """``k1_compare`` for outputs whose plain version would not fit the card
+    at once: the plain version ROI chunk by ROI chunk. Returns (kernel
+    output, max abs err, metric text, tolerance text, staged bytes)."""
+    feats, rois, levels, out_hw, scales, g, valid = args
+    stats = torch.zeros((rois.shape[0], 2), dtype=torch.int32, device=rois.device)
+    k = ra.multilevel_roi_align_cuda(*args, stats=stats)
+    torch.cuda.synchronize()
+    err = ulps = 0.0
+    for i in range(0, rois.shape[0], PLAIN_CHUNK):
+        sl = slice(i, i + PLAIN_CHUNK)
+        p = ra.multilevel_roi_align_plain(feats, rois[sl], levels[sl], out_hw, scales, g,
+                                          None if valid is None else valid[sl])
+        d = (k[sl].float() - p.float()).abs()
+        if d.numel():
+            err = max(err, float(d.max()))
+            if dtype != torch.float32:
+                ulps = max(ulps, bf16_ulps(k[sl], p))
+        del p, d
+    if dtype == torch.float32:
+        ok, tol, metric = err <= 1e-5, "abs <= 1e-5", f"max abs err {err:.3e}"
+    else:
+        ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
+        metric = f"max abs err {err:.3e}, {ulps:.2f} bf16 ulp"
+    if not (ok and torch.isfinite(k.float()).all()):
+        raise AssertionError(f"roi_align {name} {dtype}: {metric} (tolerance {tol})")
+    plans = ra.roi_align_plan(*args)
+    want = torch.tensor([[0, 0] if pl is None else [len(pl.items), pl.staged_pixels]
+                         for pl in plans], dtype=torch.int32)
+    got = stats.cpu()
+    if not torch.equal(got, want):
+        i = int((got != want).any(1).nonzero()[0])
+        raise AssertionError(f"roi_align {name} {dtype}: ROI {i}'s kernel plan (items, staged "
+                             f"pixels) {got[i].tolist()} differs from roi_align_plan's "
+                             f"{want[i].tolist()}")
+    budget = ra.stage_budget(feats[0].shape[-1], dtype)
+    worst = max((max((r1 - r0) * (c1 - c0) for *_, r0, r1, c0, c1 in pl.items)
+                 for pl in plans if pl is not None), default=0)
+    most = int(got[:, 0].max()) if got.numel() else 0
+    if worst > budget or most > ra.MAX_ITEMS:
+        raise AssertionError(f"roi_align {name} {dtype}: an item of {worst} pixels (budget "
+                             f"{budget}) or {most} items (limit {ra.MAX_ITEMS})")
+    staged = int(got[:, 1].sum()) * feats[0].shape[-1] * k.element_size()
+    return k, err, f"{metric}; at most {most} items a ROI, {worst} of {budget} pixels an item", \
+        tol, staged
+
+
+def mask_kp_kernel_checks(ra, dev):
+    """Phase 13a-b: K1 and K1b at the mask and keypoint heads' 14 x 14 pools.
+    13a, K1 against its plain version in bf16 and f32 (plan statistics as
+    ``roi_align_plan``, every item within the staging buffer, the item count
+    within MAX_ITEMS): one level, P4 of the batch-8 832x1216 pyramid, at
+    R = 16 000 (the eval's 8 x 2000 detections) and R = 1024 (training); two
+    levels (1/8, 1/16) by the FPN rule; K1's edge cases on P4. 13b, K1b at
+    R = 1024 on P4, random and GT-clustered, against the float32 plain
+    gradient, its tile bits as ``roi_align_bwd_plan``'s, bit-identical over
+    two calls. Returns {(case, dtype): entry}."""
+    gen = torch.Generator().manual_seed(13)
+    q_shapes = pyramid_shapes(*QUERY_HW)
+    p4 = (BATCH, *q_shapes[1], 256)
+    results = {}
+    bwd = ra._bwd_kernel()
+    for dtype in (torch.bfloat16, torch.float32):
+        code = 1 if dtype == torch.bfloat16 else 0
+        log(f"roi_align_bwd at {MASK_POOL[0]}x{MASK_POOL[1]} {str(dtype)[6:]}: prefetch depth "
+            f"{bwd.oneshot_roi_align_bwd_prefetch(code, MASK_POOL[0] * MASK_POOL[1])} (7x7: "
+            f"{bwd.oneshot_roi_align_bwd_prefetch(code, 49)})")
+        feats = [torch.randn(BATCH, h, w, 256, generator=gen).to(dev, dtype)
+                 for h, w in q_shapes[:2]]
+        cases = []
+        for r in (16000, 1024):
+            rois, valid = random_rois(r, BATCH, QUERY_HW, gen, dev)
+            cases.append((f"P4 14x14 R={r}", feats[1:], rois,
+                          torch.zeros(r, dtype=torch.int32, device=dev), (0.0625,), valid))
+        rois, valid = random_rois(4096, BATCH, QUERY_HW, gen, dev)
+        cases.append(("P3-P4 14x14 R=4096", feats, rois, ra.fpn_level_map(rois[:, 1:], 3, 4),
+                      (0.125, 0.0625), valid))
+        for name, r, lv, v in edge_case_rois(gen, dev):
+            cases.append((f"P4 14x14 {name}", feats[1:], r,
+                          torch.zeros(r.shape[0], dtype=torch.int32, device=dev), (0.0625,), v))
+        for name, fs, rois, levels, sc, valid in cases:
+            args = (fs, rois, levels, MASK_POOL, sc, 2, valid)
+            k, err, metric, tol, staged = k1_compare_chunked(ra, name, dtype, args)
+            bound, by, nbytes, ops = k1_bound(fs, rois, levels, valid, k)
+            del k
+            ms = time_ms(lambda: ra.multilevel_roi_align_cuda(*args), reps=10)
+            plain_ms = time_ms(lambda: _plain_chunked(
+                lambda r, lv, v: ra.multilevel_roi_align_plain(fs, r, lv, MASK_POOL, sc, 2, v),
+                rois, levels, valid), reps=2, warmup=0)
+            log(f"roi_align {name} {str(dtype)[6:]}: {metric} (tolerance {tol}); kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({PLAIN_CHUNK} ROIs a call), bound "
+                f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), kernel at "
+                f"{100 * bound / ms:.1f}% of its bound; staged {staged / 1e6:.1f} MB from L2")
+            results[(name, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound, bound_by=by, bound_share=bound / ms)
+        del feats, cases
+        torch.cuda.empty_cache()
+        # 13b: K1b at R = 1024 on P4
+        rois, valid = random_rois(1024, BATCH, QUERY_HW, gen, dev)
+        zero = torch.zeros(1024, dtype=torch.int32, device=dev)
+        for name, r, v in (("P4 14x14 R=1024", rois, valid),
+                           ("GT-clustered P4 14x14 R=1024", clustered_rois(gen, dev), None)):
+            g_out = torch.randn((1024, *MASK_POOL, 256), generator=gen).to(dev, dtype)
+            bargs = (g_out, [p4], dtype, r, zero, MASK_POOL, (0.0625,), 2, v)
+            plan = ra.roi_align_bwd_plan([p4], r, zero, MASK_POOL, (0.0625,), 2, v)
+            scratch = ra.bwd_scratch(1024, len(plan.tiles), dev)
+            got = ra.multilevel_roi_align_backward_cuda(*bargs, scratch=scratch)
+            torch.cuda.synchronize()
+            bits = ra.bwd_tile_bits(scratch, 1024, len(plan.tiles))
+            if not torch.equal(bits.cpu(), plan.bits()):
+                raise AssertionError(f"roi_align_bwd {name} {dtype}: the kernel's tile lists "
+                                     f"differ from roi_align_bwd_plan's")
+            want = ra.multilevel_roi_align_backward_plain(g_out.float(), [p4], torch.float32,
+                                                          r, zero, MASK_POOL, (0.0625,), 2, v)
+            err, share, text = grad_compare(f"roi_align_bwd {name}", dtype, got, want)
+            del want
+            again = ra.multilevel_roi_align_backward_cuda(*bargs)
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                raise AssertionError(f"roi_align_bwd {name} {dtype}: a second call is not "
+                                     f"bit-identical to the first")
+            del again, got, bits, scratch
+            bound, by, nbytes, ops = k1b_bound(g_out, r, zero, v, [p4])
+            ms = time_ms(lambda: ra.multilevel_roi_align_backward_cuda(*bargs), reps=10)
+            plain_ms = time_ms(lambda: ra.multilevel_roi_align_backward_plain(*bargs),
+                               reps=3, warmup=1)
+            pairs = sum(len(x) for x in plan.lists)
+            log(f"roi_align_bwd {name} {str(dtype)[6:]}: {text}; tile bits as "
+                f"roi_align_bwd_plan ({pairs} (tile, ROI) pairs), bit-identical over 2 calls; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), kernel at "
+                f"{100 * bound / ms:.1f}% of its bound")
+            results[(f"bwd {name}", dtype)] = dict(max_abs_err=err, allowance_share=share, ms=ms,
+                                                   plain_ms=plain_ms, bound_ms=bound,
+                                                   bound_by=by, bound_share=bound / ms)
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1295,7 +1455,8 @@ def small_forward_check(cfg_path, dev, fused=False, opts=(), aug=0, label=""):
 
 
 STAGES = ("query_backbone", "support_backbone", "support_pool", "fcos_head",
-          "fcos_postprocess", "roi_pool", "roi_head", "roi_postprocess")
+          "fcos_postprocess", "roi_pool", "roi_head", "roi_postprocess", "mask_head",
+          "keypoint_head")
 
 
 def profile_forward(model, images, supps, label):
@@ -3389,6 +3550,376 @@ def supp_aug_path(cfg_path, dev, card, plain_loader_ms):
     return paths, out
 
 
+# -- phase 13: the mask and keypoint heads (MODEL.MASK_ON / KEYPOINT_ON) ------------
+
+MK_OPTS = ["MODEL.MASK_ON", True, "MODEL.KEYPOINT_ON", True]
+MK_K1 = 9                      # K1 a forward or step: the 7 box-path pools + the two 14x14
+MK_CLI_BATCHES = 2             # eval CLI batches: one warm-up, one timed
+MK_CLI_STEPS = 3               # train CLI steps: one warm-up, two timed
+MK_ITERS = 3                   # timed eval forwards
+# the small float32 checks: narrow heads (the CPU side runs them over every slot)
+MK_SMALL = MK_OPTS + ["MODEL.ROI_MASK_HEAD.CONV_LAYERS", "(64, 64)",
+                      "MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS", "(64, 64)", "TPU.MASK_RASTER", 28]
+MK_MASK_ATOL = 1e-4            # mask probabilities, card against CPU (float32, TF32 off)
+MK_ARGMAX_GAP = 1e-3           # keypoints compared where a heatmap's top two lie apart
+# the heatmaps' softmax is blind to a constant added to a whole heatmap: this
+# bias's gradient is zero, and both sides give rounding noise
+MK_SHIFT_INVARIANT = {"roi_heads.keypoint.predictor.kps_score_lowres.bias":
+                      "roi_heads.keypoint.predictor.kps_score_lowres.weight"}
+
+
+def mk_cfg(flagship, *opts):
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(flagship)
+    cfg.merge_from_list(MK_OPTS + list(opts))
+    return cfg
+
+
+def check_mask_kp_fields(dets, label):
+    """mask_probs (B, K, 28, 28) and keypoints (B, K, 17, 2 / -) of the
+    detections: finite, the probabilities in [0, 1], each keypoint inside
+    its box (cell centres of the box's heatmap)."""
+    b, k = dets.valid.shape
+    v = dets.valid
+    probs = dets.get_field("mask_probs")
+    xy, sc = dets.get_field("keypoints_xy"), dets.get_field("keypoints_scores")
+    if probs.shape != (b, k, 28, 28) or probs.dtype != torch.float32 or \
+            xy.shape != (b, k, 17, 2) or sc.shape != (b, k, 17):
+        raise AssertionError(f"{label}: fields {tuple(probs.shape)} {probs.dtype}, "
+                             f"{tuple(xy.shape)}, {tuple(sc.shape)}")
+    p, x, s_ = probs[v], xy[v].float(), sc[v].float()
+    if not (torch.isfinite(p).all() and float(p.min()) >= 0 and float(p.max()) <= 1
+            and torch.isfinite(x).all() and torch.isfinite(s_).all()):
+        raise AssertionError(f"{label}: non-finite or out-of-range masks or keypoints")
+    box = dets.xyxy[v].float()
+    lo, hi = box[:, None, :2] - 1e-2, torch.maximum(box[:, None, 2:], box[:, None, :2] + 1) + 1e-2
+    if not bool(((x >= lo) & (x <= hi)).all()):
+        raise AssertionError(f"{label}: a keypoint outside its box")
+    return int(v.sum())
+
+
+def mask_kp_eval_forwards(flagship, dev, card):
+    """Phase 13c: the flagship with both heads at full width (mask 4 x 256,
+    keypoint 8 x 512 with 17 keypoints, 14x14 pools on P4), bf16, batch 8
+    832x1216, seed-1 weights: MK_ITERS timed eval forwards unfused and with
+    the fused head (9 K1 launches a forward; 0 / 1 K3), ms, peak memory,
+    the fields checked, one profiled forward each."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+
+    cfg = mk_cfg(flagship)
+    images, supps = phase5_batch(dev)
+    model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    paths, out = {}, {}
+    for fused in (False, True):
+        cell = "mask+keypoint 2000/img" + (", fused head" if fused else "")
+        model.config = dataclasses.replace(model.config, fused_roi_head=fused)
+        dets = model(images, supps)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(MK_ITERS):
+            dets = model(images, supps)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / MK_ITERS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        paths[f"{cell}, {MK_ITERS} forwards"] = n = read_launches()
+        if n["roi_align"] != MK_K1 * MK_ITERS or n["roi_head"] != (MK_ITERS if fused else 0):
+            raise AssertionError(f"{cell}: launches {n} in {MK_ITERS} forwards, expected "
+                                 f"{MK_K1} K1 and {int(fused)} K3 a forward")
+        check_detections(dets, BATCH, 2000, images.sizes_wh())
+        nd = check_mask_kp_fields(dets, cell)
+        out[cell] = dict(ms=dt * 1e3, peak_gib=peak, k1_per_forward=MK_K1,
+                         k3_per_forward=int(fused), detections=nd)
+        log(f"eval forward {cell}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} bf16, "
+            f"{dt * 1e3:.1f} ms/batch, {BATCH / dt:.1f} img/s, peak memory {peak:.2f} GiB, {nd} "
+            f"detections with masks and keypoints, {MK_K1} K1 launches a forward [{card}]")
+        out[cell]["stages_ms"] = profile_forward(model, images, supps, cell)
+    del model, dets, images, supps
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def mask_kp_cli(flagship, dev, card):
+    """Phase 13c: ``tools.test_net`` over MK_CLI_BATCHES batches of 8 on
+    ``write_synthetic_coco(segmentation=True, keypoints=True)`` (a .pth of
+    seed-1 weights; 9 K1 launches a batch; segm_* and keypoints_* present
+    and finite) and ``tools.train_net`` from that .pth for MK_CLI_STEPS
+    steps (9 K1 and 9 K1b a step; finite loss_mask and loss_kp)."""
+    from oneshotdet_tpu_torch.data import build as data_build
+    from oneshotdet_tpu_torch.engine import trainer
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.tools import test_net, train_net
+    from oneshotdet_tpu_torch.utils import checkpoint as ckpt_mod
+    from oneshotdet_tpu_torch.utils.synthetic import write_synthetic_coco
+
+    paths, out = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        img_dir, ann_file = write_synthetic_coco(root, num_images=DATA_IMAGES, sizes=DATA_SIZES,
+                                                 box_side=DATA_BOX_SIDE, seed=0,
+                                                 segmentation=True, keypoints=True)
+        env = {"ONESHOT_CUSTOM_IMG_DIR": img_dir, "ONESHOT_CUSTOM_ANN_FILE": ann_file}
+        os.environ.update(env)
+        opts = [str(v) for v in ["DATASETS.TRAIN", "('custom',)", "DATASETS.TEST",
+                                 "('custom',)", "FEW_SHOT.TRAINING_EXCL_CATS", "[]",
+                                 "TEST.IMS_PER_BATCH", BATCH, "SOLVER.IMS_PER_BATCH", BATCH,
+                                 *MK_OPTS]]
+        cfg = mk_cfg(flagship, *opts)
+        model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        ckpt = os.path.join(root, "seed1.pth")
+        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        collector = _cli_logger()
+        marks = []
+        orig = _timed_loader(data_build, marks)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = test_net.main(["--config-file", flagship, "--ckpt", ckpt, *opts, "OUTPUT_DIR",
+                                os.path.join(root, "eval"), "FEW_SHOT.STOP_ITER",
+                                str(MK_CLI_BATCHES)])
+        finally:
+            data_build.PrefetchingLoader.__iter__ = orig
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = "mask+keypoint: eval CLI (test_net)"
+        paths[label] = n = read_launches()
+        metrics, n_dets = check_eval_outputs(os.path.join(root, "eval", "eval"), label)
+        want = {f"segm_{k}" for k in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@1",
+                                      "AR@10", "AR@100")}
+        want |= {f"keypoints_{k}" for k in ("AP", "AP50", "AP75", "APm", "APl", "AR@20")}
+        if rc != 0 or n["roi_align"] != MK_K1 * MK_CLI_BATCHES or not want <= set(metrics):
+            raise AssertionError(f"{label}: exit {rc}, launches {n} for {MK_CLI_BATCHES} "
+                                 f"batches, metrics {sorted(metrics)}")
+        out["eval_cli"] = dict(metrics={k: metrics[k] for k in sorted(want | {"AP"})},
+                               detections=n_dets, wall_s=wall,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                               k1_per_batch=MK_K1)
+        log(f"{label}: {MK_CLI_BATCHES} batches of {BATCH}, {wall:.1f} s in all with the "
+            f"evaluation (host clock; the segm pass pastes each episode's best 100 masks); "
+            f"{MK_K1} K1 launches a batch; {n_dets} detections; "
+            f"AP {metrics['AP']:.4f}, segm_AP {metrics['segm_AP']:.4f}, keypoints_AP "
+            f"{metrics['keypoints_AP']:.4f} (random weights) [{card}]")
+        torch.cuda.empty_cache()
+
+        marks = []
+        orig = _timed_loader(data_build, marks)
+        collector.messages.clear()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            with _TrainProbe(ckpt_mod, trainer, lambda *a: None) as probe:
+                probe.max_iter = MK_CLI_STEPS
+                rc = train_net.main(["--config-file", flagship, *opts, "MODEL.WEIGHT", ckpt,
+                                     "SOLVER.MAX_ITER", str(MK_CLI_STEPS),
+                                     "SOLVER.CHECKPOINT_PERIOD", str(10 * MK_CLI_STEPS),
+                                     "OUTPUT_DIR", os.path.join(root, "train")])
+        finally:
+            data_build.PrefetchingLoader.__iter__ = orig
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        label = "mask+keypoint: train CLI (train_net)"
+        paths[label] = n = read_launches()
+        steps = probe.steps
+        for st in steps:
+            k = st["launches"]
+            losses = {name: float(v) for name, v in st["metrics"].items()}
+            if k["roi_align"] != MK_K1 or k["roi_align_bwd"] != MK_K1 or \
+                    not {"loss_mask", "loss_kp"} <= set(losses) or \
+                    not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"{label} step {st['it'] + 1}: launches {k}, losses {losses}")
+            st["losses"] = losses
+        if rc != 0 or len(steps) != MK_CLI_STEPS:
+            raise AssertionError(f"{label}: exit {rc}, {len(steps)} steps")
+        ms_step = 1e3 * (probe.end - steps[1]["t0"]) / (MK_CLI_STEPS - 1)
+        out["train_cli"] = dict(ms_per_step=ms_step, peak_gib=peak, losses=steps[-1]["losses"],
+                                k1_per_step=MK_K1, k1b_per_step=MK_K1)
+        log(f"{label}: {MK_CLI_STEPS} steps from the .pth, {ms_step:.1f} ms/step over steps "
+            f"2-{MK_CLI_STEPS} (host clock from step 2's entry, loader included; bf16, batch "
+            f"{BATCH}); per step {MK_K1} K1 and {MK_K1} K1b calls; peak memory {peak:.2f} GiB; "
+            f"losses {steps[-1]['losses']} [{card}]")
+        del steps, probe.steps
+        logging.getLogger("oneshotdet_tpu_torch").handlers.clear()
+        for key in env:
+            os.environ.pop(key, None)
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def _mk_batch(seed):
+    """A small episode batch (2 x 128x160 queries, 64x64 supports) with GT
+    mask rasters (28^2) and 17 keypoints per GT inside its box."""
+    from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
+
+    batch = make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=seed)
+    rng = np.random.RandomState(seed)
+    gt, v = batch["gt_xyxy"], batch["gt_valid"]
+    masks = (rng.rand(2, 4, 28, 28) > 0.5).astype(np.float32)
+    u = rng.uniform(0.0, 1.0, (2, 2, 4, 17))
+    kps = np.stack([gt[..., None, 0] + u[0] * (gt[..., None, 2] - gt[..., None, 0]),
+                    gt[..., None, 1] + u[1] * (gt[..., None, 3] - gt[..., None, 1]),
+                    rng.choice([0, 1, 2], (2, 4, 17))], -1).astype(np.float32)
+    return dict(batch, gt_masks=masks * v[..., None, None],
+                gt_keypoints=kps * v[..., None, None])
+
+
+def mask_kp_small_checks(flagship, dev):
+    """Phase 13c: small float32 checks of both heads (64-wide, the
+    flagship's SMALL capacities), card against CPU with the same weights
+    (``distinct_weights_``), TF32 off: an eval forward (detections as
+    ``match_detections``; each matched detection's mask within MK_MASK_ATOL
+    and its keypoints within 1e-3 px where its heatmap's two largest values
+    lie more than MK_ARGMAX_GAP apart) and a train step (cuDNN off, the
+    card's ReLUs at the CPU's branch within rounding of their kink,
+    ``follow_kinks``, the heads' included: losses within rtol 5e-4, each
+    gradient within 1e-3 relative norm; kps_score_lowres.bias, whose
+    gradient is zero, within 1e-6 of its weight's)."""
+    from oneshotdet_tpu_torch.engine import batch_to_inputs
+    from oneshotdet_tpu_torch.models import build_detection_model
+
+    cfg = mk_cfg(flagship, *SMALL, *MK_SMALL)
+    cpu = build_detection_model(cfg, device="cpu")
+    distinct_weights_(cpu, torch.Generator().manual_seed(41))
+    gpu = build_detection_model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    batch = _mk_batch(42)
+    heat = {}
+    hooks = [m.roi_heads.keypoint.register_forward_hook(
+        lambda mod, i, o, d=d: heat.__setitem__(d, o.detach().float().cpu()))
+        for m, d in ((cpu, "cpu"), (gpu, "card"))]
+    outs = {}
+    for m, d in ((cpu, "cpu"), (gpu, dev)):
+        images, supp, _ = batch_to_inputs(batch, d)
+        outs["cpu" if m is cpu else "card"] = m(images, supp)
+    for h in hooks:
+        h.remove()
+    ref, got = outs["cpu"], outs["card"]
+    worst_mask = worst_kp = 0.0
+    clear = ties = 0
+    b, k = ref.valid.shape
+    flat = {d: heat[d].permute(0, 3, 1, 2).reshape(b, k, 17, -1) for d in heat}
+    for i in range(b):
+        def valid_dets(x):
+            v = x.valid[i].cpu().numpy()
+            return x.xyxy[i].cpu().numpy()[v], x.get_field("scores")[i].cpu().numpy()[v]
+        match_detections(valid_dets(got), valid_dets(ref))
+        _, j, _ = _best_partners(valid_dets(ref), valid_dets(got), 5e-4, 1e-3)
+        rv = np.nonzero(ref.valid[i].cpu().numpy())[0]
+        gv = np.nonzero(got.valid[i].cpu().numpy())[0]
+        for a, bj in zip(rv, gv[j]):
+            d = float((got.get_field("mask_probs")[i, bj].cpu()
+                       - ref.get_field("mask_probs")[i, a]).abs().max())
+            worst_mask = max(worst_mask, d)
+            top2 = torch.topk(flat["cpu"][i, a], 2, dim=-1).values
+            c = (top2[:, 0] - top2[:, 1]) > MK_ARGMAX_GAP
+            dxy = (got.get_field("keypoints_xy")[i, bj].cpu() - ref.get_field("keypoints_xy")[i, a])
+            if bool(c.any()):
+                worst_kp = max(worst_kp, float(dxy[c].abs().max()))
+            clear += int(c.sum())
+            ties += int((~c).sum())
+    if worst_mask > MK_MASK_ATOL or worst_kp > 1e-3 or clear == 0:
+        raise AssertionError(f"small mask+keypoint forward: masks {worst_mask:.2e} (tolerance "
+                             f"{MK_MASK_ATOL}), keypoints {worst_kp:.2e} px over {clear} clear "
+                             f"heatmaps")
+    log(f"small float32 mask+keypoint forward, card against CPU (TF32 off): detections match, "
+        f"masks within {worst_mask:.2e}, keypoints within {worst_kp:.2e} px on {clear} heatmaps "
+        f"with a clear maximum ({ties} near-ties not compared)")
+    draws = torch.rand((2, cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN + cfg.TPU.MAX_GT_BOXES),
+                       generator=torch.Generator().manual_seed(43))
+
+    def step(model, d, kinks):
+        model.train()
+        with kinks:
+            losses = model.forward_train(*batch_to_inputs(batch, d), draws=draws.to(d))
+            sum(losses.values()).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {n_: p.grad.detach().cpu() for n_, p in model.named_parameters()
+                 if p.grad is not None})
+
+    record = follow_kinks()
+    lc, gc = step(cpu, "cpu", record)
+    follow = follow_kinks(record.calls)
+    torch.backends.cudnn.enabled = False
+    try:
+        lg, gg = step(gpu, dev, follow)
+    finally:
+        torch.backends.cudnn.enabled = True
+    del gpu, cpu, record
+    if gc.keys() != gg.keys() or lc.keys() != lg.keys() or not {"loss_mask", "loss_kp"} <= set(lc):
+        raise AssertionError("small mask+keypoint step: card and CPU differ in their losses or "
+                             "in which parameters have gradients")
+    loss_rel = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+    for name, weight in MK_SHIFT_INVARIANT.items():
+        scale = float(gc[weight].norm())
+        if max(float(gc[name].norm()), float(gg[name].norm())) > 1e-6 * scale:
+            raise AssertionError(f"small mask+keypoint step: {name} gradient not ~0")
+    rel = sorted(((float((gg[k] - v).norm() / v.norm().clamp(min=1e-30)), k)
+                  for k, v in gc.items() if float(v.norm()) > 0 and k not in MK_SHIFT_INVARIANT),
+                 reverse=True)
+    log(f"small float32 mask+keypoint train step, card against CPU (cuDNN off, TF32 off): "
+        f"losses within {loss_rel:.2e} relative, worst gradient {rel[0][0]:.2e} relative norm "
+        f"({rel[0][1]}); {follow.taken} activation elements at the CPU's branch; losses {lc}")
+    if loss_rel > 5e-4 or rel[0][0] > 1e-3:
+        raise AssertionError(f"small mask+keypoint step: losses {loss_rel:.2e} (rtol 5e-4), "
+                             f"gradients {rel[0][0]:.2e} (bound 1e-3)")
+    return dict(mask_max_abs_err=worst_mask, keypoint_max_px_err=worst_kp,
+                keypoints_compared=clear, keypoint_near_ties=ties, loss_rel=loss_rel,
+                grad_rel=rel[0][0], kink_elements_taken=follow.taken)
+
+
+def mask_kp_predictor(flagship, dev, card, supp, frame):
+    """Phase 13c: ``OneShotPredictor`` with both heads at full width (bf16,
+    seed-1 weights): ``set_support`` (6 K1), ``run_on_image(...,
+    return_masks=True)`` and ``run_on_opencv_image`` on one frame (3 K1 a
+    frame: the 7x7 and the two 14x14 pools)."""
+    from oneshotdet_tpu_torch.predictor import OneShotPredictor
+
+    reset_launches()
+    pred = OneShotPredictor(mk_cfg(flagship), confidence_threshold=0.0, device=dev,
+                            generator=torch.Generator().manual_seed(1))
+    pred.set_support(supp)
+    t0 = time.perf_counter()
+    boxes, scores, masks = pred.run_on_image(frame, return_masks=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    bgr = np.ascontiguousarray(frame[:, :, ::-1])
+    t0 = time.perf_counter()
+    drawn = pred.run_on_opencv_image(bgr)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    n = read_launches()
+    if n["roi_align"] != 6 + 2 * 3:
+        raise AssertionError(f"predictor with masks: launches {n}, expected 6 + 2 x 3 K1")
+    if not (len(scores) and masks.shape == (len(scores), 28, 28) and np.isfinite(masks).all()
+            and drawn.shape == bgr.shape and not np.array_equal(drawn, bgr)):
+        raise AssertionError(f"predictor with masks: {len(scores)} detections, masks "
+                             f"{masks.shape}, frame {drawn.shape}")
+    log(f"predictor with masks and keypoints: frame {frame.shape[0]}x{frame.shape[1]}, "
+        f"{len(scores)} detections with masks, run_on_image {ms:.1f} ms, run_on_opencv_image "
+        f"{draw_ms:.1f} ms (host clock, first frames, contours drawn on the host) [{card}]")
+    del pred
+    torch.cuda.empty_cache()
+    return {"predictor with masks": n}, dict(ms=ms, opencv_ms=draw_ms, detections=len(scores))
+
+
+def mask_kp_path(flagship, dev, card, supp, frame):
+    """Phase 13: K1 and K1b at 14x14 (13a-b, ``mask_kp_kernel_checks``),
+    then the flagship with MASK_ON and KEYPOINT_ON (13c): eval forwards,
+    the CLIs, the small float32 checks and the predictor."""
+    from oneshotdet_tpu_torch.ops import roi_align as ra
+
+    kernels = mask_kp_kernel_checks(ra, dev)
+    paths, out = mask_kp_eval_forwards(flagship, dev, card)
+    cli_paths, out["cli"] = mask_kp_cli(flagship, dev, card)
+    paths.update(cli_paths)
+    out["small"] = mask_kp_small_checks(flagship, dev)
+    pred_paths, out["predictor"] = mask_kp_predictor(flagship, dev, card, supp, frame)
+    paths.update(pred_paths)
+    return paths, out, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -3615,6 +4146,15 @@ def main() -> int:
 
     phase_done("phase 12 (support switches)")
 
+    # -- phase 13: MASK_ON and KEYPOINT_ON, K1 and K1b at 14x14 --------------------
+    mk_paths, mask_kp, mk_kernels = mask_kp_path(flagship, dev, card, supp, frame_pixels[1])
+    paths.update(mk_paths)
+    for label, n in mk_paths.items():
+        launches[label] = n["roi_align"]
+        head_launches[label] = n["roi_head"]
+
+    phase_done("phase 13 (mask and keypoint heads)")
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -3637,6 +4177,9 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": None,
         "p3_skew_fresh_ms": checks[("p3-skew R=16000", torch.bfloat16)]["ms"],
+        "pool_14x14": {f"{name} {str(dt)[6:]}": e for (name, dt), e in mk_kernels.items()
+                       if not name.startswith("bwd ")},
+        "mask_keypoint": mask_kp,
         "artifact": artifact,
         "supp_aug": supp_aug,
         "card": card,
@@ -3759,6 +4302,8 @@ def main() -> int:
                            for lvl in range(3, 8)],
         "ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["ms"],
         "bound_ms_f32": bwd_checks[("proposals 7x7 R=1024", torch.float32)]["bound_ms"],
+        "pool_14x14": {f"{name[4:]} {str(dt)[6:]}": e for (name, dt), e in mk_kernels.items()
+                       if name.startswith("bwd ")},
         "train_step": {k: v for k, v in train.items() if k != "losses"},
         "small_train_check": small_train,
         "train_variants": {"full_width": {k: {n: v for n, v in e.items() if n != "losses"}

@@ -44,7 +44,11 @@
 //      columns, each cut into bands of whole output rows, so that an item's
 //      rows x columns of pixels fit one staging buffer (STAGE_BYTES). An item
 //      stages each pixel it needs once; a ROI of up to ~6 x 6 cells is one
-//      item in bf16. The rule is mirrored in
+//      item in bf16. Every item holds at least one whole bin, and one bin's
+//      (2 grid)^2 pixels always fit, so a ROI has at most pooled_h x
+//      pooled_w items: MAX_ITEMS takes the 14 x 14 pools of the mask and
+//      keypoint heads (196 bins, 28 samples an axis), whose large ROIs cut
+//      into many items of one bin each. The rule is mirrored in
 //      oneshotdet_tpu_torch/ops/roi_align.py (`roi_align_plan`), which the
 //      tests check on the CPU.
 //   4. Each pixel (C contiguous channels) is copied from L2 into shared
@@ -78,7 +82,8 @@
 #define STAGE_BYTES (24 * 1024)   // one staging buffer; a block has two
 #define MAX_AXIS 32               // pooled * sampling_ratio on one axis: a warp
 #define MAX_SLOTS (2 * MAX_AXIS)  // distinct rows (columns) of one ROI
-#define MAX_ITEMS 64              // pooled_h * pooled_w
+#define MAX_ITEMS 256             // pooled_h * pooled_w: an item holds at least one
+                                  // bin, so a ROI has at most one item per bin
 #define THREADS 256
 
 // Output rows [ph0, ph1) x columns [pw0, pw1), staged as row slots [r0, r1)

@@ -36,9 +36,15 @@
 //      8 rows, or 4 fp32 channels over all 16), as 64 float32 registers.
 //      Warp 0 lists the tile's ROIs (up to LIST_MAX at a time) in shared
 //      memory. Per ROI, cp.async brings its grad_out slice (bins x SV
-//      vectors) PREFETCH ROIs ahead into a ring of PREFETCH + 2 buffers, and
-//      its samples one ROI further ahead; from those the block builds the
-//      tile's separable weights, yw[ph][row] = the summed weights of the
+//      vectors) PF ROIs ahead into a ring of PF + 2 buffers, and its samples
+//      one ROI further ahead. PF is PREFETCH where BODY_MIN_BLOCKS blocks
+//      with that ring fit an SM's shared memory, else 1 where they fit with
+//      that, else at one block an SM (`prefetch_depth`): a slice is
+//      bins x 128 B in bf16 and bins x 256 B in fp32, so the 14 x 14 pools
+//      of the mask and keypoint heads (196 bins, 25 KB a bf16 slice) run at
+//      PF 1 in bf16 and at one block an SM in fp32. PF changes when the
+//      copies land, never what is summed or in which order. From the
+//      samples the block builds the tile's separable weights, yw[ph][row] = the summed weights of the
 //      corners that bin row ph's in-range samples put on that row, xw[pw][col]
 //      likewise, with ballots for the rows (columns) each ph (pw) reaches.
 //      One barrier per ROI. A thread then takes each ph that reaches its
@@ -63,7 +69,7 @@
 #include "roi_align_common.cuh"
 
 #define MAX_AXIS 32        // pooled * sampling_ratio on one axis, as roi_align.cu
-#define MAX_BINS 64        // pooled_h * pooled_w
+#define MAX_BINS 256       // pooled_h * pooled_w (the 14x14 mask/keypoint pools: 196)
 #define TILE 16            // pixels on a side of a tile
 #define MAX_TILES 64       // tiles on one axis of a map (one 64-bit mask)
 #define SV_BF16 8          // 16-byte channel vectors of a bf16 body block (64 channels)
@@ -72,7 +78,7 @@
 #define TR_F32 16
 #define BODY_THREADS 256   // SV * TILE * (TILE / TR) in both
 #define BODY_MIN_BLOCKS 2  // resident body blocks per SM the registers allow
-#define PREFETCH 2         // grad_out slices in flight ahead of the ROI summed
+#define PREFETCH 2         // grad_out slices in flight ahead of the ROI summed, at most
 #define TILES_THREADS 1024
 #define LIST_MAX 1024      // ROIs listed at a time: one warp's 32 words
 
@@ -176,7 +182,7 @@ __global__ void __launch_bounds__(TILES_THREADS)
   }
 }
 
-template <typename T>
+template <typename T, int PF>
 __global__ void __launch_bounds__(BODY_THREADS, BODY_MIN_BLOCKS)
     roi_align_bwd_body_kernel(Pyramid out, int batch, int channels, int pooled_h, int pooled_w,
                               int grid, const T* __restrict__ grad_out,
@@ -185,8 +191,8 @@ __global__ void __launch_bounds__(BODY_THREADS, BODY_MIN_BLOCKS)
   constexpr int N = Vec<T>::N;
   constexpr int SV = Body<T>::SV, TR = Body<T>::TR;
   static_assert(SV * TILE * (TILE / TR) == BODY_THREADS, "a thread per (column, rows, vector)");
-  constexpr int NG = PREFETCH + 2;  // G buffers: ROI i + PREFETCH's lands in ROI i - 2's
-  constexpr int NS = PREFETCH + 2;  // sample slots: ROI i + PREFETCH + 1's in ROI i - 1's
+  constexpr int NG = PF + 2;  // G buffers: ROI i + PF's lands in ROI i - 2's
+  constexpr int NS = PF + 2;  // sample slots: ROI i + PF + 1's in ROI i - 1's
   extern __shared__ __align__(16) uint4 s_g[];  // NG x bins x SV
   __shared__ __align__(16) AxisSample s_smp[NS][2 * MAX_AXIS];
   __shared__ __align__(16) float s_yw[2][MAX_AXIS][TILE];
@@ -287,23 +293,23 @@ __global__ void __launch_bounds__(BODY_THREADS, BODY_MIN_BLOCKS)
     if (n > 0) {
       // the samples first, then each G in a group of its own, so that the
       // first weights overlap the first copies of G
-      for (int j = 0; j <= PREFETCH && j < n; ++j) stage_samples(s_list[j], j % NS);
+      for (int j = 0; j <= PF && j < n; ++j) stage_samples(s_list[j], j % NS);
       cp_async_commit();
-      for (int j = 0; j < PREFETCH; ++j) {
+      for (int j = 0; j < PF; ++j) {
         if (j < n) stage_g(s_list[j], j % NG);
         cp_async_commit();
       }
-      cp_async_wait<PREFETCH>();
+      cp_async_wait<PF>();
       __syncthreads();
       weigh(0, 0);
     }
     for (int i = 0; i < n; ++i) {
       // the buffers these copies land in were last read before the previous
       // barrier (G by ROI i - 2's sums, the samples by ROI i - 1's weights)
-      if (i + PREFETCH < n) stage_g(s_list[i + PREFETCH], (i + PREFETCH) % NG);
-      if (i + PREFETCH + 1 < n) stage_samples(s_list[i + PREFETCH + 1], (i + PREFETCH + 1) % NS);
+      if (i + PF < n) stage_g(s_list[i + PF], (i + PF) % NG);
+      if (i + PF + 1 < n) stage_samples(s_list[i + PF + 1], (i + PF + 1) % NS);
       cp_async_commit();
-      cp_async_wait<PREFETCH>();  // G of ROI i, the samples of ROI i + 1
+      cp_async_wait<PF>();  // G of ROI i, the samples of ROI i + 1
       __syncthreads();            // ... and the weights of ROI i, for every thread
       const uint4* g_roi = s_g + (i % NG) * bins * SV;
       const int wb = i % 2;
@@ -375,22 +381,67 @@ __global__ void __launch_bounds__(BODY_THREADS, BODY_MIN_BLOCKS)
   }
 }
 
+// The G ring's bytes at prefetch depth pf.
+template <typename T>
+size_t ring_bytes(int pf, int bins) {
+  return (size_t)(pf + 2) * bins * Body<T>::SV * 16;
+}
+
+// The prefetch depth of a body block over `bins` bins on the current
+// device: PREFETCH where BODY_MIN_BLOCKS blocks with its ring fit an SM's
+// shared memory, else 1 where they fit with that; else the deepest that fits
+// one block's limit (one block an SM), or -1 where none does.
+template <typename T>
+int prefetch_depth(int bins) {
+  cudaFuncAttributes a;
+  int dev = 0, per_sm = 0, per_block = 0, reserved = 0;
+  if (cudaFuncGetAttributes(&a, roi_align_bwd_body_kernel<T, PREFETCH>) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
+          cudaSuccess)
+    return -1;
+  for (int pf = PREFETCH; pf >= 1; --pf)
+    if (BODY_MIN_BLOCKS * (a.sharedSizeBytes + reserved + ring_bytes<T>(pf, bins)) <=
+        (size_t)per_sm)
+      return pf;
+  for (int pf = PREFETCH; pf >= 1; --pf)
+    if (a.sharedSizeBytes + ring_bytes<T>(pf, bins) <= (size_t)per_block) return pf;
+  return -1;
+}
+
+template <typename T, int PF>
+cudaError_t launch_body_at(const Pyramid& p, int batch, int channels, int pooled_h, int pooled_w,
+                           int g, const void* grad_out, const AxisSample* samples, int words,
+                           int num_tiles, const unsigned* bits, cudaStream_t s) {
+  constexpr int SV = Body<T>::SV;
+  const size_t smem = ring_bytes<T>(PF, pooled_h * pooled_w);
+  const cudaError_t e = cudaFuncSetAttribute(
+      roi_align_bwd_body_kernel<T, PF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = num_tiles * ((channels / Vec<T>::N + SV - 1) / SV);
+  roi_align_bwd_body_kernel<T, PF><<<blocks, BODY_THREADS, smem, s>>>(
+      p, batch, channels, pooled_h, pooled_w, g, static_cast<const T*>(grad_out), samples, words,
+      num_tiles, bits);
+  return cudaSuccess;
+}
+
 // The body's launch: a block per (tile, channel slice), its G ring as
-// dynamic shared memory.
+// dynamic shared memory, at the prefetch depth of the bin count.
 template <typename T>
 cudaError_t launch_body(const Pyramid& p, int batch, int channels, int pooled_h, int pooled_w,
                         int g, const void* grad_out, const AxisSample* samples, int words,
                         int num_tiles, const unsigned* bits, cudaStream_t s) {
-  constexpr int SV = Body<T>::SV;
-  const size_t smem = (size_t)(PREFETCH + 2) * pooled_h * pooled_w * SV * 16;
-  const cudaError_t e = cudaFuncSetAttribute(
-      roi_align_bwd_body_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const int blocks = num_tiles * ((channels / Vec<T>::N + SV - 1) / SV);
-  roi_align_bwd_body_kernel<T><<<blocks, BODY_THREADS, smem, s>>>(
-      p, batch, channels, pooled_h, pooled_w, g, static_cast<const T*>(grad_out), samples, words,
-      num_tiles, bits);
-  return cudaSuccess;
+  const int pf = prefetch_depth<T>(pooled_h * pooled_w);
+  if (pf < 0) return cudaErrorInvalidValue;
+  if (pf == 1)
+    return launch_body_at<T, 1>(p, batch, channels, pooled_h, pooled_w, g, grad_out, samples,
+                                words, num_tiles, bits, s);
+  return launch_body_at<T, PREFETCH>(p, batch, channels, pooled_h, pooled_w, g, grad_out,
+                                     samples, words, num_tiles, bits, s);
 }
 
 extern "C" {
@@ -443,6 +494,12 @@ int oneshot_roi_align_backward(const void* maps, int batch, int channels, int dt
                  : launch_body<__nv_bfloat16>(p, batch, channels, pooled_h, pooled_w, g, grad_out,
                                               samples, words, num_tiles, bits, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The body's prefetch depth for `bins` bins in dtype (0 = float32, 1 =
+// bfloat16), or -1 on error.
+int oneshot_roi_align_bwd_prefetch(int dtype, int bins) {
+  return dtype == 0 ? prefetch_depth<float>(bins) : prefetch_depth<__nv_bfloat16>(bins);
 }
 
 const char* oneshot_roi_align_bwd_error_string(int code) {

@@ -4,7 +4,9 @@
 Per batch the collator picks the smallest query bucket of
 ``cfg.TPU.QUERY_BUCKETS`` that holds every image (else the batch maximum
 rounded up to 32), puts the supports in ``cfg.TPU.SUPP_BUCKET`` and pads the
-GT boxes to ``cfg.TPU.MAX_GT_BOXES`` with validity masks.
+GT boxes to ``cfg.TPU.MAX_GT_BOXES`` with validity masks, and with them the
+items' 'masks' (MODEL.MASK_ON) and 'keypoints' (KEYPOINT_ON) as
+``gt_masks`` (B, G, S, S) and ``gt_keypoints`` (B, G, K, 3).
 
 The query and support pixels of a batch come from one
 ``resize_normalize_pad_slots`` call on the collator's device (default
@@ -69,6 +71,15 @@ class BatchCollator:
             gt_labels[:n] = it["labels"][:n]
         return gt_xyxy, gt_valid, gt_labels
 
+    def _padded(self, it: dict, key: str) -> np.ndarray:
+        """The item's per-GT array ``key`` padded with zeros to MAX_GT_BOXES
+        (its trailing shape from the array, even with no GT)."""
+        a = it[key]
+        out = np.zeros((self.max_gt,) + a.shape[1:], np.float32)
+        n = min(len(it["boxes"]), self.max_gt)
+        out[:n] = a[:n]
+        return out
+
     def __call__(self, items: List[dict]) -> Dict[str, object]:
         queries = [it["img"] for it in items]
         query_hw = self.query_bucket_for([q["out_hw"] for q in queries])
@@ -76,7 +87,7 @@ class BatchCollator:
         supp_hw = _pick_bucket([s["out_hw"] for s in supports], [self.supp_bucket])
         gts = [self._gt(it) for it in items]
         query_pixels, supp_pixels = _pixels([queries, supports], [query_hw, supp_hw], self.device)
-        return {
+        out = {
             "query_pixels": query_pixels,
             "query_sizes": np.array([q["out_hw"] for q in queries], np.float32),
             "supp_pixels": supp_pixels,
@@ -88,3 +99,7 @@ class BatchCollator:
             "img_ids": np.array([it["img_id"] for it in items], np.int64),
             "idxs": np.array([it["idx"] for it in items], np.int64),
         }
+        for key, name in (("masks", "gt_masks"), ("keypoints", "gt_keypoints")):
+            if key in items[0]:
+                out[name] = np.stack([self._padded(it, key) for it in items])
+        return out

@@ -35,8 +35,16 @@ Differences from the JAX dataset:
   - ``FEW_SHOT.SUPP_AUG`` with ``NUM_SUPP_AUG`` other than 1 or 2 raises
     ``ValueError``: the augmentation makes at most two variants of a support
     (the flip and the jitter), so any other count disagrees with the
-    ``1 + NUM_SUPP_AUG`` images per shot the model merges;
-  - ``MASK_ON`` and ``KEYPOINT_ON`` raise ``NotImplementedError``.
+    ``1 + NUM_SUPP_AUG`` images per shot the model merges.
+
+``MODEL.MASK_ON``: each kept GT's polygons (none for an RLE segmentation)
+ride the query's resize and flip, then are cropped to the GT's box and
+rasterized at ``TPU.MASK_RASTER``^2 by ``structures.segmentation_mask``'s
+numpy fill (PIL's pixels): the item's 'masks' (N, S, S) float32.
+``MODEL.KEYPOINT_ON``: each kept GT's COCO keypoints (the first
+``ROI_KEYPOINT_HEAD.NUM_CLASSES``, zeros beyond) ride the same geometry as
+``structures.keypoint.PersonKeypoints``: the item's 'keypoints' (N, K, 3).
+Neither takes a random draw.
 
 Support augmentation (``FEW_SHOT.SUPP_AUG``): each picked support becomes
 [original, horizontally flipped, colour-jittered] (the jitter only with
@@ -54,6 +62,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ...structures.keypoint import PersonKeypoints
 from ...structures.segmentation_mask import PolygonInstance
 from ..coco_api import LiteCOCO
 from ..image_io import crop, read_image_rgb
@@ -67,14 +76,6 @@ def _has_valid_annotation(anno) -> bool:
     if all(any(o <= 1 for o in obj["bbox"][2:]) for obj in anno):
         return False
     return True
-
-
-def _not_ported(cfg) -> List[str]:
-    checks = {
-        "MODEL.MASK_ON": cfg.MODEL.MASK_ON,
-        "MODEL.KEYPOINT_ON": cfg.MODEL.KEYPOINT_ON,
-    }
-    return [name for name, on in checks.items() if on]
 
 
 @dataclasses.dataclass
@@ -102,10 +103,6 @@ class Episode:
 class COCODataset:
     def __init__(self, cfg, ann_file: str, root: str, is_train: bool, transforms=None,
                  remove_images_without_annotations: bool = True):
-        missing = _not_ported(cfg)
-        if missing:
-            raise NotImplementedError(
-                "not ported to oneshotdet_tpu_torch yet: " + ", ".join(missing))
         self.rng = random.Random(6666)
         self.cfg = cfg
         self.root = root
@@ -335,14 +332,22 @@ class COCODataset:
         boxes[:, 1::2] = boxes[:, 1::2].clip(0, h - 1)
         keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
         boxes, labels = boxes[keep], labels[keep]
+        anno = [o for k, o in zip(keep, anno) if k]
+        masks, kps = self._geometry(anno, (w, h))
 
         img_supp = self._augmented([self._support_pixels(s) for s in ep.supports],
                                    ep.jitters)
         if self._transforms is not None:
-            img, boxes = self._transforms.apply(img, boxes, ep.query_draw)
+            extras = masks + ([kps] if kps is not None else [])
+            if extras:
+                img, boxes, extras = self._transforms.apply(img, boxes, ep.query_draw, extras)
+                masks = extras[:len(masks)]
+                kps = extras[-1] if kps is not None else None
+            else:
+                img, boxes = self._transforms.apply(img, boxes, ep.query_draw)
             img_supp = [self._supp_transforms.apply(s, None, d)[0]
                         for s, d in zip(img_supp, ep.supp_draws)]
-        return {
+        item = {
             "img": img,
             "img_supp": img_supp,
             "boxes": boxes,
@@ -351,6 +356,36 @@ class COCODataset:
             "target_id": ep.cat,
             "img_id": ep.img_id,
         }
+        if self.cfg.MODEL.MASK_ON:
+            s = self.cfg.TPU.MASK_RASTER
+            rasters = np.zeros((len(masks), s, s), np.float32)
+            for i, (m, b) in enumerate(zip(masks, boxes)):
+                if len(m):
+                    rasters[i] = m.crop(b).resize((s, s)).rasterize()
+            item["masks"] = rasters
+        if kps is not None:
+            item["keypoints"] = kps.keypoints
+        return item
+
+    def _geometry(self, anno, size):
+        """MASK_ON: each annotation's polygons (an RLE or missing
+        segmentation: none); KEYPOINT_ON: the annotations' (N, K, 3)
+        keypoints. ([] and None where off.)"""
+        masks = []
+        if self.cfg.MODEL.MASK_ON:
+            masks = [PolygonInstance(o["segmentation"] if isinstance(o.get("segmentation"), list)
+                                     else [], size) for o in anno]
+        kps = None
+        if self.cfg.MODEL.KEYPOINT_ON:
+            nk = self.cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES
+            raw = np.zeros((len(anno), nk, 3), np.float32)
+            for i, o in enumerate(anno):
+                flat = np.asarray(o.get("keypoints", []), np.float32).reshape(-1)
+                m = min(len(flat) // 3, nk)
+                if m:
+                    raw[i, :m] = flat[:m * 3].reshape(m, 3)
+            kps = PersonKeypoints(raw, size)
+        return masks, kps
 
     def __getitem__(self, idx: int) -> dict:
         return self.load(self.plan(idx))

@@ -1,6 +1,5 @@
 """One-shot COCO-protocol evaluation (counterpart of
-``oneshotdet_tpu/data/evaluation/coco_eval.py``, boxes only: the port has no
-mask or keypoint head).
+``oneshotdet_tpu/data/evaluation/coco_eval.py``).
 
 Reimplements do_coco_evaluation + prepare_for_coco_detection
 (data/datasets/evaluation/coco/coco_eval.py:14-177): each episode (query
@@ -13,7 +12,15 @@ dataset's own annotation file rather than a hardcoded absolute path
 ``predictions`` is a list aligned with dataset order; each element is a dict
   {"boxes": (N, 4) xyxy at network input scale, "scores": (N,),
    "input_size": (w, h) the size the boxes live in}
-or None for skipped images.
+or None for skipped images; with "mask_probs" (N, M, M) (MODEL.MASK_ON) the
+segm pass runs too, and with "keypoints_xy" (N, K, 2) and "keypoints_scores"
+(N, K) (KEYPOINT_ON) the keypoints pass: their results join the box results
+as ``segm_*`` and ``keypoints_*``. The segm pass pastes each detection's
+mask into the original image (``models.mask_head.paste_mask_in_image``)
+and rasterizes the GT polygons (``structures.segmentation_mask``), both in
+numpy; it pastes only the detections the protocol reads, the MAX_DETS[-1]
+best of an episode (the JAX package pastes every one), so the results are
+the same.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .coco_metrics import COCOEvalNumpy
+from .coco_metrics import MAX_DETS, COCOEvalNumpy
 
 
 def _xyxy_to_xywh(boxes: np.ndarray) -> np.ndarray:
@@ -173,9 +180,12 @@ def _do_coco_detection_evaluation(
     logger=None,
     iou_types=None,
 ):
-    if iou_types is not None and tuple(iou_types) != ("bbox",):
-        raise NotImplementedError(
-            f"iou_types {iou_types}: only 'bbox' is ported to oneshotdet_tpu_torch")
+    if iou_types is None:
+        iou_types = ("bbox",)
+        if any(p and "mask_probs" in p for p in predictions if p):
+            iou_types = iou_types + ("segm",)
+        if any(p and "keypoints_xy" in p for p in predictions if p):
+            iou_types = iou_types + ("keypoints",)
     gt: Dict = defaultdict(list)
     dt: Dict = defaultdict(list)
     custom_gt = {"images": [], "annotations": [], "categories": []}
@@ -241,6 +251,12 @@ def _do_coco_detection_evaluation(
 
     evaluator = COCOEvalNumpy(gt, dt, sorted(seen_cats), img_ids)
     results = evaluator.evaluate_and_accumulate().summarize()
+    if "segm" in iou_types:
+        results.update({f"segm_{k}": v for k, v in
+                        _segm_results(dataset, predictions, seen_cats, img_ids).items()})
+    if "keypoints" in iou_types:
+        results.update({f"keypoints_{k}": v for k, v in
+                        _keypoint_results(dataset, predictions, seen_cats, img_ids).items()})
 
     msg = "  ".join(f"{k}={v:.4f}" for k, v in results.items())
     if logger:
@@ -251,6 +267,91 @@ def _do_coco_detection_evaluation(
         with open(os.path.join(output_folder, "coco_results.json"), "w") as f:
             json.dump(results, f, indent=2)
     return results
+
+
+def _episodes(dataset, predictions):
+    """Per episode: (episode id, prediction, (width, height), class, its GT
+    annotations)."""
+    for episode_id, prediction in enumerate(predictions):
+        original_id = dataset.id_to_img_map[episode_id]
+        img_info, cur_cat = dataset.get_img_info(episode_id)
+        ann_ids = dataset.coco.getAnnIds(imgIds=original_id, catIds=cur_cat, iscrowd=False)
+        yield (episode_id, prediction, (img_info["width"], img_info["height"]), cur_cat,
+               dataset.coco.loadAnns(ann_ids))
+
+
+def _gt_entry(ann) -> dict:
+    return {"bbox": list(map(float, ann["bbox"])),
+            "area": float(ann.get("area", ann["bbox"][2] * ann["bbox"][3])),
+            "iscrowd": int(ann.get("iscrowd", 0))}
+
+
+def _segm_results(dataset, predictions, seen_cats, img_ids) -> Dict[str, float]:
+    """Mask AP: each detection's probabilities pasted into the original
+    image frame, each GT's polygons rasterized (an RLE or missing
+    segmentation: an empty mask), matched on mask IoU."""
+    from ...models.mask_head import paste_mask_in_image
+    from ...structures.segmentation_mask import PolygonInstance
+
+    gt_m: Dict = defaultdict(list)
+    dt_m: Dict = defaultdict(list)
+    for episode_id, prediction, (width, height), cur_cat, anns in _episodes(dataset, predictions):
+        for ann in anns:
+            seg = ann.get("segmentation")
+            mask = (PolygonInstance(seg, (width, height)).rasterize()
+                    if isinstance(seg, list) and seg else np.zeros((height, width), np.uint8))
+            gt_m[(episode_id, cur_cat)].append(dict(_gt_entry(ann), mask=mask))
+        if prediction is None or "mask_probs" not in prediction:
+            continue
+        scores = np.asarray(prediction["scores"], np.float64)
+        in_w, in_h = prediction["input_size"]
+        sx, sy = width / in_w, height / in_h
+        boxes = np.asarray(prediction["boxes"], np.float64) * np.array([sx, sy, sx, sy])
+        # the best MAX_DETS[-1] by the protocol's stable sort, in their order
+        read = np.sort(np.argsort(-scores, kind="stable")[:MAX_DETS[-1]])
+        for k in read:
+            pasted = paste_mask_in_image(np.asarray(prediction["mask_probs"][k], np.float32),
+                                         boxes[k], height, width)
+            dt_m[(episode_id, cur_cat)].append({
+                "bbox": [float(v) for v in _xyxy_to_xywh(boxes[None, k])[0]],
+                "score": float(scores[k]),
+                "mask": pasted,
+            })
+    return COCOEvalNumpy(gt_m, dt_m, sorted(seen_cats), img_ids,
+                         iou_type="segm").evaluate_and_accumulate().summarize()
+
+
+def _keypoint_results(dataset, predictions, seen_cats, img_ids) -> Dict[str, float]:
+    """Keypoint AP: each detection's keypoints in the original image frame
+    with their scores as visibilities, its box and area from their extent
+    (as pycocotools' ``loadRes``), OKS-matched to the GT keypoints."""
+    gt_k: Dict = defaultdict(list)
+    dt_k: Dict = defaultdict(list)
+    for episode_id, prediction, (width, height), cur_cat, anns in _episodes(dataset, predictions):
+        for ann in anns:
+            kps = ann.get("keypoints") or []
+            gt_k[(episode_id, cur_cat)].append(dict(
+                _gt_entry(ann), keypoints=[float(v) for v in kps],
+                num_keypoints=int(ann.get("num_keypoints", sum(1 for v in kps[2::3] if v > 0)))))
+        if prediction is None or "keypoints_xy" not in prediction:
+            continue
+        scores = np.asarray(prediction["scores"], np.float64)
+        in_w, in_h = prediction["input_size"]
+        kp_xy = np.asarray(prediction["keypoints_xy"], np.float64) * np.array(
+            [width / in_w, height / in_h])
+        kp_s = np.asarray(prediction["keypoints_scores"], np.float64)
+        for k in range(len(kp_xy)):
+            flat = np.concatenate([kp_xy[k], kp_s[k][:, None]], axis=1).reshape(-1)
+            xs, ys = kp_xy[k, :, 0], kp_xy[k, :, 1]
+            bw, bh = float(xs.max() - xs.min()), float(ys.max() - ys.min())
+            dt_k[(episode_id, cur_cat)].append({
+                "bbox": [float(xs.min()), float(ys.min()), bw, bh],
+                "area": bw * bh,
+                "score": float(scores[k]),
+                "keypoints": [float(v) for v in flat],
+            })
+    return COCOEvalNumpy(gt_k, dt_k, sorted(seen_cats), img_ids,
+                         iou_type="keypoints").evaluate_and_accumulate().summarize()
 
 
 def compute_thresholds_for_classes(gt, dt, cat_ids, img_ids) -> np.ndarray:

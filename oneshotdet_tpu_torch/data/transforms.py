@@ -66,10 +66,13 @@ class FusedPreprocess:
         flip = self.flip_prob > 0 and rng.random() < self.flip_prob
         return size, flip
 
-    def apply(self, arr: np.ndarray, boxes, draws):
+    def apply(self, arr: np.ndarray, boxes, draws, extras=None):
         """(item, boxes): item = {"u8", "out_hw", "mean", "std",
         "to_bgr255"} with the pixels flipped if drawn; boxes (N, 4) xyxy
-        float32 resized (and flipped with the TO_REMOVE convention)."""
+        float32 resized (and flipped with the TO_REMOVE convention). With
+        ``extras``, a list of per-object geometry (``PolygonInstance``,
+        ``PersonKeypoints``: ``resize((w, h))`` and ``transpose(0)``), each
+        resized and flipped the same way: returns (item, boxes, extras)."""
         size, flip = draws
         h0, w0 = arr.shape[:2]
         oh, ow = get_resize_size((w0, h0), size, self.max_size)
@@ -77,6 +80,10 @@ class FusedPreprocess:
             boxes = boxes.astype(np.float32).copy()
             boxes[:, 0::2] *= ow / w0
             boxes[:, 1::2] *= oh / h0
+        if extras is not None:
+            extras = [e.resize((ow, oh)) for e in extras]
+            if flip:
+                extras = [e.transpose(0) for e in extras]     # FLIP_LEFT_RIGHT
         if flip:
             arr = arr[:, ::-1]
             if boxes is not None and len(boxes):
@@ -91,6 +98,8 @@ class FusedPreprocess:
             "std": self.std,
             "to_bgr255": self.to_bgr255,
         }
+        if extras is not None:
+            return item, boxes, extras
         return item, boxes
 
 

@@ -6,6 +6,11 @@ dicts (``query_pixels`` (B, H, W, 3), ``query_sizes`` (B, 2) true (h, w),
 ``img_ids``, ``idxs``), trims the padded detections on the host and
 evaluates them with the COCO protocol.
 
+With MODEL.MASK_ON / KEYPOINT_ON every step also returns the detections'
+'mask_probs' and then 'keypoints_xy' and 'keypoints_scores' after the four
+box fields, and ``compute_on_dataset`` keeps their valid rows under those
+names, which turns on the evaluator's segm and keypoints passes.
+
 Differences from the JAX engine: the steps are plain functions that close
 over the model, which holds its own weights (no ``variables`` argument, no
 ``jit``); they run under ``torch.inference_mode`` on the model's device; one
@@ -42,12 +47,25 @@ def _on(device, x) -> torch.Tensor:
                            device=device)
 
 
+_EXTRAS = ("mask_probs", "keypoints_xy", "keypoints_scores")
+
+
 def _outputs(dets):
-    return dets.xyxy, dets.get_field("scores"), dets.get_field("labels"), dets.valid
+    """(xyxy, scores, labels, valid) and the mask / keypoint fields the
+    detections carry, in ``_EXTRAS`` order."""
+    return (dets.xyxy, dets.get_field("scores"), dets.get_field("labels"), dets.valid,
+            *(dets.fields[k] for k in _EXTRAS if k in dets.fields))
+
+
+def _extra_names(model):
+    c = model.config
+    return ((("mask_probs",) if c.mask_on else ())
+            + (("keypoints_xy", "keypoints_scores") if c.keypoint_on else ()))
 
 
 def make_eval_step(model, mesh=None):
-    """Eval forward: batch dict -> (xyxy, scores, labels, valid), each (B, K, ...)."""
+    """Eval forward: batch dict -> (xyxy, scores, labels, valid), each (B, K,
+    ...), then the mask / keypoint fields where on."""
     _single_card(mesh)
     dev = _device(model)
 
@@ -125,8 +143,9 @@ def compute_on_dataset(
 ) -> Dict[int, dict]:
     """Run eval over the loader; returns {dataset index: prediction dict}
     with "boxes" (N, 4) xyxy and "scores" (N,) at network input scale and
-    "input_size" (w, h), for every episode reached (``stop_iter`` stops
-    early).
+    "input_size" (w, h), and with MASK_ON "mask_probs" (N, 28, 28), with
+    KEYPOINT_ON "keypoints_xy" (N, K, 2) and "keypoints_scores" (N, K), for
+    every episode reached (``stop_iter`` stops early).
 
     cache_supports: compute support features once per target class and skip
     the support backbone afterwards -- valid when the support for a class is
@@ -164,7 +183,8 @@ def compute_on_dataset(
             out = query_step(batch, pooled, supp_7x7)
         else:
             out = eval_step(batch)
-        xyxy, scores, _, valid = out
+        xyxy, scores, _, valid = out[:4]
+        extras = dict(zip(_extra_names(model), (x.float().cpu().numpy() for x in out[4:])))
         dt = timer.toc()
         b = q[0]
         n_images += b
@@ -180,6 +200,7 @@ def compute_on_dataset(
                 "scores": scores[i][v],
                 "input_size": (float(w), float(h)),
             }
+            results[idx].update({k: x[i][v] for k, x in extras.items()})
         if logger and (it + 1) % 10 == 0:
             logger.info(
                 f"eval iter {it + 1}: {dt / b * 1000:.1f} ms/im "

@@ -31,7 +31,8 @@ def batch_to_inputs(batch: Dict, device=None):
     """A flat batch dict (numpy arrays or tensors; see
     ``utils.synthetic.make_episodic_batch``) -> (images, supports, targets)
     on ``device``; the targets' field 'labels' is int32 and their size the
-    queries' (w, h)."""
+    queries' (w, h), with the fields 'masks' and 'keypoints' (float32) where
+    the batch has ``gt_masks`` and ``gt_keypoints``."""
     def t(x, dtype=None):
         return torch.as_tensor(x, device=device, dtype=dtype)
 
@@ -39,8 +40,12 @@ def batch_to_inputs(batch: Dict, device=None):
                         sizes=t(batch["query_sizes"], torch.float32))
     supp = ImageBatch(pixels=t(batch["supp_pixels"], torch.float32),
                       sizes=t(batch["supp_sizes"], torch.float32))
+    fields = {"labels": t(batch["gt_labels"], torch.int32)}
+    for key, name in (("gt_masks", "masks"), ("gt_keypoints", "keypoints")):
+        if key in batch:
+            fields[name] = t(batch[key], torch.float32)
     targets = Boxes(xyxy=t(batch["gt_xyxy"], torch.float32), valid=t(batch["gt_valid"], torch.bool),
-                    size=images.sizes_wh(), fields={"labels": t(batch["gt_labels"], torch.int32)})
+                    size=images.sizes_wh(), fields=fields)
     return images, supp, targets
 
 
@@ -87,7 +92,9 @@ def do_train(cfg, model, optimizer, scheduler, data_loader, meters=None, start_i
     Each step's draws come from ``step_generator(it)``, or from
     ``generator`` where one is given. The losses of every step reach
     ``meters`` (a ``MetricLogger``) at each ``log_period``, when one line
-    goes to ``logger`` (else stdout). With a ``checkpointer``, saves
+    goes to ``logger`` (else stdout): the total, the load and compute
+    seconds, and each loss of the step (loss_mask and loss_kp among them
+    with MASK_ON / KEYPOINT_ON). With a ``checkpointer``, saves
     ``model_{it + 1:07d}`` after every SOLVER.CHECKPOINT_PERIOD-th iteration
     and ``model_final`` at the end. Returns the iteration reached."""
     max_iter = cfg.SOLVER.MAX_ITER
@@ -115,8 +122,10 @@ def do_train(cfg, model, optimizer, scheduler, data_loader, meters=None, start_i
         t_step += t2 - t1
         if log_now:
             span = (it % log_period) + 1
+            terms = "  ".join(f"{k} {float(v):.4f}" for k, v in metrics.items()
+                              if k != "loss_total")
             log(f"iter {it + 1}/{max_iter} loss {float(metrics['loss_total']):.4f} "
-                f"load {t_data / span:.3f}s comp {t_step / span:.3f}s")
+                f"load {t_data / span:.3f}s comp {t_step / span:.3f}s  {terms}")
             t_data = t_step = 0.0
         if checkpointer is not None and (it + 1) % period == 0:
             checkpointer.save(f"model_{it + 1:07d}", model, optimizer, scheduler, it + 1)

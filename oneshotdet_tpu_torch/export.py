@@ -13,6 +13,9 @@ Two artifact kinds, as in the JAX package:
   target_ids) -> (xyxy, scores, valid)``, the support branch run once per
   class (``compute_support_features`` / ``detect_with_support``).
 
+Artifacts are box-only, as the JAX package's: with MODEL.MASK_ON /
+KEYPOINT_ON the programs run and hold no mask or keypoint head.
+
 Input contract: pixels are NHWC float32, normalized and zero-padded to the
 artifact's static shape (never space-to-depth blocked: the port's stem takes
 plain pixels, so a bundle's meta says ``"host_s2d": false``); sizes are
@@ -68,6 +71,11 @@ class _Program(nn.Module):
         super().__init__()
         self.model = copy.copy(model)
         self.model._modules = {k: v for k, v in model._modules.items() if k in keep}
+        if "roi_heads" in keep:
+            # box-only: the mask and keypoint heads' weights stay out
+            heads = copy.copy(model.roi_heads)
+            heads._modules = {"box": model.roi_heads.box}
+            self.model._modules["roi_heads"] = heads
         self.entry = entry
         self.head_operands = nn.Module()
         self.operand_meta = None
@@ -127,7 +135,8 @@ def export_eval(cfg, model, *, batch: int = 8, query_hw: Optional[Tuple[int, int
     if kind == "full":
         def full(m, pixels, sizes, supp_pixels, supp_sizes, target_ids):
             return _outputs(m._forward_eval(ImageBatch(pixels, sizes),
-                                            ImageBatch(supp_pixels, supp_sizes), target_ids))
+                                            ImageBatch(supp_pixels, supp_sizes), target_ids,
+                                            heads=False))
 
         return _export(model, full, set(model._modules),
                        (pixels, sizes, supp_pixels, supp_sizes, target_ids))
@@ -137,7 +146,7 @@ def export_eval(cfg, model, *, batch: int = 8, query_hw: Optional[Tuple[int, int
 
     def detect(m, pixels, sizes, pooled, supp_7x7, target_ids):
         return _outputs(m._detect_with_support(ImageBatch(pixels, sizes), pooled, supp_7x7,
-                                               target_ids))
+                                               target_ids, heads=False))
 
     supp_net = "supp_backbone" if model.config.siamese_backbone else "backbone"
     exp_support = _export(model, support, {supp_net}, (supp_pixels, supp_sizes))

@@ -14,10 +14,21 @@
   stage 2: 7x7 ROIAlign of the raw query pyramid over the proposals and of the
            whole support -> relation head -> detections.
 
-Every ROIAlign of the path (5 one-level 1x1 pools, the whole-support 7x7 and
-the proposals' 7x7) goes through ``ops.roi_align.multilevel_roi_align``: the
-CUDA kernels on the card (forward and, in training, backward), the plain
-version on the CPU.
+With MODEL.MASK_ON / KEYPOINT_ON the mask and keypoint heads
+(``roi_heads.mask``, ``roi_heads.keypoint``) run over 14x14 pools (the
+heads' POOLER_RESOLUTION, scales and sampling ratio, the reference's 0
+taken as 2, as the JAX package does) of the raw query pyramid: in eval over
+every detection slot, giving the fields 'mask_probs' (B, K, 28, 28),
+'keypoints_xy' (B, K, NK, 2) and 'keypoints_scores' (B, K, NK); in training
+over the sampled ROIs, giving loss_mask and loss_kp against their matched
+GT's mask raster and keypoints (the targets' fields 'masks' and
+'keypoints'). The pools write zeros in invalid slots, where the JAX
+package pools whatever box the slot holds.
+
+Every ROIAlign of the path (5 one-level 1x1 pools, the whole-support 7x7,
+the proposals' 7x7 and the heads' 14x14) goes through
+``ops.roi_align.multilevel_roi_align``: the CUDA kernels on the card
+(forward and, in training, backward), the plain version on the CPU.
 
 ``forward_train`` is the train step's forward: the FCOS losses, proposals
 under ``no_grad`` at the train capacities with the GT boxes appended (with
@@ -34,7 +45,8 @@ A config that turns on a part not ported yet raises ``NotImplementedError``
 (see ``detector_config_from_cfg``). The stages are
 ``torch.profiler.record_function`` ranges (query_backbone, support_backbone,
 support_pool, fcos_head, fcos_postprocess, roi_pool, roi_head,
-roi_postprocess), so a profiler trace reads the time of each.
+roi_postprocess, mask_head, keypoint_head), so a profiler trace reads the
+time of each.
 """
 
 from __future__ import annotations
@@ -56,7 +68,10 @@ from ..structures.boxes import Boxes, cat_boxes, compact_boxes, truncate_boxes
 from ..structures.image_batch import ImageBatch
 from .fcos import FCOSModule, compute_locations, fcos_losses, fcos_postprocess, fcos_targets
 from .fpn import ResNetFPN
-from .layers import Conv2d, FrozenBatchNorm, Scale
+from .keypoint_head import (KeypointHead, heatmaps_to_keypoints, keypoint_head_loss,
+                            keypoints_to_heatmap_targets)
+from .layers import Conv2d, ConvTranspose2d, FrozenBatchNorm, Scale
+from .mask_head import MaskHead, mask_head_loss, project_gt_rasters
 from .roi_head import (ROIHeads, draw_art_offsets, make_artificial_proposals,
                        predictor_num_classes, prepare_roi_targets, roi_head_loss,
                        roi_head_postprocess)
@@ -105,6 +120,19 @@ class DetectorConfig:
     num_supp_aug: int = 1
     supp_aug_method: str = "avg"   # avg | max | conv
     fused_roi_head: bool = False    # ONESHOT_PALLAS_ROI_HEAD=1: the fused head kernel
+    # mask / keypoint heads (MODEL.MASK_ON / KEYPOINT_ON)
+    mask_on: bool = False
+    keypoint_on: bool = False
+    mask_pooler_resolution: int = 14
+    mask_pooler_scales: Tuple[float, ...] = (0.0625,)
+    mask_pooler_sampling_ratio: int = 2
+    mask_conv_layers: Tuple[int, ...] = (256, 256, 256, 256)
+    kp_pooler_resolution: int = 14
+    kp_pooler_scales: Tuple[float, ...] = (0.0625,)
+    kp_pooler_sampling_ratio: int = 2
+    kp_conv_layers: Tuple[int, ...] = (512,) * 8
+    num_keypoints: int = 17
+    mask_raster: int = 56
     # training
     center_sample: bool = True
     pos_radius: float = 1.5
@@ -132,8 +160,6 @@ def _not_ported(cfg) -> List[str]:
     c = cfg
     checks = {
         "MODEL.FCOS_ON=False (anchor RPN / RetinaNet stage 1)": not c.MODEL.FCOS_ON,
-        "MODEL.MASK_ON": c.MODEL.MASK_ON,
-        "MODEL.KEYPOINT_ON": c.MODEL.KEYPOINT_ON,
         "TPU.QUANT": c.TPU.QUANT != "none",
     }
     return [name for name, on in checks.items() if on]
@@ -188,6 +214,19 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         # the JAX package's opt-in, read once here
         fused_roi_head=(os.environ.get("ONESHOT_PALLAS_ROI_HEAD") == "1"
                         and not cfg.FEW_SHOT.LINEAR_FUSION),
+        mask_on=cfg.MODEL.MASK_ON,
+        keypoint_on=cfg.MODEL.KEYPOINT_ON,
+        mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
+        mask_pooler_scales=tuple(cfg.MODEL.ROI_MASK_HEAD.POOLER_SCALES),
+        # the reference's 0 (adaptive sampling) taken as the FPN yamls' 2
+        mask_pooler_sampling_ratio=cfg.MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO or 2,
+        mask_conv_layers=tuple(cfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS),
+        kp_pooler_resolution=cfg.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION,
+        kp_pooler_scales=tuple(cfg.MODEL.ROI_KEYPOINT_HEAD.POOLER_SCALES),
+        kp_pooler_sampling_ratio=cfg.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO or 2,
+        kp_conv_layers=tuple(cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS),
+        num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES,
+        mask_raster=cfg.TPU.MASK_RASTER,
         center_sample=cfg.MODEL.FCOS.CENTER_SAMPLE,
         pos_radius=cfg.MODEL.FCOS.POS_RADIUS,
         loc_loss_type=cfg.MODEL.FCOS.LOC_LOSS_TYPE,
@@ -249,6 +288,13 @@ class GeneralizedRCNN(nn.Module):
                 in_channels=c.out_channels, resolution=c.pooler_resolution,
                 representation_size=c.mlp_head_dim, num_classes=ncls,
                 num_bbox_reg=nreg, linear_fusion=c.linear_fusion)
+            if c.mask_on:
+                self.roi_heads.mask = MaskHead(c.out_channels, num_classes=ncls,
+                                               conv_layers=c.mask_conv_layers)
+            if c.keypoint_on:
+                self.roi_heads.keypoint = KeypointHead(c.out_channels,
+                                                       num_keypoints=c.num_keypoints,
+                                                       conv_layers=c.kp_conv_layers)
 
     # -- helpers ----------------------------------------------------------
 
@@ -336,6 +382,90 @@ class GeneralizedRCNN(nn.Module):
             [_nhwc(f) for f in features], rois, levels, (r, r), c.pooler_scales,
             c.pooler_sampling_ratio, valid=boxes.valid.reshape(-1).contiguous())
 
+    def _pool_rois_at(self, features, boxes: Boxes, resolution: int,
+                      scales: Sequence[float], sampling_ratio: int) -> torch.Tensor:
+        """ROIAlign of batched padded Boxes at any (resolution, scales,
+        sampling ratio), the mask and keypoint heads' pooler: the levels
+        ``scales`` name (1 / 2^k is P_k), one, or several mapped by
+        ``fpn_level_map`` from the first -> (B*P, res, res, C); slots with
+        valid=False are zeros."""
+        b, p = boxes.valid.shape
+        flat_xyxy = boxes.xyxy.reshape(-1, 4).to(torch.float32)
+        batch_idx = torch.arange(b, dtype=torch.float32,
+                                 device=flat_xyxy.device).repeat_interleave(p)[:, None]
+        rois = torch.cat([batch_idx, flat_xyxy], dim=1)
+        lvl_of = [int(round(-math.log2(s))) - 3 for s in scales]
+        feats = [_nhwc(features[i]) for i in lvl_of]
+        if len(scales) > 1:
+            k_min = lvl_of[0] + 3
+            levels = fpn_level_map(flat_xyxy, k_min, k_min + len(scales) - 1)
+        else:
+            levels = torch.zeros((b * p,), dtype=torch.int32, device=rois.device)
+        return multilevel_roi_align(feats, rois, levels, (resolution, resolution),
+                                    tuple(scales), sampling_ratio,
+                                    valid=boxes.valid.reshape(-1).contiguous())
+
+    def _mask_kp_eval(self, features, dets: Boxes) -> Boxes:
+        """The mask and keypoint heads over every detection slot: the
+        fields 'mask_probs' (the sigmoid of the foreground channel, float32
+        (B, K, 2R, 2R)), 'keypoints_xy' (B, K, NK, 2) and 'keypoints_scores'
+        (B, K, NK) added to ``dets``."""
+        c = self.config
+        b, k = dets.valid.shape
+        fields = dict(dets.fields)
+        if c.mask_on:
+            with record_function("mask_head"):
+                feats = self._pool_rois_at(features, dets, c.mask_pooler_resolution,
+                                           c.mask_pooler_scales, c.mask_pooler_sampling_ratio)
+                logits = self.roi_heads.mask(feats.to(self.dtype))
+                ch = min(1, logits.shape[-1] - 1)     # one-shot: the foreground slot
+                probs = torch.sigmoid(logits[..., ch])
+                fields["mask_probs"] = probs.reshape((b, k) + probs.shape[1:])
+        if c.keypoint_on:
+            with record_function("keypoint_head"):
+                feats = self._pool_rois_at(features, dets, c.kp_pooler_resolution,
+                                           c.kp_pooler_scales, c.kp_pooler_sampling_ratio)
+                logits = self.roi_heads.keypoint(feats.to(self.dtype))
+                xy, scores = heatmaps_to_keypoints(logits, dets.xyxy.reshape(-1, 4).float())
+                fields["keypoints_xy"] = xy.reshape(b, k, -1, 2)
+                fields["keypoints_scores"] = scores.reshape(b, k, -1)
+        return dataclasses.replace(dets, fields=fields)
+
+    def _mask_kp_losses(self, features, sampled: Boxes, targets: Boxes, gt_idx: torch.Tensor,
+                        labels: torch.Tensor, s_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """loss_mask and loss_kp over the sampled ROIs (B, S) and their
+        matched GT (``gt_idx``): positive, valid ROIs only."""
+        c = self.config
+        labels_flat, valid_flat = labels.reshape(-1), s_valid.reshape(-1)
+        prop = sampled.xyxy.reshape(-1, 4).to(torch.float32)
+        losses = {}
+        if c.mask_on:
+            with record_function("mask_head"):
+                feats = self._pool_rois_at(features, sampled, c.mask_pooler_resolution,
+                                           c.mask_pooler_scales, c.mask_pooler_sampling_ratio)
+                logits = self.roi_heads.mask(feats.to(self.dtype))
+                rasters = targets.get_field("masks").to(torch.float32)      # (B, G, S, S)
+                s = rasters.shape[-1]
+                sel_rast = torch.gather(rasters, 1, gt_idx[..., None, None].expand(
+                    -1, -1, s, s)).reshape(-1, s, s)
+                sel_gt = torch.gather(targets.xyxy.to(torch.float32), 1,
+                                      gt_idx[..., None].expand(-1, -1, 4)).reshape(-1, 4)
+                mask_t = project_gt_rasters(sel_rast, sel_gt, prop, logits.shape[1])
+                losses["loss_mask"] = mask_head_loss(logits, mask_t, labels_flat, valid_flat)
+        if c.keypoint_on:
+            with record_function("keypoint_head"):
+                feats = self._pool_rois_at(features, sampled, c.kp_pooler_resolution,
+                                           c.kp_pooler_scales, c.kp_pooler_sampling_ratio)
+                logits = self.roi_heads.keypoint(feats.to(self.dtype))
+                kps = targets.get_field("keypoints").to(torch.float32)      # (B, G, NK, 3)
+                nk = kps.shape[2]
+                sel = torch.gather(kps, 1, gt_idx[..., None, None].expand(
+                    -1, -1, nk, 3)).reshape(-1, nk, 3)
+                idx, hm_valid = keypoints_to_heatmap_targets(sel, prop, logits.shape[1])
+                hm_valid = hm_valid & ((labels_flat > 0) & valid_flat)[:, None]
+                losses["loss_kp"] = keypoint_head_loss(logits, idx, hm_valid)
+        return losses
+
     def _supp_roi_7x7(self, features_supp, supp_sizes_hw, batch_size):
         """Whole-support 7x7 features, (B, shot, 7, 7, C)."""
         c = self.config
@@ -410,12 +540,16 @@ class GeneralizedRCNN(nn.Module):
     def forward(self, images: ImageBatch, images_supp: ImageBatch,
                 target_ids: Optional[torch.Tensor] = None) -> Boxes:
         """Eval forward: padded detections (B, K) with fields 'scores' and
-        'labels' (or, with RPN_ONLY, the stage-1 detections)."""
+        'labels', and with MASK_ON / KEYPOINT_ON 'mask_probs',
+        'keypoints_xy' and 'keypoints_scores' (or, with RPN_ONLY, the
+        stage-1 detections)."""
         return self._forward_eval(images, images_supp, target_ids)
 
     # The bodies of the eval API, undecorated: ``export`` traces them under
     # ``torch.no_grad()`` (an exported graph holds no inference-mode tensors
-    # and no profiler ranges; the ranges run once, at trace time).
+    # and no profiler ranges; the ranges run once, at trace time), with
+    # ``heads=False``: the serving artifact is box-only, as the JAX
+    # package's.
 
     def _support_branch(self, images_supp: ImageBatch, batch_size: int = 1):
         """``compute_support_features``' body."""
@@ -431,10 +565,10 @@ class GeneralizedRCNN(nn.Module):
             return self._pyramid(self.backbone, images.pixels)
 
     def _detect_with_support(self, images: ImageBatch, supp_pooled, supp_7x7,
-                                   target_ids=None) -> Boxes:
+                             target_ids=None, heads: bool = True) -> Boxes:
         """``detect_with_support``'s body."""
         return self._detect_from_features(self._backbone_features(images), images.sizes_wh(),
-                                          supp_pooled, supp_7x7, target_ids)
+                                          supp_pooled, supp_7x7, target_ids, heads)
 
     def _detect_from_features(
         self,
@@ -443,6 +577,7 @@ class GeneralizedRCNN(nn.Module):
         supp_pooled,                        # per level (B or 1, 1, 1, C)
         supp_7x7: torch.Tensor,             # (B or 1, shot, 7, 7, C)
         target_ids=None,                    # (B,) or a scalar
+        heads: bool = True,                 # the mask / keypoint heads, where on
     ) -> Boxes:
         c = self.config
         b = features[0].shape[0]
@@ -472,13 +607,16 @@ class GeneralizedRCNN(nn.Module):
             supp_7x7 = supp_7x7.expand((b,) + supp_7x7.shape[1:]).to(self.dtype)
             cls_logits, box_deltas = self._roi_head_multi_shot(roi_feats, supp_7x7)
         with record_function("roi_postprocess"):
-            return roi_head_postprocess(
+            dets = roi_head_postprocess(
                 cls_logits, box_deltas, proposals, target_ids,
                 BoxCoder(c.bbox_reg_weights), c.roi_score_thresh,
                 c.roi_nms_thresh, c.roi_detections_per_img, c.second_stage_cls_loss)
+        if heads and (c.mask_on or c.keypoint_on):
+            dets = self._mask_kp_eval(features, dets)
+        return dets
 
     def _forward_eval(self, images: ImageBatch, images_supp: ImageBatch,
-                       target_ids: Optional[torch.Tensor] = None) -> Boxes:
+                      target_ids: Optional[torch.Tensor] = None, heads: bool = True) -> Boxes:
         """``forward``'s body."""
         b = images.batch_size
         features = self._backbone_features(images)
@@ -494,7 +632,7 @@ class GeneralizedRCNN(nn.Module):
                     c.nms_pre_topk, c.inference_th, c.score_mode,
                     level_topk=c.strict_level_topk, dense_points=c.dense_points)
         return self._detect_from_features(features, images.sizes_wh(),
-                                          supp_pooled, supp_7x7, target_ids)
+                                          supp_pooled, supp_7x7, target_ids, heads)
 
     # -- train ------------------------------------------------------------------
 
@@ -507,10 +645,13 @@ class GeneralizedRCNN(nn.Module):
         loss_reg and loss_centerness (FCOS) and, unless RPN_ONLY,
         loss_classifier (x5) and loss_box_reg (x2.5), with loss_reverse
         (REVERSE_ORDER) or else loss_cls_suppress (x2.5; NEG_SUPPORT with
-        ``images_neg_supp`` given).
+        ``images_neg_supp`` given), and loss_mask (MASK_ON) and loss_kp
+        (KEYPOINT_ON) over the sampled ROIs.
 
         ``targets``: (B, G) GT Boxes with field 'labels' (1 for the episode's
-        class, 0 on padding). ``images_neg_supp``: one negative support per
+        class, 0 on padding), and with MASK_ON 'masks' (B, G, S, S), each
+        GT's mask raster over its box, and with KEYPOINT_ON 'keypoints' (B,
+        G, NK, 3). ``images_neg_supp``: one negative support per
         image (another class's crop), read only with NEG_SUPPORT; its pass
         runs with REVERSE_ORDER too, but only loss_reverse is returned then.
         With SUPP_AUG both hold each support's 1 + NUM_SUPP_AUG variants,
@@ -568,7 +709,7 @@ class GeneralizedRCNN(nn.Module):
             proposals = cat_boxes(proposals, gt_props)
         if draws is None:
             draws = torch.rand(proposals.valid.shape, generator=generator, device=dev)
-        idx, s_valid, roi_labels, roi_reg_t, _, *soft = prepare_roi_targets(
+        idx, s_valid, roi_labels, roi_reg_t, gt_idx, *soft = prepare_roi_targets(
             draws.to(dev), proposals, targets, BoxCoder(c.bbox_reg_weights),
             c.roi_batch_size_per_image, c.roi_positive_fraction, c.roi_fg_iou, c.roi_bg_iou,
             c.soft_labeling, c.soft_labeling_func)
@@ -604,6 +745,9 @@ class GeneralizedRCNN(nn.Module):
         elif neg_logits is not None:
             losses["loss_cls_suppress"] = out[2] * 2.5
         losses.update(loss_classifier=out[0] * 5.0, loss_box_reg=out[1] * 2.5)
+        if c.mask_on or c.keypoint_on:
+            losses.update(self._mask_kp_losses(features, sampled, targets, gt_idx, roi_labels,
+                                               s_valid))
         return losses
 
 
@@ -611,9 +755,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter and buffer from ``generator``, a CPU generator:
     values are drawn on the CPU and copied, so a seed gives the same weights
     on every device. Backbone convs are variance-scaled uniform, FPN convs
-    and fc6/fc7 kaiming-uniform(a=1), other head layers N(0, 0.01) (bbox_pred
-    N(0, 0.001)) with the FCOS prior bias on cls_logits; FrozenBN statistics
-    are the identity and GN/Scale factors 1."""
+    and fc6/fc7 kaiming-uniform(a=1), other head layers (the mask and
+    keypoint heads' among them) N(0, 0.01) (bbox_pred N(0, 0.001)) with the
+    FCOS prior bias on cls_logits; FrozenBN statistics are the identity and
+    GN/Scale factors 1."""
     prior = model.config.prior_prob
 
     def uniform(shape, scale):
@@ -635,7 +780,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 mod.bias.zero_()
             elif isinstance(mod, Scale):
                 mod.scale.fill_(1.0)
-            elif isinstance(mod, (nn.Conv2d, nn.Linear)):
+            elif isinstance(mod, (nn.Conv2d, nn.Linear, ConvTranspose2d)):
                 shape = tuple(mod.weight.shape)
                 if ".body." in name:
                     w = uniform(shape, 1.0)

@@ -23,6 +23,12 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, _cast(self.weight, x), _cast(self.bias, x))
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x):
+        return F.conv_transpose2d(x, _cast(self.weight, x), _cast(self.bias, x), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
+
 class Linear(nn.Linear):
     def forward(self, x):
         return F.linear(x, _cast(self.weight, x), _cast(self.bias, x))

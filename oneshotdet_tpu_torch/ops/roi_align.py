@@ -273,7 +273,7 @@ def multilevel_roi_align_backward_workspace(grad_out, feature_shapes, rois, leve
 
 STAGE_BYTES = 24 * 1024   # one staging buffer of the kernel (a block has two)
 MAX_AXIS = 32             # pooled * sampling_ratio on one axis
-MAX_ITEMS = 64            # pooled_h * pooled_w
+MAX_ITEMS = 256           # pooled_h * pooled_w (the 14x14 mask/keypoint pools: 196)
 
 
 @dataclasses.dataclass
@@ -385,7 +385,7 @@ def roi_align_plan(features, rois, levels, output_size, scales, sampling_ratio,
 
 BWD_TILE = 16        # pixels on a side of a tile
 BWD_MAX_TILES = 64   # tiles on one axis of a map
-BWD_MAX_BINS = 64    # pooled_h * pooled_w
+BWD_MAX_BINS = 256   # pooled_h * pooled_w (the 14x14 mask/keypoint pools: 196)
 
 
 def bwd_tile_count(feature_shapes) -> int:

@@ -3,8 +3,11 @@
 ``set_support(image)`` runs the support branch once per class and caches its
 features on the device; each ``run_on_image(frame)`` then resizes, normalizes
 and pads the frame on the device, runs the query branch against the cached
-support, and returns (boxes, scores) in the frame's own coordinates.
-``run_on_opencv_image`` draws them on a BGR frame (PIL, imported there).
+support, and returns (boxes, scores) in the frame's own coordinates, with
+MODEL.MASK_ON and ``return_masks`` also each detection's 28x28 mask
+probabilities over its box. ``run_on_opencv_image`` draws them on a BGR
+frame (PIL, imported there), the masks as contours (numpy, PIL's bilinear
+resize by ``data.image_io.resize_bilinear``).
 
 ``ArtifactPredictor`` serves the same API from a serving bundle written by
 ``export.export_serving``: no model-building Python and no config system.
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .data.image_io import resize_bilinear
 from .data.transforms import get_resize_size
 from .models import build_detection_model
 from .structures.image_batch import ImageBatch
@@ -104,11 +108,15 @@ class OneShotPredictor:
         self._supp_cache = self.model.compute_support_features(batch, 1)
         return self._supp_cache
 
-    def run_on_image(self, image_rgb_u8: np.ndarray):
+    def run_on_image(self, image_rgb_u8: np.ndarray, return_masks: bool = False):
         """Detect the cached support class in one frame: (boxes_xyxy, scores)
-        as numpy arrays in the frame's coordinates, by descending score."""
+        as numpy arrays in the frame's coordinates, by descending score;
+        with ``return_masks`` (MODEL.MASK_ON) also the detections' (N, 28,
+        28) mask probabilities over their boxes."""
         if self._supp_cache is None:
             raise RuntimeError("call set_support() first")
+        if return_masks and not self.cfg.MODEL.MASK_ON:
+            raise ValueError("return_masks needs MODEL.MASK_ON")
         h0, w0 = image_rgb_u8.shape[:2]
         batch, (oh, ow) = self._batch(image_rgb_u8, self.cfg.INPUT.MIN_SIZE_TEST,
                                       self.cfg.INPUT.MAX_SIZE_TEST, self.query_bucket)
@@ -117,8 +125,9 @@ class OneShotPredictor:
         boxes = dets.xyxy[0].float().cpu().numpy()
         scores = dets.get_field("scores")[0].float().cpu().numpy()
         valid = dets.valid[0].cpu().numpy()
+        masks = dets.get_field("mask_probs")[0].cpu().numpy() if return_masks else None
         return _select(boxes, scores, valid, self.confidence_threshold, self._supp_class_id,
-                       (h0, w0), (oh, ow))
+                       (h0, w0), (oh, ow), masks)
 
     # -- the annotated-frame API ------------------------------------------------
 
@@ -133,14 +142,23 @@ class OneShotPredictor:
         """Write ``label: score`` at each box's top-left corner (PIL)."""
         return overlay_scores(image_rgb_u8, boxes, scores, label, color)
 
+    def overlay_mask_contours(self, image_rgb_u8: np.ndarray, boxes: np.ndarray,
+                              mask_probs: np.ndarray, color=(40, 255, 80),
+                              thresh: float = 0.5) -> np.ndarray:
+        """Each detection's mask contour drawn on an RGB frame
+        (``overlay_mask_contours``)."""
+        return overlay_mask_contours(image_rgb_u8, boxes, mask_probs, color, thresh)
+
     def run_on_opencv_image(self, image_bgr_u8: np.ndarray) -> np.ndarray:
         """BGR frame in, annotated BGR frame out: the cached support class's
-        boxes and scores. With MODEL.MASK_ON it raises NotImplementedError
-        (the mask head is not ported)."""
-        if self.cfg.MODEL.MASK_ON:
-            raise NotImplementedError("run_on_opencv_image: the mask head is not ported "
-                                      "(MODEL.MASK_ON)")
-        return annotate_bgr(self.run_on_image, image_bgr_u8)
+        boxes and scores, and with MODEL.MASK_ON their masks' contours."""
+        if not self.cfg.MODEL.MASK_ON:
+            return annotate_bgr(self.run_on_image, image_bgr_u8)
+        rgb = np.ascontiguousarray(image_bgr_u8[:, :, ::-1])
+        boxes, scores, masks = self.run_on_image(rgb, return_masks=True)
+        out = overlay_boxes(overlay_mask_contours(rgb, boxes, masks), boxes)
+        out = overlay_scores(out, boxes, scores)
+        return np.ascontiguousarray(out[:, :, ::-1])
 
 
 def overlay_boxes(image_rgb_u8: np.ndarray, boxes: np.ndarray, color=(255, 40, 40),
@@ -168,6 +186,39 @@ def overlay_scores(image_rgb_u8: np.ndarray, boxes: np.ndarray, scores: np.ndarr
     return np.asarray(img)
 
 
+def overlay_mask_contours(image_rgb_u8: np.ndarray, boxes: np.ndarray, mask_probs: np.ndarray,
+                          color=(40, 255, 80), thresh: float = 0.5) -> np.ndarray:
+    """Each detection's mask probabilities resized into its rounded box
+    (clipped to the frame; boxes of at most 2 pixels on a side skipped),
+    thresholded, and the boundary (the mask less its 4-neighbour erosion),
+    grown by one pixel, painted ``color``."""
+    out = image_rgb_u8.copy()
+    h, w = out.shape[:2]
+    for box, mp in zip(boxes, mask_probs):
+        x1 = max(int(round(float(box[0]))), 0)
+        y1 = max(int(round(float(box[1]))), 0)
+        x2 = min(int(round(float(box[2]))), w - 1)
+        y2 = min(int(round(float(box[3]))), h - 1)
+        bw, bh = x2 - x1 + 1, y2 - y1 + 1
+        if bw <= 2 or bh <= 2:
+            continue
+        grid = resize_bilinear((np.asarray(mp, np.float32) * 255).astype(np.uint8), (bw, bh))
+        m = grid.astype(np.float32) / 255.0 >= thresh
+        er = m.copy()
+        er[1:] &= m[:-1]
+        er[:-1] &= m[1:]
+        er[:, 1:] &= m[:, :-1]
+        er[:, :-1] &= m[:, 1:]
+        edge = m & ~er
+        thick = edge.copy()
+        thick[1:] |= edge[:-1]
+        thick[:-1] |= edge[1:]
+        thick[:, 1:] |= edge[:, :-1]
+        thick[:, :-1] |= edge[:, 1:]
+        out[y1:y2 + 1, x1:x2 + 1][thick] = color
+    return out
+
+
 def annotate_bgr(run_on_image, image_bgr_u8: np.ndarray) -> np.ndarray:
     """A BGR frame with ``run_on_image``'s boxes and scores drawn on it."""
     rgb = np.ascontiguousarray(image_bgr_u8[:, :, ::-1])
@@ -176,15 +227,19 @@ def annotate_bgr(run_on_image, image_bgr_u8: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out[:, :, ::-1])
 
 
-def _select(boxes, scores, valid, threshold, class_id, frame_hw, resized_hw):
+def _select(boxes, scores, valid, threshold, class_id, frame_hw, resized_hw, masks=None):
     """The valid detections above the (class's) threshold, by descending
-    score, rescaled from the resized frame to the frame's own coordinates."""
+    score, rescaled from the resized frame to the frame's own coordinates
+    (and their masks, where given)."""
     (h0, w0), (oh, ow) = frame_hw, resized_hw
     valid = valid & (scores > _select_threshold(threshold, class_id))
     boxes, scores = boxes[valid], scores[valid]
     order = np.argsort(-scores, kind="stable")
     boxes, scores = boxes[order], scores[order]
-    return boxes * np.array([w0 / ow, h0 / oh, w0 / ow, h0 / oh]), scores
+    boxes = boxes * np.array([w0 / ow, h0 / oh, w0 / ow, h0 / oh])
+    if masks is None:
+        return boxes, scores
+    return boxes, scores, masks[valid][order]
 
 
 class ArtifactPredictor:

@@ -7,8 +7,9 @@ crops of the same colour, in the data pipeline's layout. The same seed gives
 the same numpy arrays as the JAX package's copy.
 
 ``write_synthetic_coco``: a COCO-style dataset on disk (binary PPM images
-and an instances JSON, optionally with polygon segmentations) for the data
-path, made with numpy from a seed.
+and an instances JSON, optionally with polygon segmentations and 17 COCO
+person keypoints per annotation) for the data path, made with numpy from a
+seed.
 
 ``write_synthetic_c2_resnet``: a Detectron-style pickle of ResNet blobs
 (``{"blobs": {"conv1_w": ..., "res2_0_branch2a_w": ...}}``, with the
@@ -90,9 +91,23 @@ def _polygon_rings(rng, x, y, w, h):
             ring(x + 3 * w / 4, y + h / 2, w / 4, h / 2, rng.randint(6, 11), True)]
 
 
+NUM_KEYPOINTS = 17
+
+
+def _keypoints(rng, x, y, w, h):
+    """17 (x, y, v) keypoints of a box (x, y, w, h): v 0 (not labelled, at
+    (0, 0)), 1 or 2 in proportions 1 : 1 : 2, the labelled ones inside the
+    box on a half-pixel grid; and their count."""
+    v = rng.choice([0, 1, 2, 2], NUM_KEYPOINTS)
+    px = np.round(rng.uniform(x, x + w, NUM_KEYPOINTS) * 2) / 2
+    py = np.round(rng.uniform(y, y + h, NUM_KEYPOINTS) * 2) / 2
+    kps = np.stack([np.where(v > 0, px, 0.0), np.where(v > 0, py, 0.0), v], 1)
+    return [float(a) for a in kps.reshape(-1)], int((v > 0).sum())
+
+
 def write_synthetic_coco(root, num_images: int = 24, sizes=((375, 500), (500, 375)),
                          num_categories: int = 3, box_side=(90.0, 300.0), seed: int = 0,
-                         segmentation: bool = False):
+                         segmentation: bool = False, keypoints: bool = False):
     """Write ``num_images`` binary PPM images (sizes (h, w) taken in turn)
     with 1-4 boxes each and the instances JSON under ``root``. Boxes are
     rectangles of their category's colour on noise, with sides drawn from
@@ -101,10 +116,13 @@ def write_synthetic_coco(root, num_images: int = 24, sizes=((375, 500), (500, 37
     has at least one box. With ``segmentation``, each annotation also gets
     polygons inside its box (one convex ring, a concave one, or two rings;
     half-pixel vertices) from a stream of their own, so images and boxes are
-    those of the same seed without them. Returns (image directory,
-    annotation file)."""
+    those of the same seed without them. With ``keypoints``, each annotation
+    gets 17 COCO keypoints and their ``num_keypoints`` (``_keypoints``), from
+    another stream of their own. Returns (image directory, annotation
+    file)."""
     rng = np.random.RandomState(seed)
     seg_rng = np.random.RandomState(seed + 1) if segmentation else None
+    kp_rng = np.random.RandomState(seed + 2) if keypoints else None
     img_dir = os.path.join(str(root), "images")
     os.makedirs(img_dir, exist_ok=True)
     colors = rng.randint(40, 256, (num_categories, 3))
@@ -132,6 +150,8 @@ def write_synthetic_coco(root, num_images: int = 24, sizes=((375, 500), (500, 37
                    "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": 0}
             if seg_rng is not None:
                 ann["segmentation"] = _polygon_rings(seg_rng, x, y, bw, bh)
+            if kp_rng is not None:
+                ann["keypoints"], ann["num_keypoints"] = _keypoints(kp_rng, x, y, bw, bh)
             annotations.append(ann)
         name = f"{i:06d}.ppm"
         write_ppm(os.path.join(img_dir, name), arr)

@@ -4,8 +4,14 @@ The port's own copy of the name map of
 ``oneshotdet_tpu/utils/torch_export.py::map_flax_leaf`` and its layout
 transforms: HWIO conv kernels -> OIHW, (in, out) dense kernels -> (out, in),
 scalar FCOS scales () -> (1,). Beyond the JAX package's map it carries
-``supp_aug_conv`` (FEW_SHOT.SUPP_AUG_METHOD 'conv'), under the reference
-module's name. The result loads into
+``supp_aug_conv`` (FEW_SHOT.SUPP_AUG_METHOD 'conv') and the mask and keypoint
+heads (MODEL.MASK_ON / KEYPOINT_ON: ``roi_heads.mask.feature_extractor.
+mask_fcn{i}``, ``roi_heads.mask.predictor.{conv5_mask,mask_fcn_logits}``,
+``roi_heads.keypoint.feature_extractor.conv_fcn{i}``,
+``roi_heads.keypoint.predictor.kps_score_lowres``), under the reference
+modules' names; a flax ``ConvTranspose`` kernel (kh, kw, in, out) becomes
+the (in, out, kh, kw) weight of ``conv_transpose2d`` flipped in both
+spatial axes. The result loads into
 ``models.GeneralizedRCNN`` with ``load_state_dict(strict=True)``.
 """
 
@@ -20,6 +26,8 @@ import torch
 _PREDICTOR = {"cls_score", "bbox_pred"}
 _FCOS_FINAL = {"cls_logits", "bbox_pred", "centerness"}
 _COMPRESS = {"compress_0": 0, "compress_gn0": 1, "compress_1": 3, "compress_gn1": 4}
+_HEADS = {"mask_head": "mask", "keypoint_head": "keypoint"}
+_DECONV = {"conv5_mask", "kps_score_lowres"}
 
 
 def _w(leaf: str) -> str:
@@ -73,6 +81,12 @@ def map_flax_leaf(collection: str, path: Tuple[str, ...]) -> Optional[Tuple[str,
 
     if p == ("supp_aug_conv", "kernel"):
         return "supp_aug_conv.weight", "conv"
+
+    if p[0] in _HEADS and len(p) == 4 and p[1] in ("feature_extractor", "predictor"):
+        if re.match(r"^(mask_fcn\d+|conv_fcn\d+|mask_fcn_logits)$", p[2]) or p[2] in _DECONV:
+            kind = "deconv" if p[2] in _DECONV else "conv"
+            return f"roi_heads.{_HEADS[p[0]]}.{p[1]}.{p[2]}.{_w(p[3])}", _t(p[3], kind)
+        return None
 
     if p[0] == "fcos_head":
         m = re.match(r"^(cls_tower|bbox_tower)_(\d+)$", p[1])
@@ -136,6 +150,8 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
             a = np.asarray(arr, dtype=np.float32)
             if transform == "conv":
                 a = a.transpose(3, 2, 0, 1)      # HWIO -> OIHW
+            elif transform == "deconv":          # flipped (kh, kw, in, out) -> (in, out, kh, kw)
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             elif transform == "linear":
                 a = a.transpose(1, 0)            # (in, out) -> (out, in)
             elif transform == "scalar":

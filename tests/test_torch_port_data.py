@@ -406,7 +406,12 @@ def test_compute_thresholds_for_classes_equals_jax():
 
 @pytest.mark.parametrize("switch", ["MODEL.MASK_ON", "MODEL.KEYPOINT_ON"])
 def test_unported_switches_raise(dataset_files, switch):
+    """MASK_ON and KEYPOINT_ON are ported: the dataset builds and its items
+    carry the field (this dataset has no polygons or keypoints, so zeros;
+    held to JAX in ``test_torch_port_mask_data.py``)."""
     img_dir, ann_file = dataset_files
     _, pcfg = data_cfgs(switch, True)
-    with pytest.raises(NotImplementedError, match=switch):
-        COCODataset(pcfg, ann_file, img_dir, False, build_fused_transforms(pcfg, False))
+    ds = COCODataset(pcfg, ann_file, img_dir, False, build_fused_transforms(pcfg, False))
+    item = ds[0]
+    key = "masks" if switch == "MODEL.MASK_ON" else "keypoints"
+    assert len(item[key]) == len(item["boxes"]) and not item[key].any()

@@ -43,6 +43,8 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.tools.export_model, oneshotdet_tpu_torch.tools.oneshot_demo\n"
         "import oneshotdet_tpu_torch.structures.segmentation_mask\n"
         "import oneshotdet_tpu_torch.data.transforms\n"
+        "import oneshotdet_tpu_torch.models.mask_head, oneshotdet_tpu_torch.models.keypoint_head\n"
+        "import oneshotdet_tpu_torch.models.roi_heads, oneshotdet_tpu_torch.structures.keypoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -82,16 +84,22 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/tools/export_model.py",
                  "oneshotdet_tpu_torch/tools/oneshot_demo.py",
                  "oneshotdet_tpu_torch/structures/segmentation_mask.py",
-                 "oneshotdet_tpu_torch/data/transforms.py"):
+                 "oneshotdet_tpu_torch/data/transforms.py",
+                 "oneshotdet_tpu_torch/models/mask_head.py",
+                 "oneshotdet_tpu_torch/models/keypoint_head.py",
+                 "oneshotdet_tpu_torch/models/roi_heads.py",
+                 "oneshotdet_tpu_torch/structures/keypoint.py"):
         assert path in names
 
 
 @pytest.mark.parametrize("module", ["structures/segmentation_mask.py", "data/transforms.py",
-                                    "data/datasets/coco.py"])
+                                    "data/datasets/coco.py", "models/mask_head.py",
+                                    "data/evaluation/coco_eval.py", "structures/keypoint.py"])
 def test_support_mask_and_jitter_never_import_pil(module):
-    """The polygon fill and the colour jitter are numpy: PIL is imported by
-    none of these modules, not even inside a function (the port reads PIL
-    only to decode a non-PPM image, in ``data/image_io.py``)."""
+    """The polygon fill, the colour jitter and the mask paste-back are
+    numpy: PIL is imported by none of these modules, not even inside a
+    function (the port reads PIL only to decode a non-PPM image, in
+    ``data/image_io.py``, and to draw boxes and text in ``predictor.py``)."""
     tree = ast.parse((ROOT / "oneshotdet_tpu_torch" / module).read_text())
     for node in ast.walk(tree):
         names = ([a.name for a in node.names] if isinstance(node, ast.Import)

@@ -84,7 +84,15 @@ def test_backbone_p6_from_c5_matches_jax(setup):
     ("TPU.QUANT", "int8"),
 ])
 def test_unported_switches_raise(switch):
+    """The anchor stage 1 and TPU.QUANT raise; MASK_ON and KEYPOINT_ON are
+    ported and build their head (held to JAX in
+    ``test_torch_port_mask_keypoint.py``)."""
     _, pcfg = small_cfgs(*switch)
+    heads = {"MODEL.MASK_ON": "mask", "MODEL.KEYPOINT_ON": "keypoint"}
+    if switch[0] in heads:
+        model = build_detection_model(pcfg, device="cpu")
+        assert hasattr(model.roi_heads, heads[switch[0]])
+        return
     with pytest.raises(NotImplementedError, match=switch[0]):
         build_detection_model(pcfg, device="cpu")
 

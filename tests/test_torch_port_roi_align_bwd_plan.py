@@ -71,6 +71,14 @@ def _cases():
     lv[1::3] = 5                                                  # no such level
     cases.append(("bad image or level R=64", bad, lv, None, q, (7, 7)))
     cases.append(("no ROIs", rois[:0], lv[:0], None, q, (7, 7)))
+    # the mask and keypoint heads' 14x14 pools on P4 alone
+    p4 = [q[1]]
+    zero = lambda r: torch.zeros(r.shape[0], dtype=torch.int32)  # noqa: E731
+    # (K1's edge cases at 14x14 are held on the card, phase 13b)
+    cases.append(("14x14 P4 random mix R=64", rois[:64], zero(rois[:64]), valid[:64], p4,
+                  (14, 14)))
+    cases.append(("14x14 P4 GT-clustered R=64", crowd[::16], zero(crowd[::16]), None, p4,
+                  (14, 14)))
     return cases
 
 
@@ -78,7 +86,16 @@ CASES = _cases()
 IDS = [c[0] for c in CASES]
 
 
-def _brute_force_lists(rois, levels, valid, shapes, output_size, g):
+def _scales(shapes):
+    """The levels' scales: P3.. of the query pyramid, or P4 alone (the mask
+    and keypoint pools) for a one-level query pyramid."""
+    if len(shapes) == 1 and shapes[0][1:3] == tuple(chip_smoke.pyramid_shapes(
+            *chip_smoke.QUERY_HW)[1]):
+        return (0.0625,)
+    return SCALES[:len(shapes)]
+
+
+def _brute_force_lists(rois, levels, valid, shapes, output_size, g, scales):
     """Per tile of ``bwd_tile_grid``, the ROIs with an in-range sample whose
     corner of non-zero weight (the product of the two axes' weights) lies in
     it: every sample and every corner, one at a time."""
@@ -96,7 +113,7 @@ def _brute_force_lists(rois, levels, valid, shapes, output_size, g):
             continue
         one = torch.tensor([lvl])
         (oky, ylo, yhi, ly, hy), (okx, xlo, xhi, lx, hx) = ra._roi_axes(
-            rois[r:r + 1], one, heights, widths, SCALES[:len(shapes)], output_size, g)
+            rois[r:r + 1], one, heights, widths, scales, output_size, g)
         hit = set()
         for sy in range(oky.shape[1]):
             for sx in range(okx.shape[1]):
@@ -115,10 +132,11 @@ def _brute_force_lists(rois, levels, valid, shapes, output_size, g):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_bwd_plan_equals_brute_force(case, g):
     _, rois, levels, valid, shapes, out_hw = case
-    plan = ra.roi_align_bwd_plan(shapes, rois, levels, out_hw, SCALES[:len(shapes)], g, valid)
+    scales = _scales(shapes)
+    plan = ra.roi_align_bwd_plan(shapes, rois, levels, out_hw, scales, g, valid)
     assert plan.tiles == ra.bwd_tile_grid(shapes)
     assert plan.lists == [sorted(x) for x in _brute_force_lists(rois, levels, valid, shapes,
-                                                                 out_hw, g)]
+                                                                 out_hw, g, scales)]
     # ascending, and no dead ROI on any list
     assert all(x == sorted(set(x)) for x in plan.lists)
     live, _ = ra._live_levels(shapes, rois.float(), levels.long(), valid)
@@ -181,7 +199,7 @@ def _gather_inputs(mix, out_hw, seed):
 
 
 @pytest.mark.parametrize("g", [2, 1])
-@pytest.mark.parametrize("out_hw", [(7, 7), (1, 1)])
+@pytest.mark.parametrize("out_hw", [(7, 7), (1, 1), (14, 14)])
 @pytest.mark.parametrize("mix", ["ordinary", "clustered", "outside", "degenerate", "subcell",
                                  "invalid"])
 def test_tile_gather_equals_plain_gradient(mix, out_hw, g):

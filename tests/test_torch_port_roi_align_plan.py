@@ -54,6 +54,16 @@ def _cases():
         cases.append((f"support 1x1 P{lvl + 3}", chip_smoke.SUPP_HW, supp,
                       torch.full((8,), lvl, dtype=torch.int32), None, (1, 1),
                       chip_smoke.SCALES_Q))
+    # the mask and keypoint heads' 14x14 pools: on P4, and over P3-P4
+    p4 = lambda r: torch.ones(r.shape[0], dtype=torch.int32)  # noqa: E731
+    cases.append(("14x14 P4 random mix R=300", chip_smoke.QUERY_HW, rois[:300], p4(rois[:300]),
+                  valid[:300], (14, 14), chip_smoke.SCALES_Q))
+    cases.append(("14x14 P3-P4 random mix R=300", chip_smoke.QUERY_HW, rois[300:600],
+                  ra.fpn_level_map(rois[300:600, 1:], 3, 4), valid[300:600], (14, 14),
+                  chip_smoke.SCALES_Q))
+    for name, r, _, v in chip_smoke.edge_case_rois(gen, "cpu"):
+        cases.append((f"14x14 P4 {name}", chip_smoke.QUERY_HW, r, p4(r), v, (14, 14),
+                      chip_smoke.SCALES_Q))
     return cases
 
 
@@ -148,3 +158,21 @@ def test_wide_rois_split_and_small_ones_stage_once():
 def test_budget_holds_one_bin(dtype, channels, ok):
     """The wrapper's rule: one bin's 2g x 2g pixels must fit the buffer."""
     assert (4 * 2 * 2 <= ra.stage_budget(channels, dtype)) == ok
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_14x14_item_counts_within_the_kernels_limit(dtype):
+    """At the heads' 14x14 pools a large ROI cuts into many items of one bin
+    (in float32 more than the 64 the kernel once held); every ROI, the edge
+    cases and a whole P4 map among them, stays within MAX_ITEMS, which
+    covers one item per bin."""
+    cases = [c for c in CASES if c[0].startswith("14x14")]
+    whole = torch.tensor([[0.0, 0.0, 0.0, 1216.0, 832.0]])
+    cases.append(("whole map", chip_smoke.QUERY_HW, whole, torch.ones(1, dtype=torch.int32),
+                  None, (14, 14), chip_smoke.SCALES_Q))
+    most = 0
+    for name, hw, rois, levels, valid, out_hw, scales in cases:
+        plans = ra.roi_align_plan(_pyramid(dtype, hw), rois, levels, out_hw, scales, 2, valid)
+        most = max([most] + [len(p.items) for p in plans if p is not None])
+    assert 196 <= ra.MAX_ITEMS and most <= 196
+    assert most > 64 if dtype == torch.float32 else most > 8

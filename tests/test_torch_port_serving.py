@@ -14,7 +14,7 @@
     compiles of the full-width model take ~90 s on the CPU);
   - ``overlay_boxes`` and ``overlay_scores`` equal the JAX package's pixel
     for pixel; ``run_on_opencv_image`` draws the frame's detections and
-    raises NotImplementedError with MODEL.MASK_ON.
+    with MODEL.MASK_ON also the masks' contours (the artifact stays box-only).
 """
 
 import copy
@@ -24,11 +24,12 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from oneshotdet_tpu.predictor import OneShotPredictor as JaxPredictor
 from oneshotdet_tpu_torch import export as oexport
 from oneshotdet_tpu_torch.predictor import (ArtifactPredictor, OneShotPredictor, annotate_bgr,
-                                            overlay_boxes, overlay_scores)
+                                            overlay_boxes, overlay_mask_contours, overlay_scores)
 from oneshotdet_tpu_torch.utils.weights import state_dict_from_flax
 from test_torch_port_predictor import PRED_OVERRIDES
 from torch_port_common import BOX_RTOL, SCORE_RTOL, random_variables, small_cfgs
@@ -222,13 +223,32 @@ def test_run_on_opencv_image_draws_the_detections(predictor, served):
     assert np.array_equal(annotate_bgr(predictor.run_on_image, bgr), out)
 
 
-def test_run_on_opencv_image_raises_with_mask_on(predictor):
-    cfg = predictor.cfg
-    masked = cfg.clone()
+def test_run_on_opencv_image_raises_with_mask_on(predictor, tmp_path):
+    """With MODEL.MASK_ON (the mask head is ported now) the annotated frame
+    also carries each detection's mask contour, from ``run_on_image(...,
+    return_masks=True)``; the serving artifact of that model stays
+    box-only, as the JAX package's."""
+    masked = predictor.cfg.clone()
     masked.merge_from_list(["MODEL.MASK_ON", True])
-    predictor.cfg = masked
-    try:
-        with pytest.raises(NotImplementedError, match="mask head"):
-            predictor.run_on_opencv_image(np.zeros((64, 64, 3), np.uint8))
-    finally:
-        predictor.cfg = cfg
+    mp = OneShotPredictor(masked, confidence_threshold=-1.0, device="cpu",
+                          generator=torch.Generator().manual_seed(4))
+    missing, unexpected = mp.model.load_state_dict(predictor.model.state_dict(), strict=False)
+    assert not unexpected and missing and all(k.startswith("roi_heads.mask.") for k in missing)
+    rng = np.random.RandomState(2)
+    mp.set_support(rng.randint(0, 255, (40, 52, 3), np.uint8))
+    bgr = rng.randint(0, 255, (70, 90, 3), np.uint8)
+    rgb = np.ascontiguousarray(bgr[:, :, ::-1])
+    boxes, scores, masks = mp.run_on_image(rgb, return_masks=True)
+    b2, s2 = mp.run_on_image(rgb)
+    assert np.array_equal(boxes, b2) and np.array_equal(scores, s2)
+    assert masks.shape == (len(boxes), 28, 28) and masks.dtype == np.float32 and len(boxes)
+    want = overlay_scores(overlay_boxes(overlay_mask_contours(rgb, boxes, masks), boxes),
+                          boxes, scores)[:, :, ::-1]
+    out = mp.run_on_opencv_image(bgr)
+    assert np.array_equal(out, want)
+    assert not np.array_equal(out, annotate_bgr(mp.run_on_image, bgr))
+    with pytest.raises(ValueError, match="MASK_ON"):
+        predictor.run_on_image(rgb, return_masks=True)
+    support, detect = oexport.export_eval(masked, mp.model, batch=1, kind="cached_support")
+    assert not any("mask" in k for k in detect.state_dict)
+    assert len(detect.graph_signature.user_outputs) == 3

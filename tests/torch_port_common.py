@@ -633,3 +633,89 @@ def supp_aug_of(overrides):
     else 0."""
     opts = dict(zip(overrides[::2], overrides[1::2]))
     return int(opts.get("FEW_SHOT.NUM_SUPP_AUG", 1)) if opts.get("FEW_SHOT.SUPP_AUG") else 0
+
+
+# -- the mask and keypoint heads (MODEL.MASK_ON / KEYPOINT_ON) ----------------
+
+# Their ReLUs, by the flax name of the conv whose output they take: the mask
+# head's mask_fcn{i} and conv5_mask, the keypoint head's conv_fcn{i}.
+MASK_KP_KINK = r"^(mask_fcn\d+|conv5_mask|conv_fcn\d+)$"
+
+
+def capture_mask_kp_kinks(mdl, method):
+    """``capture_intermediates`` filter: the relation head's and the FCOS
+    towers' pre-activations (``capture_kinks``) and the mask and keypoint
+    heads' convs' outputs."""
+    import re
+
+    return capture_kinks(mdl, method) or (
+        method == "__call__" and mdl.name is not None
+        and re.match(MASK_KP_KINK, mdl.name) is not None)
+
+
+def mask_kp_kink_arrays(intermediates):
+    """{conv name: [one array per call]} of the mask and keypoint heads in
+    a flax ``intermediates`` tree ('mask_head' / 'keypoint_head' ->
+    'feature_extractor' / 'predictor' -> name -> '__call__')."""
+    out = {}
+    for head in ("mask_head", "keypoint_head"):
+        for part in intermediates.get(head, {}).values():
+            for name, calls in part.items():
+                out[name] = [np.asarray(x) for x in calls["__call__"]]
+    return out
+
+
+class mask_kp_kinks_as_jax(head_kinks_as_jax):
+    """The mask and keypoint heads' ReLUs differentiated at JAX's branch
+    where their input lies within KINK_TOL of 0 (``head_kinks_as_jax``'s
+    rule; ``kinks`` from ``mask_kp_kink_arrays``). The heads call ``F.relu``
+    in order: mask_fcn1.., conv5_mask; conv_fcn1.."""
+
+    def __init__(self, model, kinks):
+        super().__init__(None, kinks)
+        self.model = model
+
+    def __enter__(self):
+        import oneshotdet_tpu_torch.models.keypoint_head as kh
+        import oneshotdet_tpu_torch.models.mask_head as mh
+
+        heads = self.model.roi_heads
+        orders = []
+        if hasattr(heads, "mask"):
+            n = heads.mask.feature_extractor.num_layers
+            orders.append((mh, [f"mask_fcn{i + 1}" for i in range(n)] + ["conv5_mask"]))
+        if hasattr(heads, "keypoint"):
+            n = heads.keypoint.feature_extractor.num_layers
+            orders.append((kh, [f"conv_fcn{i + 1}" for i in range(n)]))
+        self._saved = []
+        for mod, names in orders:
+            seq = {"i": 0}
+
+            def relu(x, names=names, seq=seq):
+                name = names[seq["i"] % len(names)]
+                seq["i"] += 1
+                return _Kink.apply(x, 0.0, self._positive(name, x, 0.0))
+
+            self._saved.append((mod, mod.F))
+            mod.F = types.SimpleNamespace(**{k: getattr(F, k) for k in dir(F)
+                                             if not k.startswith("__")})
+            mod.F.relu = relu
+        return self
+
+    def _positive(self, name, x, slope):
+        k = self.calls.get(name, 0)
+        self.calls[name] = k + 1
+        ref = torch.from_numpy(self.kinks[name][k]).permute(0, 3, 1, 2)   # NCHW, the port's
+        own = x > 0
+        theirs = ref > 0
+        near = x.detach().abs() < KINK_TOL
+        far = (own != theirs) & ~near
+        if bool(far.any()):
+            raise AssertionError(f"{name}: {int(far.sum())} activations on another side "
+                                 f"of the kink than JAX's, farther than {KINK_TOL}")
+        self.overridden += int(((own != theirs) & near).sum())
+        return torch.where(near, theirs, own)
+
+    def __exit__(self, *exc):
+        for mod, f in self._saved:
+            mod.F = f
