@@ -281,25 +281,43 @@ def k1_bound(feats, rois, levels, valid, out):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops
 
 
+PLAIN_CHUNK = 1000             # ROIs per call of a plain version (14x14: (R, 784, C) temporaries)
+
+
+def _plain_chunked(fn, rois, levels, valid, chunk=PLAIN_CHUNK):
+    """The plain forward ``fn(rois, levels, valid)`` over ``chunk`` ROIs at a
+    time, concatenated (a ROI's output depends on that ROI alone)."""
+    outs = []
+    for i in range(0, rois.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        outs.append(fn(rois[sl], levels[sl], None if valid is None else valid[sl]))
+    return torch.cat(outs)
+
+
 def k1_compare(ra, name, dtype, args):
-    """K1 against its plain version on ``args``, with its plan's statistics
-    against the Python mirror (``roi_align_plan``). Returns (kernel output,
-    max abs err, metric text, tolerance text, staged bytes)."""
-    feats, rois = args[0], args[1]
+    """K1 against its plain version on ``args`` (the plain side PLAIN_CHUNK
+    ROIs at a time, ``_plain_chunked``), with its plan's statistics against
+    the Python mirror (``roi_align_plan``), every item within the staging
+    buffer and the item count within MAX_ITEMS. Returns (kernel output, max abs err, metric
+    text, tolerance text, staged bytes)."""
+    feats, rois, levels, out_hw, scales, g, valid = args
     stats = torch.zeros((rois.shape[0], 2), dtype=torch.int32, device=rois.device)
     k = ra.multilevel_roi_align_cuda(*args, stats=stats)
     torch.cuda.synchronize()
-    p = ra.multilevel_roi_align_plain(*args)
+    p = _plain_chunked(lambda r, lv, v: ra.multilevel_roi_align_plain(feats, r, lv, out_hw,
+                                                                      scales, g, v),
+                       rois, levels, valid)
     diff = (k.float() - p.float()).abs()
     err = float(diff.max()) if diff.numel() else 0.0
     rel = float((diff / p.float().abs().clamp(min=1e-6)).max()) if diff.numel() else 0.0
+    metric = f"max abs err {err:.3e}, max rel err {rel:.3e}"
     if dtype == torch.float32:
         ok, tol = err <= 1e-5, "abs <= 1e-5"
-        metric = f"max abs err {err:.3e}, max rel err {rel:.3e}"
     else:
         ulps = bf16_ulps(k, p) if diff.numel() else 0.0
         ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
-        metric = f"max abs err {err:.3e}, max rel err {rel:.3e}, {ulps:.2f} bf16 ulp"
+        metric += f", {ulps:.2f} bf16 ulp"
+    del p, diff
     if not (ok and torch.isfinite(k.float()).all()):
         raise AssertionError(f"roi_align {name} {dtype}: {metric} (tolerance {tol})")
     plans = ra.roi_align_plan(*args)
@@ -311,8 +329,16 @@ def k1_compare(ra, name, dtype, args):
         raise AssertionError(f"roi_align {name} {dtype}: ROI {i}'s kernel plan (items, staged "
                              f"pixels) {got[i].tolist()} differs from roi_align_plan's "
                              f"{want[i].tolist()}")
+    budget = ra.stage_budget(feats[0].shape[-1], dtype)
+    worst = max((max((r1 - r0) * (c1 - c0) for *_, r0, r1, c0, c1 in pl.items)
+                 for pl in plans if pl is not None), default=0)
+    most = int(got[:, 0].max()) if got.numel() else 0
+    if worst > budget or most > ra.MAX_ITEMS:
+        raise AssertionError(f"roi_align {name} {dtype}: an item of {worst} pixels (budget "
+                             f"{budget}) or {most} items (limit {ra.MAX_ITEMS})")
     staged = int(got[:, 1].sum()) * feats[0].shape[-1] * k.element_size()
-    return k, err, metric, tol, staged
+    return k, err, f"{metric}; at most {most} items a ROI, {worst} of {budget} pixels an item", \
+        tol, staged
 
 
 def kernel_checks(ra, dev):
@@ -624,64 +650,6 @@ def roi_align_bwd_checks(ra, dev):
 
 
 MASK_POOL = (14, 14)           # the mask and keypoint heads' pools (POOLER_RESOLUTION 14)
-PLAIN_CHUNK = 1000             # ROIs per call of a plain 14x14 version (its (R, 784, C) temporaries)
-
-
-def _plain_chunked(fn, rois, levels, valid, chunk=PLAIN_CHUNK):
-    """The plain forward ``fn(rois, levels, valid)`` over ``chunk`` ROIs at a
-    time, concatenated (a ROI's output depends on that ROI alone)."""
-    outs = []
-    for i in range(0, rois.shape[0], chunk):
-        sl = slice(i, i + chunk)
-        outs.append(fn(rois[sl], levels[sl], None if valid is None else valid[sl]))
-    return torch.cat(outs)
-
-
-def k1_compare_chunked(ra, name, dtype, args):
-    """``k1_compare`` for outputs whose plain version would not fit the card
-    at once: the plain version ROI chunk by ROI chunk. Returns (kernel
-    output, max abs err, metric text, tolerance text, staged bytes)."""
-    feats, rois, levels, out_hw, scales, g, valid = args
-    stats = torch.zeros((rois.shape[0], 2), dtype=torch.int32, device=rois.device)
-    k = ra.multilevel_roi_align_cuda(*args, stats=stats)
-    torch.cuda.synchronize()
-    err = ulps = 0.0
-    for i in range(0, rois.shape[0], PLAIN_CHUNK):
-        sl = slice(i, i + PLAIN_CHUNK)
-        p = ra.multilevel_roi_align_plain(feats, rois[sl], levels[sl], out_hw, scales, g,
-                                          None if valid is None else valid[sl])
-        d = (k[sl].float() - p.float()).abs()
-        if d.numel():
-            err = max(err, float(d.max()))
-            if dtype != torch.float32:
-                ulps = max(ulps, bf16_ulps(k[sl], p))
-        del p, d
-    if dtype == torch.float32:
-        ok, tol, metric = err <= 1e-5, "abs <= 1e-5", f"max abs err {err:.3e}"
-    else:
-        ok, tol = ulps <= 1.0, "<= 1 bf16 ulp"
-        metric = f"max abs err {err:.3e}, {ulps:.2f} bf16 ulp"
-    if not (ok and torch.isfinite(k.float()).all()):
-        raise AssertionError(f"roi_align {name} {dtype}: {metric} (tolerance {tol})")
-    plans = ra.roi_align_plan(*args)
-    want = torch.tensor([[0, 0] if pl is None else [len(pl.items), pl.staged_pixels]
-                         for pl in plans], dtype=torch.int32)
-    got = stats.cpu()
-    if not torch.equal(got, want):
-        i = int((got != want).any(1).nonzero()[0])
-        raise AssertionError(f"roi_align {name} {dtype}: ROI {i}'s kernel plan (items, staged "
-                             f"pixels) {got[i].tolist()} differs from roi_align_plan's "
-                             f"{want[i].tolist()}")
-    budget = ra.stage_budget(feats[0].shape[-1], dtype)
-    worst = max((max((r1 - r0) * (c1 - c0) for *_, r0, r1, c0, c1 in pl.items)
-                 for pl in plans if pl is not None), default=0)
-    most = int(got[:, 0].max()) if got.numel() else 0
-    if worst > budget or most > ra.MAX_ITEMS:
-        raise AssertionError(f"roi_align {name} {dtype}: an item of {worst} pixels (budget "
-                             f"{budget}) or {most} items (limit {ra.MAX_ITEMS})")
-    staged = int(got[:, 1].sum()) * feats[0].shape[-1] * k.element_size()
-    return k, err, f"{metric}; at most {most} items a ROI, {worst} of {budget} pixels an item", \
-        tol, staged
 
 
 def mask_kp_kernel_checks(ra, dev):
@@ -719,7 +687,7 @@ def mask_kp_kernel_checks(ra, dev):
                           torch.zeros(r.shape[0], dtype=torch.int32, device=dev), (0.0625,), v))
         for name, fs, rois, levels, sc, valid in cases:
             args = (fs, rois, levels, MASK_POOL, sc, 2, valid)
-            k, err, metric, tol, staged = k1_compare_chunked(ra, name, dtype, args)
+            k, err, metric, tol, staged = k1_compare(ra, name, dtype, args)
             bound, by, nbytes, ops = k1_bound(fs, rois, levels, valid, k)
             del k
             ms = time_ms(lambda: ra.multilevel_roi_align_cuda(*args), reps=10)
@@ -3642,11 +3610,25 @@ def mask_kp_eval_forwards(flagship, dev, card):
     return paths, out
 
 
+def quiet_mask_kp_heads_(model, gen):
+    """Redraw the mask and keypoint heads' conv weights at N(0, 0.01), biases
+    0, for the CLI run's checkpoint. The seeded random backbone and FPN give
+    features far larger than trained ones; from the heads' own init (the JAX
+    package's kaiming- and lecun-normal) the train CLI's mask logits reach
+    the thousands within three steps and a later step's boxes go NaN. The
+    model's init stays as it is; only this smoke's weights are quieter."""
+    with torch.no_grad():
+        for name, v in model.state_dict().items():
+            if name.startswith(("roi_heads.mask.", "roi_heads.keypoint.")):
+                v.copy_(torch.randn(v.shape, generator=gen) * 0.01 if v.dim() > 1
+                        else torch.zeros(v.shape))
+
+
 def mask_kp_cli(flagship, dev, card):
     """Phase 13c: ``tools.test_net`` over MK_CLI_BATCHES batches of 8 on
     ``write_synthetic_coco(segmentation=True, keypoints=True)`` (a .pth of
-    seed-1 weights; 9 K1 launches a batch; segm_* and keypoints_* present
-    and finite) and ``tools.train_net`` from that .pth for MK_CLI_STEPS
+    seed-1 weights, the heads' quieter, ``quiet_mask_kp_heads_``; 9 K1
+    launches a batch; segm_* and keypoints_* present and finite) and ``tools.train_net`` from that .pth for MK_CLI_STEPS
     steps (9 K1 and 9 K1b a step; finite loss_mask and loss_kp)."""
     from oneshotdet_tpu_torch.data import build as data_build
     from oneshotdet_tpu_torch.engine import trainer
@@ -3668,6 +3650,7 @@ def mask_kp_cli(flagship, dev, card):
                                  *MK_OPTS]]
         cfg = mk_cfg(flagship, *opts)
         model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        quiet_mask_kp_heads_(model, torch.Generator().manual_seed(2))
         ckpt = os.path.join(root, "seed1.pth")
         torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
         del model

@@ -33,6 +33,7 @@ it was exported on. A process that loads one imports ``ops.library`` first
 """
 
 import copy
+import dataclasses
 import json
 import logging
 import os
@@ -72,10 +73,13 @@ class _Program(nn.Module):
         self.model = copy.copy(model)
         self.model._modules = {k: v for k, v in model._modules.items() if k in keep}
         if "roi_heads" in keep:
-            # box-only: the mask and keypoint heads' weights stay out
+            # box-only: the mask and keypoint heads neither run nor carry
+            # their weights
             heads = copy.copy(model.roi_heads)
             heads._modules = {"box": model.roi_heads.box}
             self.model._modules["roi_heads"] = heads
+            self.model.config = dataclasses.replace(model.config, mask_on=False,
+                                                    keypoint_on=False)
         self.entry = entry
         self.head_operands = nn.Module()
         self.operand_meta = None
@@ -135,8 +139,7 @@ def export_eval(cfg, model, *, batch: int = 8, query_hw: Optional[Tuple[int, int
     if kind == "full":
         def full(m, pixels, sizes, supp_pixels, supp_sizes, target_ids):
             return _outputs(m._forward_eval(ImageBatch(pixels, sizes),
-                                            ImageBatch(supp_pixels, supp_sizes), target_ids,
-                                            heads=False))
+                                            ImageBatch(supp_pixels, supp_sizes), target_ids))
 
         return _export(model, full, set(model._modules),
                        (pixels, sizes, supp_pixels, supp_sizes, target_ids))
@@ -146,7 +149,7 @@ def export_eval(cfg, model, *, batch: int = 8, query_hw: Optional[Tuple[int, int
 
     def detect(m, pixels, sizes, pooled, supp_7x7, target_ids):
         return _outputs(m._detect_with_support(ImageBatch(pixels, sizes), pooled, supp_7x7,
-                                               target_ids, heads=False))
+                                               target_ids))
 
     supp_net = "supp_backbone" if model.config.siamese_backbone else "backbone"
     exp_support = _export(model, support, {supp_net}, (supp_pixels, supp_sizes))

@@ -547,9 +547,7 @@ class GeneralizedRCNN(nn.Module):
 
     # The bodies of the eval API, undecorated: ``export`` traces them under
     # ``torch.no_grad()`` (an exported graph holds no inference-mode tensors
-    # and no profiler ranges; the ranges run once, at trace time), with
-    # ``heads=False``: the serving artifact is box-only, as the JAX
-    # package's.
+    # and no profiler ranges; the ranges run once, at trace time).
 
     def _support_branch(self, images_supp: ImageBatch, batch_size: int = 1):
         """``compute_support_features``' body."""
@@ -565,10 +563,10 @@ class GeneralizedRCNN(nn.Module):
             return self._pyramid(self.backbone, images.pixels)
 
     def _detect_with_support(self, images: ImageBatch, supp_pooled, supp_7x7,
-                             target_ids=None, heads: bool = True) -> Boxes:
+                             target_ids=None) -> Boxes:
         """``detect_with_support``'s body."""
         return self._detect_from_features(self._backbone_features(images), images.sizes_wh(),
-                                          supp_pooled, supp_7x7, target_ids, heads)
+                                          supp_pooled, supp_7x7, target_ids)
 
     def _detect_from_features(
         self,
@@ -577,7 +575,6 @@ class GeneralizedRCNN(nn.Module):
         supp_pooled,                        # per level (B or 1, 1, 1, C)
         supp_7x7: torch.Tensor,             # (B or 1, shot, 7, 7, C)
         target_ids=None,                    # (B,) or a scalar
-        heads: bool = True,                 # the mask / keypoint heads, where on
     ) -> Boxes:
         c = self.config
         b = features[0].shape[0]
@@ -611,12 +608,12 @@ class GeneralizedRCNN(nn.Module):
                 cls_logits, box_deltas, proposals, target_ids,
                 BoxCoder(c.bbox_reg_weights), c.roi_score_thresh,
                 c.roi_nms_thresh, c.roi_detections_per_img, c.second_stage_cls_loss)
-        if heads and (c.mask_on or c.keypoint_on):
+        if c.mask_on or c.keypoint_on:
             dets = self._mask_kp_eval(features, dets)
         return dets
 
     def _forward_eval(self, images: ImageBatch, images_supp: ImageBatch,
-                      target_ids: Optional[torch.Tensor] = None, heads: bool = True) -> Boxes:
+                      target_ids: Optional[torch.Tensor] = None) -> Boxes:
         """``forward``'s body."""
         b = images.batch_size
         features = self._backbone_features(images)
@@ -632,7 +629,7 @@ class GeneralizedRCNN(nn.Module):
                     c.nms_pre_topk, c.inference_th, c.score_mode,
                     level_topk=c.strict_level_topk, dense_points=c.dense_points)
         return self._detect_from_features(features, images.sizes_wh(),
-                                          supp_pooled, supp_7x7, target_ids, heads)
+                                          supp_pooled, supp_7x7, target_ids)
 
     # -- train ------------------------------------------------------------------
 
@@ -755,10 +752,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter and buffer from ``generator``, a CPU generator:
     values are drawn on the CPU and copied, so a seed gives the same weights
     on every device. Backbone convs are variance-scaled uniform, FPN convs
-    and fc6/fc7 kaiming-uniform(a=1), other head layers (the mask and
-    keypoint heads' among them) N(0, 0.01) (bbox_pred N(0, 0.001)) with the
-    FCOS prior bias on cls_logits; FrozenBN statistics are the identity and
-    GN/Scale factors 1."""
+    and fc6/fc7 kaiming-uniform(a=1), the mask and keypoint heads as the JAX
+    package's (mask_fcn kaiming-normal over fan-out, their other convs
+    flax's lecun-normal), other head layers N(0, 0.01) (bbox_pred
+    N(0, 0.001)) with the FCOS prior bias on cls_logits; biases 0;
+    FrozenBN statistics are the identity and GN/Scale factors 1."""
     prior = model.config.prior_prob
 
     def uniform(shape, scale):
@@ -767,6 +765,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
     def normal(shape, std):
         return torch.empty(shape).normal_(0.0, std, generator=generator)
+
+    def lecun_normal(shape, fan_in):
+        # flax's default: cut at two sigma, its std corrected for the cut
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
+                                           generator=generator)
 
     with torch.no_grad():
         for name, mod in model.named_modules():
@@ -786,6 +790,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                     w = uniform(shape, 1.0)
                 elif ".fpn." in name or name.endswith(("fc6", "fc7")):
                     w = uniform(shape, 1.0 / 3.0)
+                elif ".mask.feature_extractor." in name:       # (out, in, kh, kw)
+                    w = normal(shape, math.sqrt(2.0 / (shape[0] * math.prod(shape[2:]))))
+                elif name.startswith(("roi_heads.mask.", "roi_heads.keypoint.")):
+                    # a transposed conv's weight is (in, out, kh, kw)
+                    fan_in = shape[0 if isinstance(mod, ConvTranspose2d) else 1]
+                    w = lecun_normal(shape, fan_in * math.prod(shape[2:]))
                 elif name == "roi_heads.box.predictor.bbox_pred":
                     w = normal(shape, 0.001)
                 else:

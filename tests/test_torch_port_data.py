@@ -405,9 +405,9 @@ def test_compute_thresholds_for_classes_equals_jax():
 
 
 @pytest.mark.parametrize("switch", ["MODEL.MASK_ON", "MODEL.KEYPOINT_ON"])
-def test_unported_switches_raise(dataset_files, switch):
-    """MASK_ON and KEYPOINT_ON are ported: the dataset builds and its items
-    carry the field (this dataset has no polygons or keypoints, so zeros;
+def test_mask_keypoint_switches_carry_their_field(dataset_files, switch):
+    """With MASK_ON or KEYPOINT_ON the dataset builds and its items carry
+    the field (this dataset has no polygons or keypoints, so zeros;
     held to JAX in ``test_torch_port_mask_data.py``)."""
     img_dir, ann_file = dataset_files
     _, pcfg = data_cfgs(switch, True)

@@ -24,13 +24,14 @@ from oneshotdet_tpu.models import mask_head as jmh
 from oneshotdet_tpu.models.roi_heads import CombinedROIHeads as JaxCombined
 from oneshotdet_tpu.predictor import OneShotPredictor as JaxPredictor
 from oneshotdet_tpu_torch.data.image_io import resize_bilinear
+from oneshotdet_tpu_torch.models import build_detection_model
 from oneshotdet_tpu_torch.models import keypoint_head as pkp
 from oneshotdet_tpu_torch.models import mask_head as pmh
 from oneshotdet_tpu_torch.models.roi_heads import CombinedROIHeads
 from oneshotdet_tpu_torch.ops import library
 from oneshotdet_tpu_torch.ops import roi_align as ra
 from oneshotdet_tpu_torch.predictor import overlay_mask_contours
-from torch_port_common import np_, random_tree, state_dict_from_flax, t
+from torch_port_common import np_, random_tree, small_cfgs, state_dict_from_flax, t
 
 HEAD_ATOL = 1e-4      # relative to the largest output magnitude
 
@@ -87,6 +88,36 @@ def test_conv_transpose_layout_is_a_flip():
         "kps_score_lowres": {"kernel": k, "bias": np.zeros(1, np.float32)}}}}})
     w = sd["roi_heads.keypoint.predictor.kps_score_lowres.weight"]
     assert w.shape == (1, 1, 4, 4) and float(w[0, 0, 3, 2]) == 1.0 and float(w.sum()) == 1.0
+
+
+def test_head_init_as_flax():
+    """The flagship's mask and keypoint heads start from the JAX package's
+    distributions (mask_fcn kaiming-normal over fan-out, the other convs
+    flax's lecun-normal, cut at two sigma; biases 0): each weight's std
+    within 5/sqrt(n) relative of flax's init, and as far from 0 as flax's
+    at most."""
+    _, pcfg = small_cfgs("MODEL.MASK_ON", True, "MODEL.KEYPOINT_ON", True)
+    model = build_detection_model(pcfg, device="cpu")
+    port = {k: v for k, v in model.state_dict().items()
+            if k.startswith(("roi_heads.mask.", "roi_heads.keypoint."))}
+    c = model.config
+    x = jnp.zeros((1, 14, 14, c.out_channels), jnp.float32)
+    mask = jmh.MaskHead(num_classes=2, conv_layers=tuple(c.mask_conv_layers))
+    kp = jkp.KeypointHead(num_keypoints=c.num_keypoints, conv_layers=tuple(c.kp_conv_layers))
+    sd = state_dict_from_flax({"params": {
+        "mask_head": mask.init(jax.random.PRNGKey(1), x)["params"],
+        "keypoint_head": kp.init(jax.random.PRNGKey(2), x)["params"]}})
+    assert set(port) == set(sd) and len(port) == 2 * (4 + 2 + 8 + 1)
+    for k, want in sd.items():
+        got = port[k]
+        assert got.shape == want.shape, k
+        if k.endswith(".bias"):
+            assert not got.any() and not want.any(), k
+            continue
+        g, w = float(got.std()), float(want.std())
+        assert abs(g - w) <= 5 / np.sqrt(got.numel()) * w, (k, g, w)
+        assert float(got.abs().max()) <= 1.02 * float(want.abs().max()) or \
+            "mask_fcn" in k and "logits" not in k, k
 
 
 def test_combined_roi_heads_against_flax():

@@ -79,22 +79,22 @@ def test_backbone_p6_from_c5_matches_jax(setup):
                                    atol=1e-4 * np.abs(r).max())
 
 
-@pytest.mark.parametrize("switch", [
-    ("MODEL.MASK_ON", True), ("MODEL.KEYPOINT_ON", True), ("MODEL.FCOS_ON", False),
-    ("TPU.QUANT", "int8"),
-])
+@pytest.mark.parametrize("switch", [("MODEL.FCOS_ON", False), ("TPU.QUANT", "int8")])
 def test_unported_switches_raise(switch):
-    """The anchor stage 1 and TPU.QUANT raise; MASK_ON and KEYPOINT_ON are
-    ported and build their head (held to JAX in
-    ``test_torch_port_mask_keypoint.py``)."""
+    """The anchor stage 1 and TPU.QUANT raise."""
     _, pcfg = small_cfgs(*switch)
-    heads = {"MODEL.MASK_ON": "mask", "MODEL.KEYPOINT_ON": "keypoint"}
-    if switch[0] in heads:
-        model = build_detection_model(pcfg, device="cpu")
-        assert hasattr(model.roi_heads, heads[switch[0]])
-        return
     with pytest.raises(NotImplementedError, match=switch[0]):
         build_detection_model(pcfg, device="cpu")
+
+
+@pytest.mark.parametrize("switch,head", [("MODEL.MASK_ON", "mask"),
+                                         ("MODEL.KEYPOINT_ON", "keypoint")])
+def test_mask_keypoint_switches_build_their_head(switch, head):
+    """MASK_ON and KEYPOINT_ON build their head (held to JAX in
+    ``test_torch_port_mask_keypoint.py``)."""
+    _, pcfg = small_cfgs(switch, True)
+    model = build_detection_model(pcfg, device="cpu")
+    assert hasattr(model.roi_heads, head)
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -22,17 +22,20 @@ import dataclasses
 import json
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from oneshotdet_tpu.models import mask_head as jmh
 from oneshotdet_tpu.predictor import OneShotPredictor as JaxPredictor
 from oneshotdet_tpu_torch import export as oexport
 from oneshotdet_tpu_torch.predictor import (ArtifactPredictor, OneShotPredictor, annotate_bgr,
                                             overlay_boxes, overlay_mask_contours, overlay_scores)
 from oneshotdet_tpu_torch.utils.weights import state_dict_from_flax
 from test_torch_port_predictor import PRED_OVERRIDES
-from torch_port_common import BOX_RTOL, SCORE_RTOL, random_variables, small_cfgs
+from torch_port_common import BOX_RTOL, SCORE_RTOL, random_tree, random_variables, small_cfgs
 
 JAX_META_KEYS = {"query_bucket", "supp_bucket", "host_s2d", "pixel_mean", "pixel_std",
                  "to_bgr255", "min_size_test", "max_size_test", "supp_min_size_test",
@@ -41,8 +44,6 @@ JAX_META_KEYS = {"query_bucket", "supp_bucket", "host_s2d", "pixel_mean", "pixel
 
 @pytest.fixture(scope="module")
 def predictor():
-    import jax.numpy as jnp
-
     from oneshotdet_tpu.models import build_detection_model as jax_build
     from oneshotdet_tpu.structures import ImageBatch as JaxImageBatch
 
@@ -223,17 +224,26 @@ def test_run_on_opencv_image_draws_the_detections(predictor, served):
     assert np.array_equal(annotate_bgr(predictor.run_on_image, bgr), out)
 
 
-def test_run_on_opencv_image_raises_with_mask_on(predictor, tmp_path):
-    """With MODEL.MASK_ON (the mask head is ported now) the annotated frame
-    also carries each detection's mask contour, from ``run_on_image(...,
-    return_masks=True)``; the serving artifact of that model stays
-    box-only, as the JAX package's."""
+def test_run_on_opencv_image_draws_mask_contours(predictor, tmp_path):
+    """With MODEL.MASK_ON the annotated frame also carries each detection's
+    mask contour, from ``run_on_image(..., return_masks=True)``; the
+    serving artifact of that model stays box-only, as the JAX package's.
+    The mask head's weights are numpy-seeded as the rest of the fixture's
+    (``random_tree``)."""
     masked = predictor.cfg.clone()
     masked.merge_from_list(["MODEL.MASK_ON", True])
-    mp = OneShotPredictor(masked, confidence_threshold=-1.0, device="cpu",
-                          generator=torch.Generator().manual_seed(4))
+    mp = OneShotPredictor(masked, confidence_threshold=-1.0, device="cpu")
     missing, unexpected = mp.model.load_state_dict(predictor.model.state_dict(), strict=False)
     assert not unexpected and missing and all(k.startswith("roi_heads.mask.") for k in missing)
+    c = mp.model.config
+    net = jmh.MaskHead(num_classes=mp.model.roi_heads.mask.predictor.mask_fcn_logits.out_channels,
+                       conv_layers=tuple(c.mask_conv_layers))
+    shapes = jax.eval_shape(lambda: net.init(jax.random.PRNGKey(0),
+                                             jnp.zeros((1, 14, 14, c.out_channels))))
+    head = state_dict_from_flax({"params": {"mask_head": random_tree(
+        shapes["params"], np.random.RandomState(4))}})
+    assert set(head) == set(missing)
+    mp.model.load_state_dict(head, strict=False)
     rng = np.random.RandomState(2)
     mp.set_support(rng.randint(0, 255, (40, 52, 3), np.uint8))
     bgr = rng.randint(0, 255, (70, 90, 3), np.uint8)
