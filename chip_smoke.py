@@ -8,8 +8,8 @@ ROIAlign variants K4 and K5, the data path's resize + normalize + pad H1),
 holds each against its plain PyTorch version
 at the shapes its path gives it (K1 also at its edge cases and on the
 FCOS-like p3-skew mix, with its per-ROI plan against the Python mirror; K1b
-against the float32 plain gradient at the train step's shapes, random and
-GT-clustered, at K1's edge cases and as the autograd Function against
+against the plain gradient (summed in float64) at the train step's shapes,
+random and GT-clustered, at K1's edge cases and as the autograd Function against
 torch.autograd.grad of the plain forward, with its tile lists against the
 Python mirror, bit-identical over calls and streams, two launches per call
 and no host sync; K2 on the FCOS tower's P3-P7 and
@@ -76,7 +76,15 @@ KEYPOINT_ON at full width: eval forwards unfused and fused with 9 K1
 launches each, tools.test_net with segm_* and keypoints_*, tools.train_net
 with loss_mask and loss_kp and 9 K1 and 9 K1b calls a step, small float32
 forward and train checks against the CPU, the predictor's masks and
-contours) -- and checks small float32 forwards and a small float32 train
+contours), and TPU.QUANT (phase 14: small float32 'int8' and 'int8_weight'
+forwards with the mask and keypoint heads on the card against the CPU, each
+'int8' layer replayed on the CPU's input and bit for bit; the fast-eval
+preset at full width in bf16 with QUANT none, int8 and int8_weight, ms/batch
+by CUDA events, peak memory, 7 K1 a forward; tools.quant_drift against the
+bf16 float forward at production capacities beside the stated bound; an
+int8_weight model with int8 codes as an ExportedProgram bundle bit for bit
+against OneShotPredictor and its support program compiled by AOTInductor)
+-- and checks small float32 forwards and a small float32 train
 step on the card against the same model on the CPU. Every kernel's launch count is
 set to 0 before each path and read after it. Any failure raises and exits
 non-zero. The last two lines of stdout are the per-kernel JSON line and
@@ -85,6 +93,7 @@ non-zero. The last two lines of stdout are the per-kernel JSON line and
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import logging
@@ -109,8 +118,9 @@ KERNEL_REPLACES = "oneshotdet_tpu/ops/pallas_roi_align.py:249"
 BWD_SOURCE = "oneshotdet_tpu_torch/csrc/roi_align_bwd.cu"
 # no TPU kernel: the JAX package takes this gradient as XLA's transpose of
 BWD_REPLACES = "none: XLA autodiff of oneshotdet_tpu/ops/roi_align.py:215"
-# K1b against the float32 plain gradient: the kernel sums a pixel's terms in
-# another order than the plain version's index-add (separable weights, tile
+# K1b against the plain gradient, its float32 terms summed in float64 (a
+# float32 sum by atomic adds moves from run to run): the kernel
+# sums a pixel's terms in float32 in its own order (separable weights, tile
 # by tile), so a sum that cancels keeps an absolute error of the order of its
 # terms' rounding (GRAD_ATOL x the largest gradient); f32 within GRAD_RTOL
 # relative on top, bf16 within 1 bf16 ulp (the one rounding to bf16)
@@ -452,7 +462,9 @@ def k1b_bound(grad_out, rois, levels, valid, shapes):
 
 def grad_compare(label, dtype, got, want):
     """Per-level gradients ``got`` (the kernel's, in ``dtype``) against
-    ``want`` (the float32 plain gradient): f32 within GRAD_RTOL |want| +
+    ``want`` (the plain gradient, its float32 terms summed in float64 and
+    rounded once to float32, where a float32 sum by the plain version's
+    atomic adds moves from run to run): f32 within GRAD_RTOL |want| +
     GRAD_ATOL max|want|, bf16 within 1 bf16 ulp of |want| + the same
     GRAD_ATOL term. Raises otherwise; returns (max abs err, worst share of
     the allowance, text)."""
@@ -521,8 +533,8 @@ def bwd_no_sync(ra, bargs, want):
 
 def roi_align_bwd_checks(ra, dev):
     """Phase 3e: the ROIAlign backward kernel K1b against its plain version
-    (the float32 plain gradient of the same inputs) at the train step's
-    shapes: the proposals' R = 1024 (random and GT-clustered ROIs) over the
+    (the plain gradient of the same inputs, summed in float64) at the train
+    step's shapes: the proposals' R = 1024 (random and GT-clustered ROIs) over the
     batch-8 832x1216 pyramid, the support 7x7 (R = 8) and the five 1x1 pools
     on the 416x416 support pyramid; at K1's edge cases (with valid = False
     slots); and the whole autograd Function (K1 forward, K1b backward)
@@ -572,7 +584,8 @@ def roi_align_bwd_checks(ra, dev):
                                      f"differ from roi_align_bwd_plan's at {len(diff)} tiles, "
                                      f"first {plan.tiles[diff[0]] if diff else None}")
             want = ra.multilevel_roi_align_backward_plain(g_out.float(), shapes, torch.float32,
-                                                          r, lv, out_hw, sc, 2, v)
+                                                          r, lv, out_hw, sc, 2, v,
+                                                          work_dtype=torch.float64)
             err, share, text = grad_compare(f"roi_align_bwd {name}", dtype, got, want)
             del want
             again = ra.multilevel_roi_align_backward_cuda(*bargs)
@@ -659,9 +672,9 @@ def mask_kp_kernel_checks(ra, dev):
     within MAX_ITEMS): one level, P4 of the batch-8 832x1216 pyramid, at
     R = 16 000 (the eval's 8 x 2000 detections) and R = 1024 (training); two
     levels (1/8, 1/16) by the FPN rule; K1's edge cases on P4. 13b, K1b at
-    R = 1024 on P4, random and GT-clustered, against the float32 plain
-    gradient, its tile bits as ``roi_align_bwd_plan``'s, bit-identical over
-    two calls. Returns {(case, dtype): entry}."""
+    R = 1024 on P4, random and GT-clustered, against the plain gradient
+    (summed in float64), its tile bits as ``roi_align_bwd_plan``'s,
+    bit-identical over two calls. Returns {(case, dtype): entry}."""
     gen = torch.Generator().manual_seed(13)
     q_shapes = pyramid_shapes(*QUERY_HW)
     p4 = (BATCH, *q_shapes[1], 256)
@@ -718,7 +731,8 @@ def mask_kp_kernel_checks(ra, dev):
                 raise AssertionError(f"roi_align_bwd {name} {dtype}: the kernel's tile lists "
                                      f"differ from roi_align_bwd_plan's")
             want = ra.multilevel_roi_align_backward_plain(g_out.float(), [p4], torch.float32,
-                                                          r, zero, MASK_POOL, (0.0625,), 2, v)
+                                                          r, zero, MASK_POOL, (0.0625,), 2, v,
+                                                          work_dtype=torch.float64)
             err, share, text = grad_compare(f"roi_align_bwd {name}", dtype, got, want)
             del want
             again = ra.multilevel_roi_align_backward_cuda(*bargs)
@@ -3903,6 +3917,363 @@ def mask_kp_path(flagship, dev, card, supp, frame):
     return paths, out, kernels
 
 
+# -- phase 14: TPU.QUANT ('int8', 'int8_weight') ------------------------------------
+
+QUANT_MODES = ("int8", "int8_weight")
+QUANT_ITERS = 5                # timed eval forwards of each preset cell
+QUANT_FORCE_RTOL = 1e-4        # an int8 layer's own input on the card, of max|CPU input|
+# the stated drift bound of 'int8' (configs/oneshot_fcos_r50_fast_eval.yaml:13-20)
+QUANT_BOUND = {"match_rate@0.9": 1.0, "matched_score_mae": 1.5e-3}
+
+
+class int8_forced:
+    """Context over a port model: record (``calls`` None) or replay the
+    inputs of its int8 layers (``QuantConv2d``, ``QuantLinear``) and of its
+    relation head (compress_0's int8 halves). Replaying on the card, each
+    call checks its own input against the CPU's within QUANT_FORCE_RTOL of
+    the input's maximum, takes the CPU's, and must give the CPU's output bit
+    for bit (the int32 sums are exact on both). 'int8' is discontinuous: a
+    float rounding difference before a quantizer (cuDNN against the CPU's
+    convs) moves a code across a rounding boundary now and then, and that
+    step (1/127 of the tensor's maximum) moves every code after it; replaying
+    holds each float chain and each int8 layer apart."""
+
+    def __init__(self, model, calls=None):
+        from oneshotdet_tpu_torch.models.roi_head import ROIBoxHead
+        from oneshotdet_tpu_torch.ops.quant import QuantConv2d, QuantLinear
+
+        self.model, self.calls = model, calls
+        self.record = calls is None
+        self.mods = {n: m for n, m in model.named_modules()
+                     if isinstance(m, (QuantConv2d, QuantLinear, ROIBoxHead))}
+        self.layers = 0
+
+    def __enter__(self):
+        if self.record:
+            self.calls = {n: [] for n in self.mods}
+        self.seen = {n: 0 for n in self.mods}
+        self.handles = []
+        for name, mod in self.mods.items():
+            self.handles.append(mod.register_forward_pre_hook(self._pre(name)))
+            if not name.endswith("box"):
+                self.handles.append(mod.register_forward_hook(self._post(name)))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def _pre(self, name):
+        def hook(mod, args):
+            n_in = 1 if not name.endswith("box") else 2
+            if self.record:
+                self.calls[name].append([[a.detach().cpu() for a in args[:n_in]], None])
+                return None
+            k = self.seen[name]
+            self.seen[name] = k + 1
+            ins, _ = self.calls[name][k]
+            new = []
+            for a, ref in zip(args[:n_in], ins):
+                err = float((a.detach().float().cpu() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                if err > QUANT_FORCE_RTOL * max(scale, 1e-30):
+                    raise AssertionError(f"int8 {name} call {k}: input {err:.3e} from the "
+                                         f"CPU's, beyond {QUANT_FORCE_RTOL} x {scale:.3e}")
+                fmt = torch.channels_last if ref.dim() == 4 and a.is_contiguous(
+                    memory_format=torch.channels_last) else torch.contiguous_format
+                new.append(ref.to(a.device).contiguous(memory_format=fmt))
+            self.layers += 1
+            return tuple(new) + tuple(args[n_in:])
+        return hook
+
+    def _post(self, name):
+        def hook(mod, args, out):
+            if self.record:
+                self.calls[name][-1][1] = out.detach().cpu()
+                return
+            want = self.calls[name][self.seen[name] - 1][1]
+            if not torch.equal(out.detach().cpu(), want):
+                raise AssertionError(f"int8 {name}: output on the card differs from the CPU's "
+                                     f"on the same input")
+        return hook
+
+
+def quant_small_checks(flagship, dev):
+    """Phase 14a: small float32 forwards with TPU.QUANT 'int8' and
+    'int8_weight' (batch 2, 128x160 queries, 64x64 supports, narrow mask and
+    keypoint heads on) on the card against the same forward on the CPU, the
+    same weights: detections within the detection tolerances (score rtol
+    5e-4, box rtol 1e-3), mask probabilities within MK_MASK_ATOL where both
+    detect the same box; 'int8' replayed (``int8_forced``), every int8 layer
+    bit for bit on the CPU's input. 'int8_weight' also with its weights as
+    int8 codes (``quantize_weights_int8``): bit for bit against its
+    fake-quantized float weights on the card."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.ops.quant import quantize_weights_int8
+    from oneshotdet_tpu_torch.structures import ImageBatch
+
+    gen = torch.Generator().manual_seed(11)
+    q = torch.randn(2, 128, 160, 3, generator=gen) * 50
+    s = torch.randn(2, 64, 64, 3, generator=gen) * 50
+    qs = torch.tensor([[128.0, 160.0], [100.0, 150.0]])
+    ss = torch.tensor([[64.0, 64.0], [60.0, 40.0]])
+    out = {}
+    for mode in QUANT_MODES:
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(flagship)
+        cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32", "TPU.NMS_PRE_TOPK", 1024,
+                             "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 128,
+                             "MODEL.ROI_HEADS.DETECTIONS_PER_IMG", 64, "TPU.QUANT", mode,
+                             *MK_SMALL])
+        cpu = build_detection_model(cfg, device="cpu")
+        distinct_weights_(cpu, torch.Generator().manual_seed(12))
+        gpu = build_detection_model(cfg, device=dev)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        with int8_forced(cpu) as rec:
+            ref = cpu(ImageBatch(q, qs), ImageBatch(s, ss))
+        args = (ImageBatch(q.to(dev), qs.to(dev)), ImageBatch(s.to(dev), ss.to(dev)))
+        reset_launches()
+        if mode == "int8":
+            with int8_forced(gpu, rec.calls) as rep:
+                got = gpu(*args)
+            layers = rep.layers
+        else:
+            got, layers = gpu(*args), 0
+        n_launch = read_launches()
+        if n_launch["roi_align"] != MK_K1:
+            raise AssertionError(f"quant {mode} small forward: launches {n_launch}")
+        n, mask_err = 0, 0.0
+        for i in range(2):
+            def dets(d):
+                v = d.valid[i].cpu().numpy()
+                return (d.xyxy[i].cpu().numpy()[v], d.get_field("scores")[i].cpu().numpy()[v])
+            match_detections(dets(got), dets(ref))
+            n += int(got.valid[i].sum())
+            ok, j, _ = _best_partners(dets(got), dets(ref), 5e-4, 1e-3)
+            gm = got.get_field("mask_probs")[i].cpu().numpy()[got.valid[i].cpu().numpy()]
+            rm = ref.get_field("mask_probs")[i].cpu().numpy()[ref.valid[i].cpu().numpy()]
+            if ok.any():
+                mask_err = max(mask_err, float(np.abs(gm[ok] - rm[j[ok]]).max()))
+        if mask_err > MK_MASK_ATOL:
+            raise AssertionError(f"quant {mode}: mask probabilities {mask_err:.3e} from the CPU's")
+        entry = dict(detections=n, mask_max_abs_err=mask_err, replayed_int8_calls=layers,
+                     k1_per_forward=n_launch["roi_align"])
+        if mode == "int8_weight":
+            codes = build_detection_model(cfg, device=dev)
+            codes.load_state_dict(cpu.state_dict(), strict=True)
+            quantize_weights_int8(codes)
+            n8 = sum(int(p.dtype == torch.int8) for p in codes.parameters())
+            again = codes(*args)
+            for a, b in ((again.xyxy, got.xyxy), (again.get_field("scores"),
+                                                  got.get_field("scores"))):
+                if not torch.equal(a, b):
+                    raise AssertionError("int8_weight: int8 codes differ from fake-quant")
+            entry["int8_weight_tensors"] = n8
+            del codes
+        out[mode] = entry
+        log(f"quant {mode} small float32 forward (mask and keypoint heads on): {n} detections "
+            f"on the card match the CPU (score rtol 5e-4, box rtol 1e-3), masks within "
+            f"{mask_err:.2e}" + (f", {layers} int8 calls replayed from the CPU, each output bit "
+                                 f"for bit" if mode == "int8" else
+                                 f", the int8-code weights ({entry['int8_weight_tensors']} "
+                                 f"tensors) bit for bit with fake-quant")
+            + f"; {MK_K1} K1 launches")
+        del cpu, gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_preset_cells(preset, dev, card):
+    """Phase 14b: the fast-eval preset (EVAL_ROI_TOPK=512) at full width, bf16,
+    batch 8 832x1216 / 416x416 (phase 5's batch), seed-1 weights, with
+    TPU.QUANT none, int8, int8_weight (fake-quant per call) and int8_weight
+    with int8 codes: ms/batch over QUANT_ITERS forwards by CUDA events, peak
+    memory, K1 launches (7 a forward), detections checked, one profiled
+    forward each."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.ops.quant import quantize_weights_int8
+
+    images, supps = phase5_batch(dev)
+    paths, out = {}, {}
+    for mode, codes in (("none", False), ("int8", False), ("int8_weight", False),
+                        ("int8_weight", True)):
+        c = default_cfg.clone()
+        c.merge_from_file(preset)
+        c.merge_from_list(["TPU.QUANT", mode])
+        model = build_detection_model(c, device=dev, generator=torch.Generator().manual_seed(1))
+        if codes:
+            quantize_weights_int8(model)
+        cell = f"preset, TPU.QUANT {mode}" + (" (int8 codes)" if codes else "")
+        dets = model(images, supps)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(QUANT_ITERS):
+            dets = model(images, supps)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / QUANT_ITERS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        paths[f"{cell}, {QUANT_ITERS} forwards"] = n = read_launches()
+        if n["roi_align"] != 7 * QUANT_ITERS or n["roi_head"] != 0:
+            raise AssertionError(f"{cell}: launches {n} in {QUANT_ITERS} forwards")
+        check_detections(dets, BATCH, 512, images.sizes_wh())
+        out[cell] = dict(ms=ms, peak_gib=peak, k1_per_forward=7,
+                         detections=int(dets.valid.sum()))
+        log(f"eval forward {cell}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} bf16, {ms:.1f} "
+            f"ms/batch (CUDA events over {QUANT_ITERS}), {BATCH / ms * 1e3:.1f} img/s, peak "
+            f"memory {peak:.2f} GiB, {out[cell]['detections']} detections, 7 K1 launches a "
+            f"forward [{card}]")
+        out[cell]["stages_ms"] = profile_forward(model, images, supps, cell)
+        del model, dets
+        torch.cuda.empty_cache()
+    return paths, out
+
+
+def quant_drift_reports(dev, card):
+    """Phase 14c: ``tools.quant_drift`` at production capacities (PRE_NMS
+    6000, POST 2000, 2000 detections, batch 8 832x1216 / 416x416, the tool's
+    seeded inputs and seed-0 weights): 'int8' and 'int8_weight' against the
+    bf16 float forward, beside the configuration's stated bound for 'int8'."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.tools import quant_drift as qd
+
+    images, supps = qd.seeded_inputs(BATCH, QUERY_HW, SUPP_HW, 20260818, dev)
+    dets = {}
+    for mode in ("none",) + QUANT_MODES:
+        model = build_detection_model(qd.make_cfg(mode), device=dev,
+                                      generator=torch.Generator().manual_seed(0))
+        dets[mode] = qd.detections(model, images, supps)
+        del model
+        torch.cuda.empty_cache()
+    out = {}
+    for mode in QUANT_MODES:
+        out[mode] = r = qd.drift_report(dets["none"], dets[mode])
+        log(f"quant_drift {mode} vs bf16 float (6000/2000/2000, batch {BATCH}): "
+            + json.dumps(r) + f"; stated bound for int8: {json.dumps(QUANT_BOUND)} [{card}]")
+    return out
+
+
+def quant_artifact(flagship, dev, card, supp, frames):
+    """Phase 14d: the flagship bf16 with TPU.QUANT 'int8_weight' and int8
+    codes (seed-12 distinct weights, ``quantize_weights_int8``): its batch-1
+    serving bundle as ExportedPrograms (``ArtifactPredictor``, bit for bit
+    against ``OneShotPredictor`` on phase 4's support and frames) and its
+    support program (the support backbone's int8 codes) compiled by
+    AOTInductor and loaded in that route's place (at least
+    ARTIFACT_MIN_SHARE of a frame's detections within one bf16 ulp of the
+    eager ones, as phase 10's compiled route; the support program holds a
+    third of the detect program's layers and compiles in a fraction of its
+    time); K1 6 per
+    ``set_support`` and 1 per frame from inside the programs; export,
+    compile and load seconds, ms per frame."""
+    from oneshotdet_tpu_torch import export as oexport
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.ops.quant import quantize_weights_int8
+    from oneshotdet_tpu_torch.predictor import ArtifactPredictor, OneShotPredictor
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(flagship)
+    cfg.merge_from_list(["TPU.QUANT", "int8_weight"])
+    eager = OneShotPredictor(cfg, confidence_threshold=0.0, query_bucket=QUERY_HW,
+                             supp_bucket=SUPP_HW, device=dev,
+                             generator=torch.Generator().manual_seed(1))
+    distinct_weights_(eager.model, torch.Generator().manual_seed(12))
+    quantize_weights_int8(eager.model)
+    zero = {k: 0 for k in _counters()}
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        stem = os.path.join(root, "int8_weight")
+        t0 = time.perf_counter()
+        oexport.export_serving(cfg, eager.model, stem, query_hw=QUERY_HW, supp_hw=SUPP_HW,
+                               compile_executable=False)
+        out["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exported = ArtifactPredictor(stem, device=dev)
+        out["load_s"] = time.perf_counter() - t0
+        support = oexport.load(stem + ".support")
+        int8_tensors = sum(int(v.dtype == torch.int8) for v in support.state_dict.values())
+        t0 = time.perf_counter()
+        if not oexport.save_compiled(support, stem + ".support"):
+            raise AssertionError("quant artifact: the support program did not compile")
+        out["compile_support_s"] = time.perf_counter() - t0
+        out["mib"] = {ext: os.path.getsize(stem + ext) / 2**20
+                      for ext in (".support", ".detect", ".support.exec")}
+        # the exported route with the compiled support program in its place
+        compiled = copy.copy(exported)
+        t0 = time.perf_counter()
+        compiled._sup_call = oexport.load_compiled(stem + ".support", device=dev)
+        out["load_compiled_s"] = time.perf_counter() - t0
+        del support
+        eager.set_support(supp)
+        shares = []
+        for route, ap in (("exported", exported), ("compiled", compiled)):
+            reset_launches()
+            ap.set_support(supp)
+            torch.cuda.synchronize()
+            if read_launches() != dict(zero, roi_align=6):
+                raise AssertionError(f"quant artifact {route} set_support: {read_launches()}")
+            for frame in frames:
+                want = eager.run_on_image(frame)
+                reset_launches()
+                got = ap.run_on_image(frame)
+                torch.cuda.synchronize()
+                if read_launches() != dict(zero, roi_align=1):
+                    raise AssertionError(f"quant artifact {route} frame: {read_launches()}")
+                if route == "exported":
+                    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+                        raise AssertionError("quant artifact: the ExportedProgram route "
+                                             "differs from OneShotPredictor")
+                else:
+                    shares.append((match_fraction(got, want, ARTIFACT_RTOL, ARTIFACT_RTOL),
+                                   match_fraction(got, want)))
+        if min(sh[0] for sh in shares) < ARTIFACT_MIN_SHARE:
+            raise AssertionError(f"quant artifact compiled: shares {shares}")
+        out["compiled_paired_share"] = shares
+        out["frame_ms"] = {"OneShotPredictor": _frame_ms(eager, frames, 1),
+                           "exported": _frame_ms(exported, frames, 1)}
+        t0 = time.perf_counter()
+        for _ in range(3):
+            compiled.set_support(supp)
+        torch.cuda.synchronize()
+        out["set_support_ms"] = {"compiled support": (time.perf_counter() - t0) / 3 * 1e3}
+        t0 = time.perf_counter()
+        for _ in range(3):
+            exported.set_support(supp)
+        torch.cuda.synchronize()
+        out["set_support_ms"]["exported"] = (time.perf_counter() - t0) / 3 * 1e3
+        log(f"quant artifact int8_weight (int8 codes, {int8_tensors} int8 tensors in the support "
+            f"program): export {out['export_s']:.1f} s, AOTInductor compile of the support "
+            f"program {out['compile_support_s']:.1f} s, files "
+            + ", ".join(f"{k} {v:.1f} MiB" for k, v in out["mib"].items())
+            + f"; the ExportedProgram route equals OneShotPredictor bit for bit over "
+            f"{len(frames)} frames; with the compiled support program, the share within one "
+            f"bf16 ulp {[sh[0] for sh in shares]} (within 5e-4 / 1e-3 "
+            f"{[sh[1] for sh in shares]}); 6 K1 per set_support, 1 per frame; ms per frame "
+            + ", ".join(f"{k} {v:.2f}" for k, v in out["frame_ms"].items())
+            + "; ms per set_support (host clock) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in out["set_support_ms"].items()) + f" [{card}]")
+    del eager, exported, compiled
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_path(flagship, preset, dev, card, supp, frames):
+    """Phase 14: TPU.QUANT on the card (14a-d)."""
+    t_phase = time.perf_counter()
+    out = {"small": quant_small_checks(flagship, dev)}
+    paths, out["preset"] = quant_preset_cells(preset, dev, card)
+    out["drift"] = quant_drift_reports(dev, card)
+    out["artifact"] = quant_artifact(flagship, dev, card, supp, frames)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: {out['phase_s']:.1f} s")
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -4138,6 +4509,15 @@ def main() -> int:
 
     phase_done("phase 13 (mask and keypoint heads)")
 
+    # -- phase 14: TPU.QUANT int8 and int8_weight ----------------------------------
+    quant_paths, quant = quant_path(flagship, preset, dev, card, supp, frame_pixels)
+    paths.update(quant_paths)
+    for label, n in quant_paths.items():
+        launches[label] = n["roi_align"]
+        head_launches[label] = n["roi_head"]
+
+    phase_done("phase 14 (TPU.QUANT)")
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -4163,6 +4543,7 @@ def main() -> int:
         "pool_14x14": {f"{name} {str(dt)[6:]}": e for (name, dt), e in mk_kernels.items()
                        if not name.startswith("bwd ")},
         "mask_keypoint": mask_kp,
+        "quant": quant,
         "artifact": artifact,
         "supp_aug": supp_aug,
         "card": card,
@@ -4267,7 +4648,8 @@ def main() -> int:
         "launches_per_train_step": paths["train step"]["roi_align_bwd"] // steps,
         "shape": "grad (1024, 7, 7, 256) bf16 -> the batch-8 832x1216 pyramid's gradient",
         "max_abs_err": bwd["max_abs_err"],
-        "tolerance": f"1 bf16 ulp + {GRAD_ATOL} x max|grad| of the float32 plain gradient "
+        "tolerance": f"1 bf16 ulp + {GRAD_ATOL} x max|grad| of the plain gradient "
+                     f"(summed in float64) "
                      f"(f32: rtol {GRAD_RTOL} + the same atol); bit-identical run to run",
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

@@ -41,6 +41,15 @@ negative supports are given), and the stage-2 losses x5 / x2.5 (the extra
 term x1 or x2.5). TPU.REMAT_BACKBONE recomputes both backbones' forwards in
 the backward pass (``torch.utils.checkpoint``).
 
+TPU.QUANT ('int8', 'int8_weight'; eval only, ``ops.quant``) makes every
+bottleneck conv, the FPN's convs, the FCOS towers, the relation head's
+compress, aggreg, fc6 and fc7 and the mask and keypoint fcn convs int8; the
+stems, the predictors and supp_aug_conv stay in the compute dtype. Under
+'int8' the ROI pools of eval (the proposals' 7x7, the heads' 14x14) pool
+every slot, valid or not, as the JAX package does, because the per-tensor
+activation scale of compress_0's query half and of the heads' first convs
+is the maximum over all of them.
+
 A config that turns on a part not ported yet raises ``NotImplementedError``
 (see ``detector_config_from_cfg``). The stages are
 ``torch.profiler.record_function`` ranges (query_backbone, support_backbone,
@@ -153,6 +162,7 @@ class DetectorConfig:
     soft_labeling_func: str = "linear"
     reverse_order: bool = False
     remat_backbone: bool = False
+    quant: str = "none"            # TPU.QUANT: none | int8 | int8_weight (eval only)
 
 
 def _not_ported(cfg) -> List[str]:
@@ -160,7 +170,6 @@ def _not_ported(cfg) -> List[str]:
     c = cfg
     checks = {
         "MODEL.FCOS_ON=False (anchor RPN / RetinaNet stage 1)": not c.MODEL.FCOS_ON,
-        "TPU.QUANT": c.TPU.QUANT != "none",
     }
     return [name for name, on in checks.items() if on]
 
@@ -246,6 +255,7 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         soft_labeling_func=cfg.FEW_SHOT.SOFT_LABELING_FUNC,
         reverse_order=cfg.FEW_SHOT.REVERSE_ORDER,
         remat_backbone=cfg.TPU.REMAT_BACKBONE,
+        quant=cfg.TPU.QUANT,
     )
 
 
@@ -272,29 +282,31 @@ class GeneralizedRCNN(nn.Module):
         c = config
         self.config = c
         self.dtype = dtype
-        self.backbone = ResNetFPN(c.depth, c.out_channels, c.use_c5_for_p6)
+        self.backbone = ResNetFPN(c.depth, c.out_channels, c.use_c5_for_p6, c.quant)
         if c.siamese_backbone:
-            self.supp_backbone = ResNetFPN(c.depth, c.out_channels, c.use_c5_for_p6)
+            self.supp_backbone = ResNetFPN(c.depth, c.out_channels, c.use_c5_for_p6, c.quant)
         if c.supp_aug and c.supp_aug_method == "conv":
             # the variants' channels concatenated, aug-major, 3x3 to C
             self.supp_aug_conv = Conv2d((1 + c.num_supp_aug) * c.out_channels, c.out_channels,
                                         3, padding=1, bias=False)
         self.rpn = FCOSModule(in_channels=c.out_channels, num_convs=c.num_convs,
-                              num_levels=len(c.fpn_strides), dense_points=c.dense_points)
+                              num_levels=len(c.fpn_strides), dense_points=c.dense_points,
+                              quant=c.quant)
         if not c.rpn_only:
             ncls, nreg = predictor_num_classes(c.second_stage_method,
                                                c.second_stage_cls_loss, c.neg_support)
             self.roi_heads = ROIHeads(
                 in_channels=c.out_channels, resolution=c.pooler_resolution,
                 representation_size=c.mlp_head_dim, num_classes=ncls,
-                num_bbox_reg=nreg, linear_fusion=c.linear_fusion)
+                num_bbox_reg=nreg, linear_fusion=c.linear_fusion, quant=c.quant)
             if c.mask_on:
                 self.roi_heads.mask = MaskHead(c.out_channels, num_classes=ncls,
-                                               conv_layers=c.mask_conv_layers)
+                                               conv_layers=c.mask_conv_layers, quant=c.quant)
             if c.keypoint_on:
                 self.roi_heads.keypoint = KeypointHead(c.out_channels,
                                                        num_keypoints=c.num_keypoints,
-                                                       conv_layers=c.kp_conv_layers)
+                                                       conv_layers=c.kp_conv_layers,
+                                                       quant=c.quant)
 
     # -- helpers ----------------------------------------------------------
 
@@ -364,9 +376,17 @@ class GeneralizedRCNN(nn.Module):
             pooled.append(p.reshape(batch_size, shot, 1, 1, -1).mean(dim=1))
         return pooled
 
+    def _pool_valid(self, boxes: Boxes) -> Optional[torch.Tensor]:
+        """The ROIAlign's ``valid`` for an eval pool of ``boxes``: None (every
+        slot pooled) under TPU.QUANT 'int8', whose per-tensor activation
+        scale takes the maximum over every slot, as in the JAX package."""
+        if self.config.quant == "int8":
+            return None
+        return boxes.valid.reshape(-1).contiguous()
+
     def _pool_rois(self, features, boxes: Boxes) -> torch.Tensor:
         """7x7 multi-level ROIAlign of batched padded Boxes -> (B*P, 7, 7, C);
-        slots with valid=False are zeros."""
+        slots with valid=False are zeros (pooled under TPU.QUANT 'int8')."""
         c = self.config
         b, p = boxes.valid.shape
         flat_xyxy = boxes.xyxy.reshape(-1, 4).to(torch.float32)
@@ -380,7 +400,7 @@ class GeneralizedRCNN(nn.Module):
         r = c.pooler_resolution
         return multilevel_roi_align(
             [_nhwc(f) for f in features], rois, levels, (r, r), c.pooler_scales,
-            c.pooler_sampling_ratio, valid=boxes.valid.reshape(-1).contiguous())
+            c.pooler_sampling_ratio, valid=self._pool_valid(boxes))
 
     def _pool_rois_at(self, features, boxes: Boxes, resolution: int,
                       scales: Sequence[float], sampling_ratio: int) -> torch.Tensor:
@@ -388,7 +408,7 @@ class GeneralizedRCNN(nn.Module):
         sampling ratio), the mask and keypoint heads' pooler: the levels
         ``scales`` name (1 / 2^k is P_k), one, or several mapped by
         ``fpn_level_map`` from the first -> (B*P, res, res, C); slots with
-        valid=False are zeros."""
+        valid=False are zeros (pooled under TPU.QUANT 'int8')."""
         b, p = boxes.valid.shape
         flat_xyxy = boxes.xyxy.reshape(-1, 4).to(torch.float32)
         batch_idx = torch.arange(b, dtype=torch.float32,
@@ -402,8 +422,7 @@ class GeneralizedRCNN(nn.Module):
         else:
             levels = torch.zeros((b * p,), dtype=torch.int32, device=rois.device)
         return multilevel_roi_align(feats, rois, levels, (resolution, resolution),
-                                    tuple(scales), sampling_ratio,
-                                    valid=boxes.valid.reshape(-1).contiguous())
+                                    tuple(scales), sampling_ratio, valid=self._pool_valid(boxes))
 
     def _mask_kp_eval(self, features, dets: Boxes) -> Boxes:
         """The mask and keypoint heads over every detection slot: the
@@ -663,6 +682,9 @@ class GeneralizedRCNN(nn.Module):
         or with artificial proposals min(1000, 12 G + G +
         FPN_POST_NMS_TOP_N_TRAIN), the capacity after the cap."""
         c = self.config
+        if c.quant != "none":
+            # round() has a zero gradient: the int8 path is eval only
+            raise ValueError("TPU.QUANT is an eval-time flag; train with TPU.QUANT='none'")
         b = images.batch_size
         with record_function("query_backbone"):
             features = self._pyramid(self.backbone, images.pixels)

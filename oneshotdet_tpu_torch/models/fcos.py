@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.losses import bce_with_logits, iou_loss, sigmoid_focal_loss, softmax_focal_loss
-from ..ops.nms import nms_keep_mask
+from ..ops.nms import nms_keep_mask, top_k
 from ..structures.boxes import Boxes, clip_to_image
 from .layers import Conv2d, Scale, conv_gn_relu
 
@@ -42,11 +42,15 @@ OBJECT_SIZES_OF_INTEREST = ((-1.0, 64.0), (64.0, 128.0), (128.0, 256.0), (256.0,
 
 class FCOSHead(nn.Module):
     def __init__(self, in_channels: int = 256, num_convs: int = 4, num_levels: int = 5,
-                 dense_points: int = 1):
+                 dense_points: int = 1, quant: str = "none"):
+        """``quant`` (TPU.QUANT) makes the towers' convs int8; the three
+        predictors stay in the compute dtype."""
         super().__init__()
         dp = dense_points
-        self.cls_tower = nn.Sequential(*[m for _ in range(num_convs) for m in conv_gn_relu(in_channels)])
-        self.bbox_tower = nn.Sequential(*[m for _ in range(num_convs) for m in conv_gn_relu(in_channels)])
+        self.cls_tower = nn.Sequential(*[m for _ in range(num_convs)
+                                         for m in conv_gn_relu(in_channels, quant)])
+        self.bbox_tower = nn.Sequential(*[m for _ in range(num_convs)
+                                          for m in conv_gn_relu(in_channels, quant)])
         self.cls_logits = Conv2d(in_channels, dp, 3, padding=1)   # one class per point
         self.bbox_pred = Conv2d(in_channels, 4 * dp, 3, padding=1)
         self.centerness = Conv2d(in_channels, dp, 3, padding=1)
@@ -251,7 +255,7 @@ def fcos_postprocess(
         per_boxes, per_scores = [], []
         for loc, lg, br, ct in zip(locations, logits, bbox_reg, ctrness):
             score = level_scores(loc, lg, ct)
-            top_scores, top_idx = torch.topk(score, min(pre_nms_top_n, score.shape[1]), dim=1)
+            top_scores, top_idx = top_k(score, min(pre_nms_top_n, score.shape[1]))
             per_boxes.append(decode(loc[top_idx], _take(br.reshape(b, -1, 4), top_idx)))
             per_scores.append(top_scores)
         boxes = torch.cat(per_boxes, dim=1)
@@ -261,20 +265,20 @@ def fcos_postprocess(
                                 for loc, lg, ct in zip(locations, logits, ctrness)], dim=1)
         all_reg = torch.cat([br.reshape(b, -1, 4) for br in bbox_reg], dim=1)
         all_loc = torch.cat(locations, dim=0)
-        scores, top_idx = torch.topk(all_scores, min(nms_pre_topk, all_scores.shape[1]), dim=1)
+        scores, top_idx = top_k(all_scores, min(nms_pre_topk, all_scores.shape[1]))
         boxes = decode(all_loc[top_idx], _take(all_reg, top_idx))
     valid = scores > max(pre_nms_thresh, 0.0)
 
     boxes = clip_to_image(boxes, sizes_wh)
 
     if boxes.shape[1] > nms_pre_topk:
-        scores, cap_idx = torch.topk(torch.where(valid, scores, -1.0), nms_pre_topk, dim=1)
+        scores, cap_idx = top_k(torch.where(valid, scores, -1.0), nms_pre_topk)
         boxes = _take(boxes, cap_idx)
         valid = torch.gather(valid, 1, cap_idx) & (scores > -0.5)
 
     keep = nms_keep_mask(boxes, scores, valid, nms_thresh)
     ranked = torch.where(keep, scores, -torch.inf)
-    top_scores, top_idx = torch.topk(ranked, min(post_top_n, ranked.shape[1]), dim=1)
+    top_scores, top_idx = top_k(ranked, min(post_top_n, ranked.shape[1]))
     out_boxes = _take(boxes, top_idx)
     out_valid = top_scores > -torch.inf
     out_scores = torch.where(out_valid, top_scores, 0.0)

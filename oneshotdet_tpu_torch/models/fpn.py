@@ -4,7 +4,8 @@ Lateral 1x1 convs on C3..C5 (``fpn_inner2..4``), top-down 2x nearest
 upsampling + add, 3x3 output convs (``fpn_layer2..4``) -> P3..P5, then
 ``top_blocks``: P6 = 3x3/2 conv on P5 (or C5 with USE_C5) and P7 = 3x3/2
 conv on relu(P6). Outputs are channels_last NCHW tensors, so each level's
-NHWC view (``permute(0, 2, 3, 1)``) is contiguous.
+NHWC view (``permute(0, 2, 3, 1)``) is contiguous. TPU.QUANT (``quant``)
+makes every one of these convs int8 (``ops.quant.make_conv``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d
+from ..ops.quant import make_conv
 from .resnet import ResNet
 
 
@@ -25,10 +26,10 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 class LastLevelP6P7(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, quant: str = "none"):
         super().__init__()
-        self.p6 = Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
-        self.p7 = Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
+        self.p6 = make_conv(quant, in_channels, out_channels, 3, stride=2, padding=1)
+        self.p7 = make_conv(quant, out_channels, out_channels, 3, stride=2, padding=1)
 
     def forward(self, x):
         p6 = self.p6(x)
@@ -37,14 +38,15 @@ class LastLevelP6P7(nn.Module):
 
 class FPN(nn.Module):
     def __init__(self, in_channels=(512, 1024, 2048), out_channels: int = 256,
-                 use_c5_for_p6: bool = False):
+                 use_c5_for_p6: bool = False, quant: str = "none"):
         super().__init__()
         for idx, cin in zip((2, 3, 4), in_channels):
-            setattr(self, f"fpn_inner{idx}", Conv2d(cin, out_channels, 1))
-            setattr(self, f"fpn_layer{idx}", Conv2d(out_channels, out_channels, 3, padding=1))
+            setattr(self, f"fpn_inner{idx}", make_conv(quant, cin, out_channels, 1))
+            setattr(self, f"fpn_layer{idx}",
+                    make_conv(quant, out_channels, out_channels, 3, padding=1))
         self.use_c5_for_p6 = use_c5_for_p6
         self.top_blocks = LastLevelP6P7(
-            in_channels[-1] if use_c5_for_p6 else out_channels, out_channels)
+            in_channels[-1] if use_c5_for_p6 else out_channels, out_channels, quant)
 
     def forward(self, features: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         _, c3, c4, c5 = features
@@ -67,10 +69,10 @@ class ResNetFPN(nn.Module):
     """``body`` + ``fpn``: NHWC-viewed pixels in, P3..P7 out."""
 
     def __init__(self, depth: int = 50, out_channels: int = 256,
-                 use_c5_for_p6: bool = False):
+                 use_c5_for_p6: bool = False, quant: str = "none"):
         super().__init__()
-        self.body = ResNet(depth=depth)
-        self.fpn = FPN(out_channels=out_channels, use_c5_for_p6=use_c5_for_p6)
+        self.body = ResNet(depth=depth, quant=quant)
+        self.fpn = FPN(out_channels=out_channels, use_c5_for_p6=use_c5_for_p6, quant=quant)
 
     def forward(self, x: torch.Tensor):
         """x: (B, 3, H, W), best in channels_last."""

@@ -25,15 +25,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d, ConvTranspose2d
+from ..ops.quant import make_conv
+from .layers import ConvTranspose2d
 from .mask_head import clamped_index
 
 
 class KeypointRCNNFeatureExtractor(nn.Module):
-    def __init__(self, in_channels: int, layers: Sequence[int] = (512,) * 8):
+    """``quant`` (TPU.QUANT) makes the fcn convs int8."""
+
+    def __init__(self, in_channels: int, layers: Sequence[int] = (512,) * 8,
+                 quant: str = "none"):
         super().__init__()
         for i, ch in enumerate(layers):
-            self.add_module(f"conv_fcn{i + 1}", Conv2d(in_channels, ch, 3, padding=1))
+            self.add_module(f"conv_fcn{i + 1}", make_conv(quant, in_channels, ch, 3, padding=1))
             in_channels = ch
         self.num_layers = len(layers)
 
@@ -61,9 +65,9 @@ class KeypointHead(nn.Module):
     """Feature extractor + predictor: (N, P, P, C) NHWC -> (N, 4P, 4P, K)."""
 
     def __init__(self, in_channels: int, num_keypoints: int = 17,
-                 conv_layers: Sequence[int] = (512,) * 8):
+                 conv_layers: Sequence[int] = (512,) * 8, quant: str = "none"):
         super().__init__()
-        self.feature_extractor = KeypointRCNNFeatureExtractor(in_channels, conv_layers)
+        self.feature_extractor = KeypointRCNNFeatureExtractor(in_channels, conv_layers, quant)
         self.predictor = KeypointRCNNPredictor(conv_layers[-1], num_keypoints)
 
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:

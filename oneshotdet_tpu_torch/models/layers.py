@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import make_conv
+
 
 def _cast(p, x):
     return None if p is None else p.to(x.dtype)
@@ -100,8 +102,9 @@ class Scale(nn.Module):
         return x * self.scale.to(x.dtype)
 
 
-def conv_gn_relu(channels: int) -> List[nn.Module]:
+def conv_gn_relu(channels: int, quant: str = "none") -> List[nn.Module]:
     """3x3 conv + GroupNorm(32) + ReLU as three modules, so a ``nn.Sequential``
     of them keeps the reference's indices (conv at 3i, GN at 3i + 1): the FCOS
-    tower block."""
-    return [Conv2d(channels, channels, 3, padding=1), GroupNorm(32, channels, eps=1e-5), nn.ReLU()]
+    tower block. ``quant`` (TPU.QUANT) picks the conv (``ops.quant.make_conv``)."""
+    return [make_conv(quant, channels, channels, 3, padding=1),
+            GroupNorm(32, channels, eps=1e-5), nn.ReLU()]

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..data.image_io import resize_bilinear
 from ..ops.losses import bce_with_logits
+from ..ops.quant import make_conv
 from .layers import Conv2d, ConvTranspose2d
 
 
@@ -45,11 +46,14 @@ def clamped_index(x: torch.Tensor, hi: int) -> torch.Tensor:
 
 
 class MaskRCNNFPNFeatureExtractor(nn.Module):
-    def __init__(self, in_channels: int, layers: Sequence[int] = (256, 256, 256, 256)):
+    """``quant`` (TPU.QUANT) makes the fcn convs int8."""
+
+    def __init__(self, in_channels: int, layers: Sequence[int] = (256, 256, 256, 256),
+                 quant: str = "none"):
         super().__init__()
         self.out_channels = layers[-1]
         for i, ch in enumerate(layers):
-            self.add_module(f"mask_fcn{i + 1}", Conv2d(in_channels, ch, 3, padding=1))
+            self.add_module(f"mask_fcn{i + 1}", make_conv(quant, in_channels, ch, 3, padding=1))
             in_channels = ch
         self.num_layers = len(layers)
 
@@ -77,9 +81,9 @@ class MaskHead(nn.Module):
     num_classes) float32 logits."""
 
     def __init__(self, in_channels: int, num_classes: int = 2,
-                 conv_layers: Sequence[int] = (256, 256, 256, 256)):
+                 conv_layers: Sequence[int] = (256, 256, 256, 256), quant: str = "none"):
         super().__init__()
-        self.feature_extractor = MaskRCNNFPNFeatureExtractor(in_channels, conv_layers)
+        self.feature_extractor = MaskRCNNFPNFeatureExtractor(in_channels, conv_layers, quant)
         self.predictor = MaskRCNNPredictor(conv_layers[-1], num_classes)
 
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@
   - Bottleneck: 1x1 (strided when STRIDE_IN_1X1) + 3x3 + 1x1x4, FrozenBN
     after each, ReLU after the residual add; a 1x1-strided FrozenBN
     downsample on the first block of a stage;
-  - every BN statistic is frozen.
+  - every BN statistic is frozen;
+  - TPU.QUANT (``quant``) makes every bottleneck conv int8
+    (``ops.quant.make_conv``); the stem stays in the compute dtype.
 
 The stem is a plain 7x7/2 conv on the same (64, 3, 7, 7) weight; the JAX
 package's space-to-depth form of it (``_StemConv``) is an equivalent
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import make_conv
 from .layers import Conv2d, FrozenBatchNorm
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -30,18 +33,20 @@ class Bottleneck(nn.Module):
     """The stride sits in the first 1x1 conv (STRIDE_IN_1X1, Caffe2)."""
 
     def __init__(self, in_channels: int, bottleneck_channels: int,
-                 out_channels: int, stride: int = 1):
+                 out_channels: int, stride: int = 1, quant: str = "none"):
         super().__init__()
-        self.conv1 = Conv2d(in_channels, bottleneck_channels, 1, stride=stride, bias=False)
+        self.conv1 = make_conv(quant, in_channels, bottleneck_channels, 1, stride=stride,
+                               bias=False)
         self.bn1 = FrozenBatchNorm(bottleneck_channels)
-        self.conv2 = Conv2d(bottleneck_channels, bottleneck_channels, 3, padding=1, bias=False)
+        self.conv2 = make_conv(quant, bottleneck_channels, bottleneck_channels, 3, padding=1,
+                               bias=False)
         self.bn2 = FrozenBatchNorm(bottleneck_channels)
-        self.conv3 = Conv2d(bottleneck_channels, out_channels, 1, bias=False)
+        self.conv3 = make_conv(quant, bottleneck_channels, out_channels, 1, bias=False)
         self.bn3 = FrozenBatchNorm(out_channels)
         self.downsample = None
         if in_channels != out_channels or stride != 1:
             self.downsample = nn.Sequential(
-                Conv2d(in_channels, out_channels, 1, stride=stride, bias=False),
+                make_conv(quant, in_channels, out_channels, 1, stride=stride, bias=False),
                 FrozenBatchNorm(out_channels),
             )
 
@@ -67,7 +72,7 @@ class Stem(nn.Module):
 class ResNet(nn.Module):
     """NCHW input -> (C2, C3, C4, C5); widths 64 -> 256/512/1024/2048."""
 
-    def __init__(self, depth: int = 50):
+    def __init__(self, depth: int = 50, quant: str = "none"):
         super().__init__()
         self.stem = Stem()
         in_ch = 64
@@ -77,7 +82,8 @@ class ResNet(nn.Module):
             blocks = []
             for b in range(n_blocks):
                 blocks.append(Bottleneck(in_ch, 64 * mult, out_ch,
-                                         stride=(1 if stage == 1 or b > 0 else 2)))
+                                         stride=(1 if stage == 1 or b > 0 else 2),
+                                         quant=quant))
                 in_ch = out_ch
             setattr(self, f"layer{stage}", nn.Sequential(*blocks))
 

@@ -25,6 +25,12 @@ With ``use_fused`` (the eval opt-in) the whole head runs as one fused op,
 ``ops.roi_head_fused`` (the CUDA kernel on the card), wherever the JAX
 package would take its fused kernel (never with linear fusion); otherwise it
 runs through the layers.
+
+TPU.QUANT (``quant``) makes compress_1, the 3x3 conv, fc6 and fc7 int8
+(``ops.quant``) and quantizes compress_0's query and support halves apart:
+'int8' with one activation scale each (``int8_dot``), 'int8_weight' with
+per-half weight scales (compress_0 keeps a float weight). The predictor
+stays in the compute dtype. The fused head reads float weights only.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from torch import nn
 
 from ..ops.box_coder import BoxCoder
 from ..ops.losses import cross_entropy, sigmoid_focal_loss, smooth_l1_loss
-from ..ops.nms import nms_keep_mask
+from ..ops.nms import nms_keep_mask, top_k
+from ..ops.quant import fake_quant_weight, int8_dot, make_conv, make_dense
 from ..ops.roi_head_fused import (check_kernel_widths, fused_head_applies, fused_roi_head,
                                   kernel_operands, pack_roi_head_params)
 from ..structures.boxes import Boxes, clip_to_image, masked_box_iou
@@ -80,12 +87,13 @@ class FPNPredictor(nn.Module):
 class ROIBoxHead(nn.Module):
     def __init__(self, in_channels: int = 256, resolution: int = 7,
                  representation_size: int = 1024, num_classes: int = 2,
-                 num_bbox_reg: int = 2, linear_fusion: bool = False):
+                 num_bbox_reg: int = 2, linear_fusion: bool = False, quant: str = "none"):
         super().__init__()
         c = in_channels
         self.in_channels = c
         self.resolution = resolution
         self.linear_fusion = linear_fusion
+        self.quant = quant
         self._fused_cache = {}         # dtype -> (parameter key, operands)
         # set by ``export`` while it traces: the operands the exported
         # program holds as its own buffers
@@ -93,15 +101,15 @@ class ROIBoxHead(nn.Module):
         if not linear_fusion:
             self.compress_dim_conv = nn.Sequential(
                 Conv2d(2 * c, 2 * c, 1), GroupNorm(32, 2 * c, eps=1e-5), nn.LeakyReLU(0.2),
-                Conv2d(2 * c, c, 1), GroupNorm(32, c, eps=1e-5), nn.LeakyReLU(0.2),
+                make_conv(quant, 2 * c, c, 1), GroupNorm(32, c, eps=1e-5), nn.LeakyReLU(0.2),
             )
         aggreg_in = 2 * c if linear_fusion else c
         self.feature_aggreg = nn.Sequential(
-            Conv2d(aggreg_in, c // 2, 3, padding=1), GroupNorm(32, c // 2, eps=1e-5),
+            make_conv(quant, aggreg_in, c // 2, 3, padding=1), GroupNorm(32, c // 2, eps=1e-5),
             nn.LeakyReLU(0.2),
         )
-        self.fc6 = Linear(c // 2 * resolution * resolution, representation_size)
-        self.fc7 = Linear(representation_size, representation_size)
+        self.fc6 = make_dense(quant, c // 2 * resolution * resolution, representation_size)
+        self.fc7 = make_dense(quant, representation_size, representation_size)
         self.predictor = FPNPredictor(representation_size, num_classes, num_bbox_reg)
 
     def _fused_operands(self, dtype: torch.dtype):
@@ -156,16 +164,29 @@ class ROIBoxHead(nn.Module):
         """compress_dim_conv over the concat of the ROIs and their image's
         support, NHWC (N, 7, 7, C) out."""
         c = self.in_channels
+        dtype = roi_feats.dtype
         conv0, gn0, act0, conv1, gn1, act1 = self.compress_dim_conv
-        w0 = conv0.weight.to(roi_feats.dtype)[:, :, 0, 0]        # (2C out, 2C in)
         # conv(cat(q, s)) = q @ Wq + (s @ Ws + bias): the concat is never built
         # and the support half is computed once per image
-        ya = roi_feats @ w0[:, :c].t()
-        yb = supp_feats @ w0[:, c:].t() + conv0.bias.to(roi_feats.dtype)
+        w0 = conv0.weight[:, :, 0, 0]                             # (2C out, 2C in)
+        wq, ws = w0[:, :c], w0[:, c:]
+        if self.quant == "int8":
+            ya = int8_dot(roi_feats, wq).to(dtype)
+            yb = int8_dot(supp_feats, ws).to(dtype)
+        else:
+            if self.quant == "int8_weight":
+                wq, ws = ((q.to(dtype) * s.to(dtype)[:, None])
+                          for q, s in (fake_quant_weight(wq), fake_quant_weight(ws)))
+            ya = roi_feats @ wq.to(dtype).t()
+            yb = supp_feats @ ws.to(dtype).t()
+        yb = yb + conv0.bias.to(dtype)
         n, b = ya.shape[0], yb.shape[0]
         x = (ya.view(b, n // b, *ya.shape[1:]) + yb[:, None]).view(ya.shape)
         x = act0(_nhwc_apply(gn0, x))
-        x = F.linear(x, conv1.weight.to(x.dtype)[:, :, 0, 0], conv1.bias.to(x.dtype))
+        if self.quant == "none":
+            x = F.linear(x, conv1.weight.to(x.dtype)[:, :, 0, 0], conv1.bias.to(x.dtype))
+        else:
+            x = _nhwc_apply(conv1, x)
         return act1(_nhwc_apply(gn1, x))
 
 
@@ -421,7 +442,7 @@ def roi_head_postprocess(
     keep = nms_keep_mask(boxes_fg, scores, valid, nms_thresh)
     ranked = torch.where(keep, scores, -torch.inf)
     k = min(detections_per_img, p)
-    top_scores, top_idx = torch.topk(ranked, k, dim=1)
+    top_scores, top_idx = top_k(ranked, k)
     out_boxes = torch.gather(boxes_fg, 1, top_idx[..., None].expand(b, k, 4))
     out_valid = top_scores > -torch.inf
     out_scores = torch.where(out_valid, top_scores, 0.0)

@@ -28,6 +28,16 @@ def _pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
     return inter / (area[..., :, None] + area[..., None, :] - inter)
 
 
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest along the last axis, in
+    descending order with ties in index order, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` leaves the order of ties open). The padded slots of
+    the detectors' outputs take whichever tied candidates come first, so
+    they hold the JAX package's boxes too."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
                   valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask in the original index order: the op
@@ -74,7 +84,7 @@ def nms(boxes, scores, valid, iou_threshold: float, max_out: int):
     keep = nms_keep_mask(boxes, scores, valid, iou_threshold)
     ranked = torch.where(keep, scores, torch.full_like(scores, -torch.inf))
     kk = min(max_out, k)
-    top_scores, top_idx = torch.topk(ranked, kk, dim=-1)
+    top_scores, top_idx = top_k(ranked, kk)
     if kk < max_out:
         pad = max_out - kk
         top_idx = torch.cat([top_idx, top_idx.new_zeros(top_idx.shape[:-1] + (pad,))], -1)

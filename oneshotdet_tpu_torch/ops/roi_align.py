@@ -211,25 +211,27 @@ def multilevel_roi_align_backward_plain(
     scales: Sequence[float],
     sampling_ratio: int,
     valid: Optional[torch.Tensor] = None,
+    work_dtype: torch.dtype = torch.float32,
 ) -> List[torch.Tensor]:
     """d(multilevel ROIAlign)/d(features) for ``grad_out`` (R, ph, pw, C):
     one (B, H, W, C) gradient per level in ``dtype``. Every in-range sample
     of a bin carries ``grad / g^2`` to its four corners with the bilinear
     weights (clamped corners land twice on one pixel); out-of-range samples
-    and ``valid=False`` ROIs carry nothing. Sums in a float32 workspace that
-    holds the levels one after another, each as a contiguous (B, H, W, C)
-    block, and casts once."""
+    and ``valid=False`` ROIs carry nothing. Sums in a ``work_dtype`` (float32;
+    float64 gives the exact sum of the float32 terms, whatever the order)
+    workspace that holds the levels one after another, each as a contiguous
+    (B, H, W, C) block, and casts once."""
     shapes = [tuple(s) for s in feature_shapes]
     ws = multilevel_roi_align_backward_workspace(grad_out, shapes, rois, levels, output_size,
-                                                 scales, sampling_ratio, valid)
+                                                 scales, sampling_ratio, valid, work_dtype)
     return _split_workspace(ws, shapes, dtype)
 
 
 def multilevel_roi_align_backward_workspace(grad_out, feature_shapes, rois, levels,
                                             output_size, scales, sampling_ratio,
-                                            valid=None) -> torch.Tensor:
-    """``multilevel_roi_align_backward_plain``'s float32 workspace, before
-    its cast: (rows of all levels, C), level-major."""
+                                            valid=None, work_dtype=torch.float32) -> torch.Tensor:
+    """``multilevel_roi_align_backward_plain``'s workspace (float32 unless
+    ``work_dtype``), before its cast: (rows of all levels, C), level-major."""
     pooled_h, pooled_w = output_size
     g = sampling_ratio
     dev = rois.device
@@ -239,7 +241,7 @@ def multilevel_roi_align_backward_workspace(grad_out, feature_shapes, rois, leve
     heights = torch.tensor([s[1] for s in shapes], device=dev)
     widths = torch.tensor([s[2] for s in shapes], device=dev)
     offsets = torch.tensor(_level_offsets(shapes)[:-1], device=dev)
-    ws = torch.zeros((_level_offsets(shapes)[-1], c), dtype=torch.float32, device=dev)
+    ws = torch.zeros((_level_offsets(shapes)[-1], c), dtype=work_dtype, device=dev)
     r = rois.shape[0]
     if r == 0:
         return ws
@@ -265,7 +267,7 @@ def multilevel_roi_align_backward_workspace(grad_out, feature_shapes, rois, leve
                            (ly, hx, y_high, x_low), (ly, lx, y_high, x_high)):
         w = torch.where(live, rep(wy) * til(wx), 0.0)
         idx = base + rep(yi) * w_r + til(xi)
-        ws.index_add_(0, idx.reshape(-1), (w[..., None] * gq).reshape(-1, c))
+        ws.index_add_(0, idx.reshape(-1), (w[..., None] * gq).reshape(-1, c).to(work_dtype))
     return ws
 
 

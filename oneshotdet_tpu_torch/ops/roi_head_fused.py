@@ -54,9 +54,17 @@ def pack_roi_head_params(head) -> Dict[str, torch.Tensor]:
     """The port's ``ROIBoxHead`` -> the fused head's float32 operands, under
     the keys and layouts of ``roi_head_params_from_module``: (in, out)
     matrices, the 3x3 conv as 9 (C, C/2) taps in (ky, kx) order, and fc6's
-    rows permuted from the checkpoint's (c, p, q) flatten to (p, q, c)."""
+    rows permuted from the checkpoint's (c, p, q) flatten to (p, q, c).
+
+    Raises ValueError for a head whose weights are int8 codes
+    (``ops.quant.quantize_weights_int8``): the fused head takes float
+    weights, and the JAX package's ``roi_head_params_from_module`` hands its
+    kernel such codes without their scales."""
     conv0, gn0, _, conv1, gn1, _ = head.compress_dim_conv
     aggreg, aggreg_gn, _ = head.feature_aggreg
+    if any(m.weight.dtype == torch.int8 for m in (conv1, aggreg, head.fc6, head.fc7)):
+        raise ValueError("the fused ROI head (ONESHOT_PALLAS_ROI_HEAD=1) takes float weights; "
+                         "this head holds int8 codes (quantize_weights_int8)")
     ca = aggreg.weight.shape[0]
     hidden = head.fc6.weight.shape[0]
     f32 = lambda t: t.detach().to(torch.float32)

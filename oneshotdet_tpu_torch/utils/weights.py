@@ -11,8 +11,10 @@ mask_fcn{i}``, ``roi_heads.mask.predictor.{conv5_mask,mask_fcn_logits}``,
 ``roi_heads.keypoint.predictor.kps_score_lowres``), under the reference
 modules' names; a flax ``ConvTranspose`` kernel (kh, kw, in, out) becomes
 the (in, out, kh, kw) weight of ``conv_transpose2d`` flipped in both
-spatial axes. The result loads into
-``models.GeneralizedRCNN`` with ``load_state_dict(strict=True)``.
+spatial axes. A tree transformed by the JAX package's
+``quantize_weights_int8`` (TPU.QUANT 'int8_weight') keeps its int8 kernels
+and carries its ``quant_scales`` as ``<module>.weight_scale``. The result
+loads into ``models.GeneralizedRCNN`` with ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -137,17 +139,32 @@ def group_norm_params_from_flax(params) -> Dict[str, torch.Tensor]:
     return {_w(k): torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in params.items()}
 
 
+def _map_leaf(collection: str, path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
+    """``map_flax_leaf`` and, for the ``quant_scales`` collection of an
+    'int8_weight' tree, a ``kernel_scale`` -> ``<module>.weight_scale``."""
+    if collection != "quant_scales":
+        return map_flax_leaf(collection, path)
+    if path[-1] != "kernel_scale":
+        return None
+    mapping = map_flax_leaf("params", path[:-1] + ("kernel",))
+    return None if mapping is None else (mapping[0] + "_scale", "none")
+
+
 def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """``{'params': ..., 'constants': ...}`` nested dicts of arrays -> the
-    port's float32 state dict. Raises on a leaf with no counterpart."""
+    """``{'params': ..., 'constants': ..., ['quant_scales': ...]}`` nested
+    dicts of arrays -> the port's state dict, float32 but for the int8
+    kernels of a tree transformed by the JAX package's
+    ``quantize_weights_int8``, which stay int8 with their ``weight_scale``.
+    Raises on a leaf with no counterpart."""
     out: Dict[str, torch.Tensor] = {}
-    for collection in ("params", "constants"):
+    for collection in ("params", "constants", "quant_scales"):
         for path, arr in _leaves(variables.get(collection, {})):
-            mapping = map_flax_leaf(collection, path)
+            mapping = _map_leaf(collection, path)
             if mapping is None:
                 raise KeyError(f"no port counterpart for {collection}/{'/'.join(path)}")
             key, transform = mapping
-            a = np.asarray(arr, dtype=np.float32)
+            a = np.asarray(arr)
+            a = a if a.dtype == np.int8 else a.astype(np.float32)
             if transform == "conv":
                 a = a.transpose(3, 2, 0, 1)      # HWIO -> OIHW
             elif transform == "deconv":          # flipped (kh, kw, in, out) -> (in, out, kh, kw)

@@ -38,6 +38,10 @@ from oneshotdet_tpu_torch.models import build_detection_model
 from oneshotdet_tpu_torch.solver import make_lr_scheduler, make_optimizer
 from oneshotdet_tpu_torch.utils.checkpoint import Checkpointer, merge_with_unload
 from torch_port_common import make_setup, small_cfgs, state_dict_from_flax
+from torch_port_common import one_torch_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: the tier-1 run's six workers share the cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (port keyword, JAX keyword): the port matches state-dict names, JAX flax paths
 UNLOAD = [("linz", "linz"), ("rpn.head", "fcos_head"), ("roi_heads", "roi_head")]

@@ -26,6 +26,10 @@ from oneshotdet_tpu_torch.data.evaluation import coco_eval
 from oneshotdet_tpu_torch.ops import roi_head_fused as rf
 from oneshotdet_tpu_torch.utils import Timer, comm
 from torch_port_common import assert_same_detections, make_setup, port_model, small_cfgs
+from torch_port_common import one_torch_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: the tier-1 run's six workers share the cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

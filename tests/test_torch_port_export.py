@@ -26,6 +26,10 @@ from oneshotdet_tpu.structures import Boxes as JaxBoxes
 from oneshotdet_tpu_torch import export as oexport
 from oneshotdet_tpu_torch.structures import Boxes
 from torch_port_common import assert_same_detections, make_setup, port_model, small_cfgs
+from torch_port_common import one_torch_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: the tier-1 run's six workers share the cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 QUERY_HW, SUPP_HW, BATCH = (64, 64), (32, 32), 2
 TARGETS = [3, 5]

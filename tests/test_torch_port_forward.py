@@ -2,7 +2,9 @@
 in float32, on the flagship config at test size (batch 2, 64x64 queries,
 32x32 supports): detections in both stage-1 top-k modes, with EVAL_ROI_TOPK,
 with two shots, RPN_ONLY proposals, and the cached-support entry point.
-Both sides get the same seeded numpy weights (tests/torch_port_common.py).
+Both sides get the same seeded numpy weights (tests/torch_port_common.py);
+each JAX reference is jitted with XLA's LLVM optimizations off
+(``compile_fast``), several times cheaper than the op-by-op apply.
 """
 
 import jax.numpy as jnp
@@ -12,7 +14,12 @@ import torch
 
 from oneshotdet_tpu.structures import ImageBatch as JaxImageBatch
 from oneshotdet_tpu_torch.structures import ImageBatch
-from torch_port_common import assert_same_detections, make_setup, np_, port_model, t
+from torch_port_common import assert_same_detections, compile_fast, make_setup, np_, port_model, t
+
+
+def jax_fast(fn, *args):
+    """``fn(*args)``, jitted with FAST_COMPILE."""
+    return compile_fast(fn, *args)(*args)
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +34,8 @@ def setup():
 ], ids=["global_topk", "strict_level_topk", "eval_roi_topk16"])
 def test_eval_forward_matches_jax(setup, overrides):
     jm, pm = port_model(setup, *overrides)
-    ref = jm.apply(setup["variables"], *setup["jax"], target_ids=jnp.array([3, 5]))
+    ref = jax_fast(lambda v, q, s, tids: jm.apply(v, q, s, target_ids=tids),
+                   setup["variables"], *setup["jax"], jnp.array([3, 5]))
     out = pm(*setup["port"], target_ids=torch.tensor([3, 5]))
     assert out.xyxy.shape == tuple(ref.xyxy.shape)
     assert_same_detections(out, ref)
@@ -42,7 +50,8 @@ def test_two_shot_eval_forward_matches_jax(setup):
     s = rng.randn(4, 32, 32, 3).astype(np.float32)
     ss = np.array([[32.0, 32.0], [24.0, 32.0], [32.0, 24.0], [20.0, 28.0]], np.float32)
     jq, _ = setup["jax"]
-    ref = jm.apply(setup["variables"], jq, JaxImageBatch(jnp.asarray(s), jnp.asarray(ss)))
+    ref = jax_fast(jm.apply, setup["variables"], jq,
+                   JaxImageBatch(jnp.asarray(s), jnp.asarray(ss)))
     out = pm(setup["port"][0], ImageBatch(t(s), t(ss)))
     assert_same_detections(out, ref)
 
@@ -54,7 +63,7 @@ def test_rpn_only_proposals_match_jax(setup):
     variables = {"params": {k: v for k, v in setup["variables"]["params"].items()
                             if k != "roi_head"},
                  "constants": setup["variables"]["constants"]}
-    ref = jm.apply(variables, *setup["jax"])
+    ref = jax_fast(jm.apply, variables, *setup["jax"])
     out = pm(*setup["port"])
     assert out.xyxy.shape == (2, 50, 4)
     assert_same_detections(out, ref)
@@ -73,10 +82,11 @@ def test_rpn_only_cached_support_proposals_match_jax(setup):
                  "constants": setup["variables"]["constants"]}
     jq, js = setup["jax"]
     q, s = setup["port"]
-    j_pooled, j_s7 = jm.apply(variables, js, 2,
-                              method=lambda m, b, n: m.compute_support_features(b, n))
-    ref = jm.apply(variables, jq, j_pooled, j_s7,
-                   method=lambda m, b, p, s7: m.detect_with_support(b, p, s7))
+    j_pooled, j_s7 = jax_fast(lambda v, b: jm.apply(
+        v, b, method=lambda m, b_: m.compute_support_features(b_, 2)), variables, js)
+    ref = jax_fast(lambda v, b, p, s7: jm.apply(
+        v, b, p, s7, method=lambda m, b_, p_, s7_: m.detect_with_support(b_, p_, s7_)),
+        variables, jq, j_pooled, j_s7)
     pooled, s7 = pm.compute_support_features(s, 2)
     out = pm.detect_with_support(q, pooled, s7)
     assert tuple(ref.xyxy.shape) == out.xyxy.shape == (2, 32, 4)

@@ -45,6 +45,7 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.data.transforms\n"
         "import oneshotdet_tpu_torch.models.mask_head, oneshotdet_tpu_torch.models.keypoint_head\n"
         "import oneshotdet_tpu_torch.models.roi_heads, oneshotdet_tpu_torch.structures.keypoint\n"
+        "import oneshotdet_tpu_torch.ops.quant, oneshotdet_tpu_torch.tools.quant_drift\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -88,7 +89,9 @@ def test_scan_covers_every_module_of_the_port():
                  "oneshotdet_tpu_torch/models/mask_head.py",
                  "oneshotdet_tpu_torch/models/keypoint_head.py",
                  "oneshotdet_tpu_torch/models/roi_heads.py",
-                 "oneshotdet_tpu_torch/structures/keypoint.py"):
+                 "oneshotdet_tpu_torch/structures/keypoint.py",
+                 "oneshotdet_tpu_torch/ops/quant.py",
+                 "oneshotdet_tpu_torch/tools/quant_drift.py"):
         assert path in names
 
 

@@ -13,7 +13,13 @@ from oneshotdet_tpu.models import build_detection_model as jax_build
 from oneshotdet_tpu.utils.torch_export import export_state_dict
 from oneshotdet_tpu_torch.models import build_detection_model
 from oneshotdet_tpu_torch.utils.weights import state_dict_from_flax
-from torch_port_common import make_setup, np_, port_model, random_variables, small_cfgs
+from torch_port_common import (compile_fast, make_setup, np_, port_model, random_variables,
+                               small_cfgs)
+
+
+def jax_fast(fn, *args):
+    """``fn(*args)``, jitted with FAST_COMPILE (XLA's LLVM optimizations off)."""
+    return compile_fast(fn, *args)(*args)
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +46,8 @@ def test_state_dict_from_flax_equals_export_and_loads_strictly(setup):
 def test_backbone_features_match_jax(setup):
     jm, pm = port_model(setup)
     jq, _ = setup["jax"]
-    ref = jm.apply(setup["variables"], jq, method=lambda m, b: m.backbone_features(b))
+    ref = jax_fast(lambda v, b: jm.apply(v, b, method=lambda m, b_: m.backbone_features(b_)),
+                   setup["variables"], jq)
     out = pm.backbone_features(setup["port"][0])
     assert len(out) == 5
     for p, r in zip(out, ref):
@@ -55,8 +62,8 @@ def test_support_features_match_jax(setup, supp_roialign):
     """1x1 pooling by ROIAlign over the whole support, or the spatial mean."""
     jm, pm = port_model(setup, "FEW_SHOT.SUPP_ROIALIGN", supp_roialign)
     _, js = setup["jax"]
-    ref_pooled, ref_7x7 = jm.apply(setup["variables"], js, 2,
-                                   method=lambda m, b, n: m.compute_support_features(b, n))
+    ref_pooled, ref_7x7 = jax_fast(lambda v, b: jm.apply(
+        v, b, method=lambda m, b_: m.compute_support_features(b_, 2)), setup["variables"], js)
     pooled, s7 = pm.compute_support_features(setup["port"][1], 2)
     assert s7.shape == (2, 1, 7, 7, 256)
     for p, r in zip(list(pooled) + [s7], list(ref_pooled) + [ref_7x7]):
@@ -71,7 +78,8 @@ def test_backbone_p6_from_c5_matches_jax(setup):
     variables = random_variables(jm, setup["jax"], seed=2)
     pm = build_detection_model(pcfg, device="cpu")
     pm.load_state_dict(state_dict_from_flax(variables), strict=True)
-    ref = jm.apply(variables, setup["jax"][0], method=lambda m, b: m.backbone_features(b))
+    ref = jax_fast(lambda v, b: jm.apply(v, b, method=lambda m, b_: m.backbone_features(b_)),
+                   variables, setup["jax"][0])
     out = pm.backbone_features(setup["port"][0])
     for p, r in zip(out, ref):
         r = np.asarray(r)
@@ -79,9 +87,10 @@ def test_backbone_p6_from_c5_matches_jax(setup):
                                    atol=1e-4 * np.abs(r).max())
 
 
-@pytest.mark.parametrize("switch", [("MODEL.FCOS_ON", False), ("TPU.QUANT", "int8")])
+@pytest.mark.parametrize("switch", [("MODEL.FCOS_ON", False)])
 def test_unported_switches_raise(switch):
-    """The anchor stage 1 and TPU.QUANT raise."""
+    """The anchor stage 1 raises (TPU.QUANT is ported:
+    ``test_torch_port_quant.py``)."""
     _, pcfg = small_cfgs(*switch)
     with pytest.raises(NotImplementedError, match=switch[0]):
         build_detection_model(pcfg, device="cpu")

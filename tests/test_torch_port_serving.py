@@ -36,6 +36,10 @@ from oneshotdet_tpu_torch.predictor import (ArtifactPredictor, OneShotPredictor,
 from oneshotdet_tpu_torch.utils.weights import state_dict_from_flax
 from test_torch_port_predictor import PRED_OVERRIDES
 from torch_port_common import BOX_RTOL, SCORE_RTOL, random_tree, random_variables, small_cfgs
+from torch_port_common import one_torch_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: the tier-1 run's six workers share the cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JAX_META_KEYS = {"query_bucket", "supp_bucket", "host_s2d", "pixel_mean", "pixel_std",
                  "to_bgr255", "min_size_test", "max_size_test", "supp_min_size_test",

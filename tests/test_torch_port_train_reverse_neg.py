@@ -14,6 +14,10 @@ import pytest
 
 from oneshotdet_tpu_torch.models import build_detection_model
 from torch_port_common import TrainVariants, jax_sampling_draws, small_cfgs, train_proposal_count
+from torch_port_common import one_torch_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: the tier-1 run's six workers share the cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FCOS = {"loss_cls", "loss_reg", "loss_centerness"}
 STAGE2 = {"loss_classifier", "loss_box_reg"}

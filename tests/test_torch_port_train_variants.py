@@ -25,6 +25,10 @@ from oneshotdet_tpu_torch.engine import batch_to_inputs
 from oneshotdet_tpu_torch.models import build_detection_model
 from torch_port_common import (TrainVariants, jax_sampling_draws, small_cfgs, state_dict_from_flax,
                                train_proposal_count)
+from torch_port_common import one_torch_thread  # noqa: F401  (the fixture)
+
+# torch on one thread: the tier-1 run's six workers share the cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SOFT = ["FEW_SHOT.SOFT_LABELING", True, "FEW_SHOT.SOFT_LABELING_FUNC"]
 LOSS = "FEW_SHOT.SECOND_STAGE_CLS_LOSS"
