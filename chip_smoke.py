@@ -83,7 +83,12 @@ preset at full width in bf16 with QUANT none, int8 and int8_weight, ms/batch
 by CUDA events, peak memory, 7 K1 a forward; tools.quant_drift against the
 bf16 float forward at production capacities beside the stated bound; an
 int8_weight model with int8 codes as an ExportedProgram bundle bit for bit
-against OneShotPredictor and its support program compiled by AOTInductor)
+against OneShotPredictor and its support program compiled by AOTInductor),
+and the anchor stage 1 (phase 15, MODEL.FCOS_ON False: the anchor RPN
+feeding stage 2 and RetinaNet with RPN_ONLY at full width, eval forwards
+with 7 and 6 K1 launches, train steps with 7 and 5 K1 and K1b calls, the
+anchor RPN through tools.test_net, tools.train_net and the predictor, and
+small float32 forwards and train steps of both on the card against the CPU)
 -- and checks small float32 forwards and a small float32 train
 step on the card against the same model on the CPU. Every kernel's launch count is
 set to 0 before each path and read after it. Any failure raises and exits
@@ -1351,8 +1356,9 @@ def distinct_weights_(model, gen):
 
 def _best_partners(a, b, score_rtol, box_rtol):
     """For each detection of a (boxes, scores), whether its highest-IoU
-    detection in b has IoU > 0.99 and score and coordinates within
-    tolerance; and that partner's index and IoU."""
+    detection in b has IoU > 0.99 (any IoU where a's box is under a pixel
+    wide or high: there a 1e-4 px shift costs a few percent) and score and
+    coordinates within tolerance; and that partner's index and IoU."""
     (ab, as_), (bb, bs) = a, b
     if len(ab) == 0 or len(bb) == 0:
         return np.zeros(len(ab), bool), np.zeros(len(ab), int), np.zeros(len(ab))
@@ -1360,10 +1366,21 @@ def _best_partners(a, b, score_rtol, box_rtol):
     rb = np.minimum(ab[:, None, 2:], bb[None, :, 2:])
     inter = np.prod(np.clip(rb - lt + 1, 0, None), axis=2)
     area = lambda x: (x[..., 2] - x[..., 0] + 1) * (x[..., 3] - x[..., 1] + 1)
-    iou = inter / (area(ab)[:, None] + area(bb)[None, :] - inter)
+    union = area(ab)[:, None] + area(bb)[None, :] - inter
+    with np.errstate(invalid="ignore", divide="ignore"):
+        iou = inter / union
+    zero = ~(union > 0)
+    if zero.any():
+        # a box of zero area (x2 = x1 - 1, which decoding a shrunk anchor
+        # gives) pairs with the boxes at its coordinates: its IoU is 0 / 0
+        rows = np.nonzero(zero.any(axis=1))[0]
+        close = np.all(np.abs(bb[None] - ab[rows, None])
+                       <= box_rtol * np.abs(ab[rows, None]) + 1e-3, axis=2)
+        iou[rows] = np.where(zero[rows], close, iou[rows])
     j = np.argmax(iou, axis=1)
     best = iou[np.arange(len(ab)), j]
-    ok = ((best > 0.99) & (np.abs(bs[j] - as_) <= score_rtol * np.abs(as_) + 1e-5)
+    thin = np.minimum(ab[:, 2] - ab[:, 0], ab[:, 3] - ab[:, 1]) + 1 < 1
+    ok = (((best > 0.99) | thin) & (np.abs(bs[j] - as_) <= score_rtol * np.abs(as_) + 1e-5)
           & np.all(np.abs(bb[j] - ab) <= box_rtol * np.abs(ab) + 1e-3, axis=1))
     return ok, j, best
 
@@ -1389,13 +1406,14 @@ def match_fraction(a, b, score_rtol=5e-4, box_rtol=1e-3):
     return 1.0 if n == 0 else float(_best_partners(a, b, score_rtol, box_rtol)[0].sum()) / n
 
 
-def small_forward_check(cfg_path, dev, fused=False, opts=(), aug=0, label=""):
+def small_forward_check(cfg_path, dev, fused=False, opts=(), aug=0, label="", prepare=None):
     """A float32 forward (batch 2, 128x160 queries, 64x64 supports) on the
     card (the kernels) and on the CPU (the plain versions that the tier-1
     tests hold against the JAX package) with the same weights and inputs;
     with ``fused``, both with the fused relation head; ``opts`` more cfg
     overrides, ``aug`` each support followed by that many variants
-    (``aug_supports``)."""
+    (``aug_supports``), ``prepare`` a function applied to the CPU model's
+    weights after they are drawn."""
     from oneshotdet_tpu_torch.config import cfg as default_cfg
     from oneshotdet_tpu_torch.models import build_detection_model
     from oneshotdet_tpu_torch.ops import roi_head_fused as rf
@@ -1415,6 +1433,8 @@ def small_forward_check(cfg_path, dev, fused=False, opts=(), aug=0, label=""):
         s, ss = (torch.from_numpy(x) for x in aug_supports(s.numpy(), ss.numpy(), aug))
     cpu = build_detection_model(cfg, device="cpu")
     distinct_weights_(cpu, torch.Generator().manual_seed(12))
+    if prepare is not None:
+        prepare(cpu)
     gpu = build_detection_model(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     for m in (cpu, gpu):
@@ -1438,7 +1458,8 @@ def small_forward_check(cfg_path, dev, fused=False, opts=(), aug=0, label=""):
 
 STAGES = ("query_backbone", "support_backbone", "support_pool", "fcos_head",
           "fcos_postprocess", "roi_pool", "roi_head", "roi_postprocess", "mask_head",
-          "keypoint_head")
+          "keypoint_head", "rpn_head", "rpn_postprocess", "retinanet_head",
+          "retinanet_postprocess")
 
 
 def profile_forward(model, images, supps, label):
@@ -1733,10 +1754,10 @@ def engine_checks(cfg, model, card, n_batches=3, classes=4):
 TRAIN_STAGES = STAGES[:7]
 
 
-def profile_train_step(step, label):
+def profile_train_step(step, label, stages=TRAIN_STAGES):
     """One train step under torch.profiler: wall and device busy time, the
-    device span of each stage range of the forward, and the kernels that
-    take the most device time, K1 and K1b summed."""
+    device span of each stage range of the forward (``stages``), and the
+    kernels that take the most device time, K1 and K1b summed."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1745,7 +1766,7 @@ def profile_train_step(step, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name not in TRAIN_STAGES]
+              and e.name not in stages]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     if busy_ms == 0:
         log(f"profile {label}: torch.profiler recorded no device time")
@@ -1759,8 +1780,8 @@ def profile_train_step(step, label):
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%; K1 "
         f"kernels {k1:.3f} ms, K1b kernels {k1b:.3f} ms ({100 * k1b / busy_ms:.2f}% of busy)")
     spans = {e.name: e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and e.name in TRAIN_STAGES}
-    for name in TRAIN_STAGES:
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.name in stages}
+    for name in stages:
         if name in spans:
             log(f"  stage {name:<17} device span {spans[name]:8.2f} ms "
                 f"({100 * spans[name] / wall_ms:5.1f}% of wall)")
@@ -4274,6 +4295,409 @@ def quant_path(flagship, preset, dev, card, supp, frames):
     return paths, out
 
 
+# -- phase 15: the anchor stage 1 (MODEL.FCOS_ON False) ---------------------------------
+
+# cell A: the anchor RPN feeding stage 2; cell B: one-stage RetinaNet
+ANCHOR_A = ["MODEL.FCOS_ON", False, "MODEL.RPN.ANCHOR_STRIDE", "(8, 16, 32, 64, 128)"]
+ANCHOR_B = ANCHOR_A + ["MODEL.RETINANET_ON", True, "MODEL.RPN_ONLY", True]
+# per cell: its overrides, and K1 a forward, K1 (and K1b calls) a train step
+ANCHOR_CELLS = {"A anchor RPN": (ANCHOR_A, 7, 7), "B RetinaNet RPN_ONLY": (ANCHOR_B, 6, 5)}
+# the train cells' learning rate: the seeded random backbones give a fused
+# pyramid of ~10^3, and one SGD step at the flagship's 5e-4 sends the RPN's
+# deltas to ~10^3 (loss_rpn_box_reg 7.8 -> 1124), its proposals below a
+# pixel and the next step's loss_box_reg to NaN; a step's work is the same
+ANCHOR_TRAIN = ["SOLVER.BASE_LR", 1e-6]
+ANCHOR_ITERS = 3                      # timed eval forwards of a cell
+ANCHOR_WARMUP, ANCHOR_STEPS = 2, 5    # train steps of a cell, each on a fresh batch
+ANCHOR_CLI_BATCHES, ANCHOR_CLI_STEPS = 2, 3
+ANCHOR_STAGES = ("query_backbone", "support_backbone", "support_pool", "rpn_head",
+                 "rpn_postprocess", "retinanet_head", "retinanet_postprocess", "roi_pool",
+                 "roi_head", "roi_postprocess")
+
+
+def anchor_cfg(flagship, opts, *more):
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(flagship)
+    cfg.merge_from_list(list(opts) + list(more))
+    return cfg
+
+
+def quiet_anchor_head_(model, gen):
+    """Redraw the anchor head's kernels for this smoke's seeded weights,
+    whose fused pyramid (random backbones, the query times the pooled
+    support) reaches ~10^3 at full width and after ``distinct_weights_``
+    alike: from the model's init (N(0, 0.01), the JAX package's) the RPN's
+    deltas reach ~900 and shrink proposals below a pixel, where x2 - x1 + 1
+    rounds to 0 or below (the same arithmetic as the JAX package's), their
+    stage-2 regression targets are not finite and loss_box_reg is NaN; at
+    N(0, 1/fan_in) RetinaNet's logits saturate the sigmoid, whose ties then
+    decide a card-against-CPU comparison (at its init's N(0, 0.01) its
+    logits still reach ~70). The RPN head's conv and cls_logits at
+    N(0, 0.001) and its bbox_pred at N(0, 0.0001) (deltas within ~1), and
+    RetinaNet's five convs at N(0, 0.005) keep their outputs near 1. The
+    model's init stays as it is."""
+    retina = model.config.stage1 == "retinanet"
+    with torch.no_grad():
+        for name, v in model.state_dict().items():
+            if name.startswith("rpn.head.") and v.dim() > 1:
+                std = 5e-3 if retina else 1e-4 if "bbox_pred" in name else 1e-3
+                v.copy_(torch.randn(v.shape, generator=gen) * std)
+
+
+def anchor_eval_forwards(flagship, dev, card):
+    """Phase 15a: each cell's eval forward (bf16, batch 8 832x1216, phase 5's
+    batch, seed-1 weights, the anchor head's ``quiet_anchor_head_``), A unfused and with the fused head: ANCHOR_ITERS
+    timed forwards after a warm-up, ms by CUDA events and by the host clock,
+    peak memory, K1 (and K3) launches a forward, the detections checked
+    (2000 an image: A's stage 2 on R = 16 000 proposals, B's RetinaNet
+    detections), one profiled forward's stage spans."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+
+    images, supps = phase5_batch(dev)
+    paths, out = {}, {}
+    for key, (opts, k1, _) in ANCHOR_CELLS.items():
+        model = build_detection_model(anchor_cfg(flagship, opts), device=dev,
+                                      generator=torch.Generator().manual_seed(1))
+        quiet_anchor_head_(model, torch.Generator().manual_seed(2))
+        for fused in ((False, True) if key.startswith("A") else (False,)):
+            cell = key + (", fused head" if fused else "")
+            model.config = dataclasses.replace(model.config, fused_roi_head=fused)
+            dets = model(images, supps)                     # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                      for _ in range(ANCHOR_ITERS)]
+            t0 = time.perf_counter()
+            for start, end in events:
+                start.record()
+                dets = model(images, supps)
+                end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / ANCHOR_ITERS
+            ev = sorted(s.elapsed_time(e) for s, e in events)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            paths[f"phase 15 {cell}, {ANCHOR_ITERS} forwards"] = n = read_launches()
+            if n["roi_align"] != k1 * ANCHOR_ITERS or \
+                    n["roi_head"] != (ANCHOR_ITERS if fused else 0):
+                raise AssertionError(f"{cell}: launches {n} in {ANCHOR_ITERS} forwards, "
+                                     f"expected {k1} K1 and {int(fused)} K3 a forward")
+            check_detections(dets, BATCH, 2000, images.sizes_wh())
+            nd = int(dets.valid.sum())
+            log(f"phase 15 eval forward {cell}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} bf16, "
+                f"{host_ms:.1f} ms/batch by the host clock, CUDA events median "
+                f"{ev[len(ev) // 2]:.1f} ms (min {ev[0]:.1f}, max {ev[-1]:.1f}), peak memory {peak:.2f} GiB, {nd} "
+                f"detections, {k1} K1 and {int(fused)} K3 launches a forward [{card}]")
+            out[cell] = dict(ms_host=host_ms, ms_events_median=ev[len(ev) // 2],
+                             ms_events=ev, peak_gib=peak, k1_per_forward=k1,
+                             k3_per_forward=int(fused), detections=nd,
+                             stages_ms=profile_forward(model, images, supps,
+                                                       f"phase 15 {cell}"))
+        del model, dets
+        torch.cuda.empty_cache()
+    del images, supps
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def anchor_train_steps(flagship, dev, card):
+    """Phase 15b: each cell's train step at full width (bf16, batch 8
+    832x1216, supports 416x416, MAX_GT_BOXES 64, seed-1 weights, the
+    anchor head's ``quiet_anchor_head_``, SOLVER.BASE_LR ``ANCHOR_TRAIN``):
+    ANCHOR_WARMUP steps, then ANCHOR_STEPS timed, each on a fresh
+    ``make_episodic_batch`` episode; ms/step by CUDA events and the host
+    clock, peak memory, K1 and K1b calls a step (A 7 and 7; B 5 and 5: its
+    train step returns before the support 7x7), the losses finite and of
+    the cell's keys, the support backbone's layer4 (reached only through
+    K1b) with a non-zero gradient; one profiled step's stage spans."""
+    from oneshotdet_tpu_torch.engine import train_step
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
+
+    steps = ANCHOR_WARMUP + ANCHOR_STEPS
+    batches = [make_episodic_batch(BATCH, QUERY_HW, SUPP_HW, max_gt=64, seed=300 + i)
+               for i in range(steps)]
+    keys = {"A anchor RPN": {"loss_objectness", "loss_rpn_box_reg", "loss_classifier",
+                             "loss_box_reg"},
+            "B RetinaNet RPN_ONLY": {"loss_retina_cls", "loss_retina_reg"}}
+    paths, out = {}, {}
+    for key, (opts, _, k1) in ANCHOR_CELLS.items():
+        cfg = anchor_cfg(flagship, opts, *ANCHOR_TRAIN)
+        model = build_detection_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        quiet_anchor_head_(model, torch.Generator().manual_seed(2))
+        model.train()
+        optimizer = make_optimizer(cfg, model)
+        scheduler = make_lr_scheduler(cfg, optimizer)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        reset_launches()
+        history = [train_step(model, optimizer, scheduler, batches[0], gen)]
+        bad = [n for n, p in model.named_parameters() if p.requires_grad and (
+            p.grad is None or not bool(torch.isfinite(p.grad).all()))]
+        supp4 = [p.grad for n, p in model.named_parameters()
+                 if n.startswith("supp_backbone.body.layer4.")]
+        if bad or not all(g is not None and float(g.float().abs().sum()) > 0 for g in supp4):
+            raise AssertionError(f"{key} train step 1: no or non-finite gradient for {bad[:5]} "
+                                 f"({len(bad)} parameters), or a zero one for the support "
+                                 f"layer4; losses {history[0]}")
+        for batch in batches[1:ANCHOR_WARMUP]:
+            history.append(train_step(model, optimizer, scheduler, batch, gen))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(ANCHOR_STEPS)]
+        t0 = time.perf_counter()
+        for (start, end), batch in zip(events, batches[ANCHOR_WARMUP:]):
+            start.record()
+            history.append(train_step(model, optimizer, scheduler, batch, gen))
+            end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / ANCHOR_STEPS
+        ev = sorted(s.elapsed_time(e) for s, e in events)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        paths[f"phase 15 {key} train, {steps} steps"] = n = read_launches()
+        if n["roi_align"] != k1 * steps or n["roi_align_bwd"] != k1 * steps:
+            raise AssertionError(f"{key} train: launches {n} in {steps} steps, expected {k1} "
+                                 f"K1 and {k1} K1b calls a step")
+        losses = [{k: float(v) for k, v in m.items() if k != "loss_total"} for m in history]
+        for i, m in enumerate(losses):
+            if set(m) != keys[key] or not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{key} train step {i + 1}: losses {m}")
+        log(f"phase 15 train step {key}: bf16, batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]}, "
+            f"{host_ms:.1f} ms/step by the host clock over {ANCHOR_STEPS} steps on fresh "
+            f"batches, CUDA events median {ev[len(ev) // 2]:.1f} ms (min {ev[0]:.1f}, max "
+            f"{ev[-1]:.1f}), peak memory {peak:.2f} GiB, {k1} K1 and {k1} K1b calls a step; "
+            f"last losses {losses[-1]} [{card}]")
+        prof = profile_train_step(lambda: train_step(model, optimizer, scheduler, batches[-1], gen),
+                                  f"phase 15 {key} train step", ANCHOR_STAGES)
+        out[key] = dict(ms_host=host_ms, ms_events_median=ev[len(ev) // 2], ms_events=ev,
+                        peak_gib=peak, k1_per_step=k1, k1b_per_step=k1, losses=losses[-1],
+                        profile=prof)
+        del model, optimizer, scheduler
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def anchor_cli(flagship, dev, card):
+    """Phase 15c: cell A through ``tools.test_net`` over ANCHOR_CLI_BATCHES
+    batches of 8 on phase 8's synthetic dataset (a .pth of seed-1 weights,
+    the anchor head's ``quiet_anchor_head_``;
+    7 K1 launches a batch, COCO files written) and ``tools.train_net`` from
+    that .pth for ANCHOR_CLI_STEPS steps at ``ANCHOR_TRAIN``'s learning rate
+    (7 K1 and 7 K1b calls a step, finite losses)."""
+    from oneshotdet_tpu_torch.data import build as data_build
+    from oneshotdet_tpu_torch.engine import trainer
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.tools import test_net, train_net
+    from oneshotdet_tpu_torch.utils import checkpoint as ckpt_mod
+    from oneshotdet_tpu_torch.utils.synthetic import write_synthetic_coco
+
+    paths, out = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        img_dir, ann_file = write_synthetic_coco(root, num_images=DATA_IMAGES, sizes=DATA_SIZES,
+                                                 box_side=DATA_BOX_SIDE, seed=0)
+        env = {"ONESHOT_CUSTOM_IMG_DIR": img_dir, "ONESHOT_CUSTOM_ANN_FILE": ann_file}
+        os.environ.update(env)
+        opts = [str(v) for v in ["DATASETS.TRAIN", "('custom',)", "DATASETS.TEST",
+                                 "('custom',)", "FEW_SHOT.TRAINING_EXCL_CATS", "[]",
+                                 "TEST.IMS_PER_BATCH", BATCH, "SOLVER.IMS_PER_BATCH", BATCH,
+                                 *ANCHOR_A]]
+        model = build_detection_model(anchor_cfg(flagship, opts), device=dev,
+                                      generator=torch.Generator().manual_seed(1))
+        quiet_anchor_head_(model, torch.Generator().manual_seed(2))
+        ckpt = os.path.join(root, "seed1.pth")
+        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        _cli_logger()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = test_net.main(["--config-file", flagship, "--ckpt", ckpt, *opts, "OUTPUT_DIR",
+                            os.path.join(root, "eval"), "FEW_SHOT.STOP_ITER",
+                            str(ANCHOR_CLI_BATCHES)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = "phase 15 A anchor RPN: eval CLI (test_net)"
+        paths[label] = n = read_launches()
+        metrics, n_dets = check_eval_outputs(os.path.join(root, "eval", "eval"), label)
+        if rc != 0 or n["roi_align"] != 7 * ANCHOR_CLI_BATCHES:
+            raise AssertionError(f"{label}: exit {rc}, launches {n} for {ANCHOR_CLI_BATCHES} "
+                                 f"batches")
+        out["eval_cli"] = dict(wall_s=wall, detections=n_dets, AP=metrics["AP"],
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"{label}: {ANCHOR_CLI_BATCHES} batches of {BATCH}, {wall:.1f} s in all with the "
+            f"evaluation (host clock); 7 K1 launches a batch; {n_dets} detections; AP "
+            f"{metrics['AP']:.4f} (random weights) [{card}]")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with _TrainProbe(ckpt_mod, trainer, lambda *a: None) as probe:
+            probe.max_iter = ANCHOR_CLI_STEPS
+            rc = train_net.main(["--config-file", flagship, *opts, *map(str, ANCHOR_TRAIN),
+                                 "MODEL.WEIGHT", ckpt, "SOLVER.MAX_ITER", str(ANCHOR_CLI_STEPS),
+                                 "SOLVER.CHECKPOINT_PERIOD", str(10 * ANCHOR_CLI_STEPS),
+                                 "OUTPUT_DIR", os.path.join(root, "train")])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        label = "phase 15 A anchor RPN: train CLI (train_net)"
+        paths[label] = read_launches()
+        steps = probe.steps
+        for st in steps:
+            k = st["launches"]
+            losses = {name: float(v) for name, v in st["metrics"].items()}
+            if k["roi_align"] != 7 or k["roi_align_bwd"] != 7 or \
+                    "loss_objectness" not in losses or \
+                    not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"{label} step {st['it'] + 1}: launches {k}, losses {losses}")
+            st["losses"] = losses
+        if rc != 0 or len(steps) != ANCHOR_CLI_STEPS:
+            raise AssertionError(f"{label}: exit {rc}, {len(steps)} steps")
+        ms_step = 1e3 * (probe.end - steps[1]["t0"]) / (ANCHOR_CLI_STEPS - 1)
+        out["train_cli"] = dict(ms_per_step=ms_step, peak_gib=peak, losses=steps[-1]["losses"])
+        log(f"{label}: {ANCHOR_CLI_STEPS} steps from the .pth, {ms_step:.1f} ms/step over steps "
+            f"2-{ANCHOR_CLI_STEPS} (host clock, loader included; bf16, batch {BATCH}); 7 K1 and "
+            f"7 K1b calls a step; peak memory {peak:.2f} GiB; losses {steps[-1]['losses']} "
+            f"[{card}]")
+        logging.getLogger("oneshotdet_tpu_torch").handlers.clear()
+        for key in env:
+            os.environ.pop(key, None)
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def anchor_predictor(flagship, dev, card, supp, frames):
+    """Phase 15d: ``OneShotPredictor`` of cell A (bf16, seed-1 weights) on
+    phase 4's support (6 K1) and frames of four sizes (1 K1 a frame), the
+    anchor grids built once for the query bucket's shapes."""
+    from oneshotdet_tpu_torch.predictor import OneShotPredictor
+
+    reset_launches()
+    pred = OneShotPredictor(anchor_cfg(flagship, ANCHOR_A), confidence_threshold=0.0,
+                            device=dev, generator=torch.Generator().manual_seed(1))
+    pred.set_support(supp)
+    ms = []
+    for frame in frames:
+        t0 = time.perf_counter()
+        boxes, scores = pred.run_on_image(frame)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        fh, fw = frame.shape[:2]
+        if not (len(scores) and np.isfinite(boxes).all() and boxes[:, [0, 2]].max() <= fw
+                and boxes[:, [1, 3]].max() <= fh and boxes.min() >= 0):
+            raise AssertionError(f"phase 15 predictor frame {fh}x{fw}: {len(scores)} detections "
+                                 f"or a box outside the frame")
+    n = read_launches()
+    grids = len(pred.model.rpn.generator._grids)
+    if n["roi_align"] != 6 + len(frames) or grids != 5:
+        raise AssertionError(f"phase 15 predictor: launches {n}, {grids} anchor grids built")
+    log(f"phase 15 predictor A: frames {[f.shape[:2] for f in frames]}, ms "
+        f"{[round(m, 1) for m in ms]} (host clock, the first with its warm-up), 6 + {len(frames)} K1 launches, 5 anchor "
+        f"grids built [{card}]")
+    del pred
+    torch.cuda.empty_cache()
+    return {"phase 15 predictor A": n}, dict(ms=ms)
+
+
+def anchor_small_checks(flagship, dev):
+    """Phase 15e: small float32 models of A and B (the flagship's SMALL
+    capacities, batch 2 128x160, supports 64x64) on the card against the
+    CPU with the same weights (``distinct_weights_``, the anchor head's
+    ``quiet_anchor_head_``) and inputs, TF32 off: the eval forward's
+    detections within the detection tolerances (``small_forward_check``),
+    and a train step with the same draws, cuDNN off and the card's
+    activations at the CPU's branch within rounding of their kink
+    (``follow_kinks``): losses within rtol 1e-4, each gradient within 1e-3
+    relative norm."""
+    from oneshotdet_tpu_torch.engine import batch_to_inputs
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.utils.synthetic import make_episodic_batch
+
+    out = {}
+    prepare = lambda m: quiet_anchor_head_(m, torch.Generator().manual_seed(52))  # noqa: E731
+    for key, (opts, _, _) in ANCHOR_CELLS.items():
+        n = small_forward_check(flagship, dev, opts=opts, label=f" (phase 15 {key})",
+                                prepare=prepare)
+        cfg = anchor_cfg(flagship, opts, *SMALL)
+        batch = make_episodic_batch(2, (128, 160), (64, 64), max_gt=4, seed=51)
+        cpu = build_detection_model(cfg, device="cpu")
+        distinct_weights_(cpu, torch.Generator().manual_seed(53))
+        prepare(cpu)
+        shapes = pyramid_shapes(128, 160)
+        r = cfg.MODEL.RPN
+        n_anchors = 3 * sum(h * w for h, w in shapes)
+        n_props = min(r.FPN_POST_NMS_TOP_N_TRAIN, sum(
+            min(r.POST_NMS_TOP_N_TRAIN, r.PRE_NMS_TOP_N_TRAIN, 3 * h * w) for h, w in shapes))
+        g = torch.Generator().manual_seed(54)
+        rpn_draws = torch.rand((2, n_anchors), generator=g)
+        draws = torch.rand((2, n_props + cfg.TPU.MAX_GT_BOXES), generator=g)
+
+        def step(model, d, kinks):
+            model.train()
+            with kinks:
+                losses = model.forward_train(*batch_to_inputs(batch, d), draws=draws.to(d),
+                                             rpn_draws=rpn_draws.to(d))
+                sum(losses.values()).backward()
+            return ({k: float(v.detach()) for k, v in losses.items()},
+                    {n_: p.grad.detach().cpu() for n_, p in model.named_parameters()
+                     if p.grad is not None})
+
+        record = follow_kinks()
+        lc, gc = step(cpu, "cpu", record)
+        gpu = build_detection_model(cfg, device=dev)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        follow = follow_kinks(record.calls)
+        torch.backends.cudnn.enabled = False
+        try:
+            lg, gg = step(gpu, dev, follow)
+        finally:
+            torch.backends.cudnn.enabled = True
+        del gpu, cpu, record
+        if gc.keys() != gg.keys() or lc.keys() != lg.keys() or \
+                not all(math.isfinite(v) for v in (*lc.values(), *lg.values())):
+            raise AssertionError(f"phase 15 small step {key}: card and CPU differ in their "
+                                 f"losses or in which parameters have gradients, or a loss "
+                                 f"is not finite: {lc} {lg}")
+        loss_rel = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+        rel = sorted(((float((gg[k] - v).norm() / v.norm().clamp(min=1e-30)), k)
+                      for k, v in gc.items() if float(v.norm()) > 0), reverse=True)
+        log(f"phase 15 small float32 train step {key}, card against CPU (cuDNN off, TF32 off): "
+            f"losses within {loss_rel:.2e} relative, worst gradient {rel[0][0]:.2e} relative "
+            f"norm ({rel[0][1]}); {follow.taken} activation elements at the CPU's branch; "
+            f"losses {lc}")
+        if loss_rel > 1e-4 or rel[0][0] > 1e-3:
+            raise AssertionError(f"phase 15 small step {key}: losses {loss_rel:.2e} (rtol 1e-4), "
+                                 f"gradients {rel[0][0]:.2e} (bound 1e-3)")
+        out[key] = dict(forward_detections=n, loss_rel=loss_rel, grad_rel=rel[0][0],
+                        kink_elements_taken=follow.taken)
+    return out
+
+
+def anchor_path(flagship, dev, card, supp, frames):
+    """Phase 15: the anchor RPN (A) and RetinaNet (B) stage 1 at full width:
+    eval forwards, train steps, A's CLIs and predictor, and the small
+    float32 checks against the CPU."""
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    for name, fn in (("eval", lambda: anchor_eval_forwards(flagship, dev, card)),
+                     ("train", lambda: anchor_train_steps(flagship, dev, card)),
+                     ("cli", lambda: anchor_cli(flagship, dev, card)),
+                     ("predictor", lambda: anchor_predictor(flagship, dev, card, supp, frames))):
+        t0 = time.perf_counter()
+        p, out[name] = fn()
+        paths.update(p)
+        log(f"phase 15 {name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["small"] = anchor_small_checks(flagship, dev)
+    log(f"phase 15 small: {time.perf_counter() - t0:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['phase_s']:.1f} s")
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -4518,6 +4942,15 @@ def main() -> int:
 
     phase_done("phase 14 (TPU.QUANT)")
 
+    # -- phase 15: the anchor RPN and RetinaNet stage 1 (MODEL.FCOS_ON False) -------
+    anchor_paths, anchor = anchor_path(flagship, dev, card, supp, frame_pixels)
+    paths.update(anchor_paths)
+    for label, n in anchor_paths.items():
+        launches[label] = n["roi_align"]
+        head_launches[label] = n["roi_head"]
+
+    phase_done("phase 15 (anchor RPN and RetinaNet)")
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -4544,6 +4977,7 @@ def main() -> int:
                        if not name.startswith("bwd ")},
         "mask_keypoint": mask_kp,
         "quant": quant,
+        "anchor_stage1": anchor,
         "artifact": artifact,
         "supp_aug": supp_aug,
         "card": card,

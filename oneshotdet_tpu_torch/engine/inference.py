@@ -52,8 +52,12 @@ _EXTRAS = ("mask_probs", "keypoints_xy", "keypoints_scores")
 
 def _outputs(dets):
     """(xyxy, scores, labels, valid) and the mask / keypoint fields the
-    detections carry, in ``_EXTRAS`` order."""
-    return (dets.xyxy, dets.get_field("scores"), dets.get_field("labels"), dets.valid,
+    detections carry, in ``_EXTRAS`` order. RPN_ONLY's stage-1 output has
+    no 'labels': its boxes are class-agnostic, labelled 1."""
+    labels = dets.fields.get("labels")
+    if labels is None:
+        labels = torch.ones_like(dets.valid, dtype=torch.int32)
+    return (dets.xyxy, dets.get_field("scores"), labels, dets.valid,
             *(dets.fields[k] for k in _EXTRAS if k in dets.fields))
 
 

@@ -124,9 +124,15 @@ def export_eval(cfg, model, *, batch: int = 8, query_hw: Optional[Tuple[int, int
     """Trace the eval program of ``model`` (the port's ``GeneralizedRCNN``,
     on the device the artifact is for) at static shapes. Returns one
     ``ExportedProgram`` (kind="full") or a (support, detect) pair of them
-    (kind="cached_support"); the weights are inside."""
+    (kind="cached_support"); the weights are inside. A model whose stage 1
+    is the anchor RPN or RetinaNet raises NotImplementedError (not ported
+    yet)."""
     if kind not in ("full", "cached_support"):
         raise ValueError(f"unknown export kind: {kind!r}")
+    if model.config.stage1 != "fcos":
+        raise NotImplementedError(
+            f"exporting a model whose stage 1 is {model.config.stage1!r} (MODEL.FCOS_ON False) "
+            "is not ported to oneshotdet_tpu_torch yet")
     query_hw = tuple(query_hw or cfg.TPU.QUERY_BUCKETS[0])
     supp_hw = tuple(supp_hw or cfg.TPU.SUPP_BUCKET)
     dev = next(model.parameters()).device

@@ -10,7 +10,10 @@
            support box [0, 0, w, h], shot-averaged, and multiplied channel-wise
            into the query pyramid;
   stage 1: class-agnostic FCOS on the fused pyramid (MODEL.FCOS.DENSE_POINTS
-           1, 4 or 5 points per cell) -> padded proposals;
+           1, 4 or 5 points per cell) -> padded proposals; with MODEL.FCOS_ON
+           False the anchor RPN (``models.rpn``) in its place, or with
+           MODEL.RETINANET_ON RetinaNet (``models.retinanet``), whose
+           detections are the proposals (or, with RPN_ONLY, the output);
   stage 2: 7x7 ROIAlign of the raw query pyramid over the proposals and of the
            whole support -> relation head -> detections.
 
@@ -50,10 +53,19 @@ every slot, valid or not, as the JAX package does, because the per-tensor
 activation scale of compress_0's query half and of the heads' first convs
 is the maximum over all of them.
 
+The anchor RPN feeds stage 2 as FCOS does (its proposals at the train
+capacities with the GT boxes appended in training; EVAL_ROI_TOPK, the 7x7
+pool and the relation head in eval) and trains its own losses,
+loss_objectness (x10) and loss_rpn_box_reg (x500). RetinaNet trains stage 1
+alone, loss_retina_cls and loss_retina_reg, whatever RPN_ONLY says, as the
+JAX package does. The mask and keypoint heads follow stage 2 whatever stage
+1 is.
+
 A config that turns on a part not ported yet raises ``NotImplementedError``
 (see ``detector_config_from_cfg``). The stages are
 ``torch.profiler.record_function`` ranges (query_backbone, support_backbone,
-support_pool, fcos_head, fcos_postprocess, roi_pool, roi_head,
+support_pool, fcos_head, fcos_postprocess or rpn_head, rpn_postprocess or
+retinanet_head, retinanet_postprocess, then roi_pool, roi_head,
 roi_postprocess, mask_head, keypoint_head), so a profiler trace reads the
 time of each.
 """
@@ -84,6 +96,9 @@ from .mask_head import MaskHead, mask_head_loss, project_gt_rasters
 from .roi_head import (ROIHeads, draw_art_offsets, make_artificial_proposals,
                        predictor_num_classes, prepare_roi_targets, roi_head_loss,
                        roi_head_postprocess)
+from .retinanet import (RetinaNetModule, retina_prior_bias, retinanet_losses,
+                        retinanet_postprocess)
+from .rpn import RPNModule, rpn_losses, rpn_postprocess, rpn_targets
 
 ART_PROPOSAL_CAP = 1000   # real boxes kept after the artificial proposals
 
@@ -96,6 +111,31 @@ class DetectorConfig:
     out_channels: int = 256
     use_c5_for_p6: bool = False
     siamese_backbone: bool = True
+    stage1: str = "fcos"            # fcos | rpn | retinanet (MODEL.FCOS_ON, RETINANET_ON)
+    # the anchor RPN (MODEL.RPN)
+    rpn_anchor_sizes: Tuple[float, ...] = (32, 64, 128, 256, 512)
+    rpn_aspect_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    rpn_anchor_stride: Tuple[int, ...] = (8, 16, 32, 64, 128)
+    rpn_straddle_thresh: float = 0.0
+    rpn_fg_iou: float = 0.7
+    rpn_bg_iou: float = 0.3
+    rpn_batch_per_image: int = 256
+    rpn_positive_fraction: float = 0.5
+    rpn_post_nms_top_n_train: int = 4000
+    rpn_post_nms_top_n_test: int = 2000
+    rpn_min_size: float = 0.0
+    # RetinaNet (MODEL.RETINANET)
+    retina_num_classes: int = 1
+    retina_anchor_sizes: Tuple[float, ...] = (32, 64, 128, 256, 512)
+    retina_anchor_strides: Tuple[int, ...] = (8, 16, 32, 64, 128)
+    retina_aspect_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    retina_octave: float = 2.0
+    retina_scales_per_octave: int = 3
+    retina_fg_iou: float = 0.5
+    retina_bg_iou: float = 0.4
+    retina_inference_th: float = 0.0
+    retina_pre_nms_top_n: int = 12000
+    retina_nms_th: float = 0.4
     fpn_strides: Tuple[int, ...] = (8, 16, 32, 64, 128)
     num_convs: int = 4
     dense_points: int = 1
@@ -169,7 +209,8 @@ def _not_ported(cfg) -> List[str]:
     """Names of the switches this cfg turns on that the port does not run."""
     c = cfg
     checks = {
-        "MODEL.FCOS_ON=False (anchor RPN / RetinaNet stage 1)": not c.MODEL.FCOS_ON,
+        "TPU.QUANT with MODEL.RETINANET_ON (RetinaNet's int8 towers)":
+            not c.MODEL.FCOS_ON and c.MODEL.RETINANET_ON and c.TPU.QUANT not in ("", "none"),
     }
     return [name for name, on in checks.items() if on]
 
@@ -183,11 +224,36 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
     if missing:
         raise NotImplementedError(
             "not ported to oneshotdet_tpu_torch yet: " + ", ".join(missing))
+    rpn, retina = cfg.MODEL.RPN, cfg.MODEL.RETINANET
     return DetectorConfig(
         depth=50 if "50" in cfg.MODEL.BACKBONE.CONV_BODY else 101,
         out_channels=cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS,
         use_c5_for_p6=cfg.MODEL.RETINANET.USE_C5,
         siamese_backbone=cfg.FEW_SHOT.SIAMESE_BACKBONE,
+        stage1=("fcos" if cfg.MODEL.FCOS_ON else
+                "retinanet" if cfg.MODEL.RETINANET_ON else "rpn"),
+        rpn_anchor_sizes=tuple(rpn.ANCHOR_SIZES),
+        rpn_aspect_ratios=tuple(rpn.ASPECT_RATIOS),
+        rpn_anchor_stride=tuple(rpn.ANCHOR_STRIDE),
+        rpn_straddle_thresh=float(rpn.STRADDLE_THRESH),
+        rpn_fg_iou=rpn.FG_IOU_THRESHOLD,
+        rpn_bg_iou=rpn.BG_IOU_THRESHOLD,
+        rpn_batch_per_image=rpn.BATCH_SIZE_PER_IMAGE,
+        rpn_positive_fraction=rpn.POSITIVE_FRACTION,
+        rpn_post_nms_top_n_train=rpn.POST_NMS_TOP_N_TRAIN,
+        rpn_post_nms_top_n_test=rpn.POST_NMS_TOP_N_TEST,
+        rpn_min_size=float(rpn.MIN_SIZE),
+        retina_num_classes=retina.NUM_CLASSES - 1,
+        retina_anchor_sizes=tuple(retina.ANCHOR_SIZES),
+        retina_anchor_strides=tuple(retina.ANCHOR_STRIDES),
+        retina_aspect_ratios=tuple(retina.ASPECT_RATIOS),
+        retina_octave=retina.OCTAVE,
+        retina_scales_per_octave=retina.SCALES_PER_OCTAVE,
+        retina_fg_iou=retina.FG_IOU_THRESHOLD,
+        retina_bg_iou=retina.BG_IOU_THRESHOLD,
+        retina_inference_th=retina.INFERENCE_TH,
+        retina_pre_nms_top_n=retina.PRE_NMS_TOP_N,
+        retina_nms_th=retina.NMS_TH,
         fpn_strides=tuple(cfg.MODEL.FCOS.FPN_STRIDES),
         num_convs=cfg.MODEL.FCOS.NUM_CONVS,
         dense_points=cfg.MODEL.FCOS.DENSE_POINTS,
@@ -289,9 +355,19 @@ class GeneralizedRCNN(nn.Module):
             # the variants' channels concatenated, aug-major, 3x3 to C
             self.supp_aug_conv = Conv2d((1 + c.num_supp_aug) * c.out_channels, c.out_channels,
                                         3, padding=1, bias=False)
-        self.rpn = FCOSModule(in_channels=c.out_channels, num_convs=c.num_convs,
-                              num_levels=len(c.fpn_strides), dense_points=c.dense_points,
-                              quant=c.quant)
+        # stage 1, under the reference's ``rpn`` name whichever it is
+        if c.stage1 == "fcos":
+            self.rpn = FCOSModule(in_channels=c.out_channels, num_convs=c.num_convs,
+                                  num_levels=len(c.fpn_strides), dense_points=c.dense_points,
+                                  quant=c.quant)
+        elif c.stage1 == "retinanet":
+            self.rpn = RetinaNetModule(c.out_channels, c.retina_num_classes,
+                                       c.retina_anchor_sizes, c.retina_anchor_strides,
+                                       c.retina_aspect_ratios, c.retina_octave,
+                                       c.retina_scales_per_octave)
+        else:
+            self.rpn = RPNModule(c.out_channels, c.rpn_anchor_sizes, c.rpn_aspect_ratios,
+                                 c.rpn_anchor_stride, c.rpn_straddle_thresh)
         if not c.rpn_only:
             ncls, nreg = predictor_num_classes(c.second_stage_method,
                                                c.second_stage_cls_loss, c.neg_support)
@@ -516,16 +592,51 @@ class GeneralizedRCNN(nn.Module):
             box_idx = cls_idx[:, :1].expand(n, regs.shape[-1])
         return merged_logits, torch.gather(regs, 0, box_idx[None])[0]
 
+    @staticmethod
+    def _fuse(features, supp_pooled):
+        """The query pyramid times the pooled support, channel-wise."""
+        return [f * p.reshape(p.shape[0], 1, 1, -1).permute(0, 3, 1, 2).to(f.dtype)
+                for f, p in zip(features, supp_pooled)]
+
     def _fcos_head(self, features, supp_pooled):
         """Fusion and the FCOS head: (locations, logits, bbox_reg, ctrness)."""
         with record_function("fcos_head"):
-            combined = [f * p.reshape(p.shape[0], 1, 1, -1).permute(0, 3, 1, 2).to(f.dtype)
-                        for f, p in zip(features, supp_pooled)]
+            combined = self._fuse(features, supp_pooled)
             logits, bbox_reg, ctrness = self.rpn.head(combined)
         locations = compute_locations([(f.shape[2], f.shape[3]) for f in combined],
                                       self.config.fpn_strides, device=combined[0].device,
                                       dense_points=self.config.dense_points)
         return locations, logits, bbox_reg, ctrness
+
+    def _anchor_head(self, features, supp_pooled):
+        """Fusion and the anchor RPN's or RetinaNet's head: (anchors per
+        level, class logits, deltas)."""
+        with record_function(f"{self.config.stage1}_head"):
+            combined = self._fuse(features, supp_pooled)
+            cls, reg = self.rpn.head(combined)
+        anchors = self.rpn.generator.grid_anchors([(f.shape[2], f.shape[3]) for f in combined],
+                                                  combined[0].device)
+        return anchors, cls, reg
+
+    def _anchor_proposals(self, stage1, sizes_wh, train: bool = False) -> Boxes:
+        """The anchor RPN's proposals (at the train or test capacities), or
+        RetinaNet's detections."""
+        c = self.config
+        anchors, cls, reg = stage1
+        if c.stage1 == "retinanet":
+            with record_function("retinanet_postprocess"):
+                return retinanet_postprocess(
+                    anchors, cls, reg, sizes_wh, self.rpn.box_coder, c.retina_num_classes,
+                    min(c.retina_pre_nms_top_n, c.nms_pre_topk), c.retina_inference_th,
+                    c.retina_nms_th, c.fpn_post_nms_top_n_test)
+        with record_function("rpn_postprocess"):
+            return rpn_postprocess(
+                anchors, cls, reg, sizes_wh, self.rpn.box_coder,
+                c.pre_nms_top_n_train if train else c.pre_nms_top_n_test,
+                c.rpn_post_nms_top_n_train if train else c.rpn_post_nms_top_n_test,
+                c.rpn_nms_thresh,
+                c.fpn_post_nms_top_n_train if train else c.fpn_post_nms_top_n_test,
+                c.rpn_min_size)
 
     # -- public eval API ------------------------------------------------------
 
@@ -550,8 +661,9 @@ class GeneralizedRCNN(nn.Module):
     def detect_from_features(self, features, sizes_wh, supp_pooled, supp_7x7,
                              target_ids=None) -> Boxes:
         """Fusion -> stage 1 -> stage 2 -> postprocess. With RPN_ONLY, the
-        stage-1 proposals (the RPN settings, as the JAX package's
-        ``detect_from_features``)."""
+        stage-1 proposals (FCOS: the RPN settings, as the JAX package's
+        ``detect_from_features``; the anchor RPN's proposals with
+        'objectness' and 'scores'; RetinaNet's detections)."""
         return self._detect_from_features(features, sizes_wh, supp_pooled, supp_7x7,
                                           target_ids)
 
@@ -605,13 +717,17 @@ class GeneralizedRCNN(nn.Module):
             target_ids = torch.as_tensor(target_ids, dtype=torch.int32,
                                          device=dev).reshape(-1).expand(b)
 
-        stage1 = self._fcos_head(features, supp_pooled)
-        with record_function("fcos_postprocess"):
-            proposals = fcos_postprocess(
-                *stage1, sizes_wh,
-                c.pre_nms_top_n_test, c.rpn_nms_thresh, c.fpn_post_nms_top_n_test,
-                c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk,
-                dense_points=c.dense_points)
+        if c.stage1 == "fcos":
+            stage1 = self._fcos_head(features, supp_pooled)
+            with record_function("fcos_postprocess"):
+                proposals = fcos_postprocess(
+                    *stage1, sizes_wh,
+                    c.pre_nms_top_n_test, c.rpn_nms_thresh, c.fpn_post_nms_top_n_test,
+                    c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk,
+                    dense_points=c.dense_points)
+        else:
+            proposals = self._anchor_proposals(self._anchor_head(features, supp_pooled),
+                                               sizes_wh)
         if c.rpn_only:
             return proposals
         if c.eval_roi_topk:
@@ -638,7 +754,7 @@ class GeneralizedRCNN(nn.Module):
         features = self._backbone_features(images)
         supp_pooled, supp_7x7 = self._support_branch(images_supp, b)
         c = self.config
-        if c.rpn_only:
+        if c.rpn_only and c.stage1 == "fcos":
             # the FCOS stage-1 settings, as the JAX package's __call__
             stage1 = self._fcos_head(features, supp_pooled)
             with record_function("fcos_postprocess"):
@@ -656,11 +772,14 @@ class GeneralizedRCNN(nn.Module):
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[torch.Tensor] = None,
                       images_neg_supp: Optional[ImageBatch] = None,
-                      art_offsets: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                      art_offsets: Optional[torch.Tensor] = None,
+                      rpn_draws: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The train forward: a dict of scalar float32 losses, loss_cls,
-        loss_reg and loss_centerness (FCOS) and, unless RPN_ONLY,
-        loss_classifier (x5) and loss_box_reg (x2.5), with loss_reverse
-        (REVERSE_ORDER) or else loss_cls_suppress (x2.5; NEG_SUPPORT with
+        loss_reg and loss_centerness (FCOS), or loss_objectness (x10) and
+        loss_rpn_box_reg (x500) (the anchor RPN), or loss_retina_cls and
+        loss_retina_reg alone (RetinaNet, which trains stage 1 only) and,
+        unless RPN_ONLY, loss_classifier (x5) and loss_box_reg (x2.5), with
+        loss_reverse (REVERSE_ORDER) or else loss_cls_suppress (x2.5; NEG_SUPPORT with
         ``images_neg_supp`` given), and loss_mask (MASK_ON) and loss_kp
         (KEYPOINT_ON) over the sampled ROIs.
 
@@ -675,12 +794,19 @@ class GeneralizedRCNN(nn.Module):
 
         The random inputs, each drawn from ``generator`` on the model's
         device (a generator of that device) when None, in this order:
-        ``art_offsets``, (B, G, 64, 4) jitters of the artificial proposals in
-        [thres - 1, 1 - thres), thres = 0.8499 (ADD_ARTIFICIAL_PROPOSALS
-        only); then ``draws``, (B, N) uniform sampling priorities of the N
-        proposals: N = FPN_POST_NMS_TOP_N_TRAIN + G (the GT boxes appended),
-        or with artificial proposals min(1000, 12 G + G +
-        FPN_POST_NMS_TOP_N_TRAIN), the capacity after the cap."""
+        ``rpn_draws`` (the anchor RPN only), (B, A) uniform sampling
+        priorities of the A anchors of every level; ``art_offsets``, (B, G,
+        64, 4) jitters of the artificial proposals in [thres - 1, 1 - thres),
+        thres = 0.8499 (ADD_ARTIFICIAL_PROPOSALS only); then ``draws``, (B,
+        N) uniform sampling priorities of the N proposals: N = P + G (the GT
+        boxes appended), or with artificial proposals min(1000, 12 G + G +
+        P), the capacity after the cap, where P is FPN_POST_NMS_TOP_N_TRAIN
+        (FCOS) or the anchor RPN's proposal capacity, min(FPN_POST_NMS_TOP_N_
+        TRAIN, the sum over levels of min(POST_NMS_TOP_N_TRAIN,
+        PRE_NMS_TOP_N_TRAIN, the level's anchors)). The JAX package draws
+        ``rpn_draws`` from ``fold_in(rng, 7)`` split per image; here they
+        come first from the one generator, so ``step_generator(it)`` still
+        gives a resumed run the draws of an uninterrupted one."""
         c = self.config
         if c.quant != "none":
             # round() has a zero gradient: the int8 path is eval only
@@ -693,23 +819,48 @@ class GeneralizedRCNN(nn.Module):
         supp_sizes = self._supp_sizes(images_supp)
         with record_function("support_pool"):
             supp_pooled = self._pool_supp_1x1(features_supp, supp_sizes, b)
-        locations, logits, bbox_reg, ctrness = self._fcos_head(features, supp_pooled)
-        labels, reg_targets = fcos_targets(
-            locations, c.fpn_strides, targets.xyxy, targets.get_field("labels"), targets.valid,
-            c.center_sample, c.pos_radius)
-        loss_cls, loss_reg, loss_ctr = fcos_losses(
-            logits, bbox_reg, ctrness, labels, reg_targets, c.loss_gamma, c.loss_alpha,
-            c.loc_loss_type, c.focal_mode, dense_points=c.dense_points)
-        losses = {"loss_cls": loss_cls, "loss_reg": loss_reg, "loss_centerness": loss_ctr}
-        if c.rpn_only:
-            return losses
-
-        with torch.no_grad(), record_function("fcos_postprocess"):
-            proposals = fcos_postprocess(
-                locations, logits, bbox_reg, ctrness, images.sizes_wh().to(torch.float32),
-                c.pre_nms_top_n_train, c.rpn_nms_thresh, c.fpn_post_nms_top_n_train,
-                c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk,
-                dense_points=c.dense_points)
+        sizes_wh = images.sizes_wh().to(torch.float32)
+        if c.stage1 == "fcos":
+            locations, logits, bbox_reg, ctrness = self._fcos_head(features, supp_pooled)
+            labels, reg_targets = fcos_targets(
+                locations, c.fpn_strides, targets.xyxy, targets.get_field("labels"),
+                targets.valid, c.center_sample, c.pos_radius)
+            loss_cls, loss_reg, loss_ctr = fcos_losses(
+                logits, bbox_reg, ctrness, labels, reg_targets, c.loss_gamma, c.loss_alpha,
+                c.loc_loss_type, c.focal_mode, dense_points=c.dense_points)
+            losses = {"loss_cls": loss_cls, "loss_reg": loss_reg, "loss_centerness": loss_ctr}
+            if c.rpn_only:
+                return losses
+            with torch.no_grad(), record_function("fcos_postprocess"):
+                proposals = fcos_postprocess(
+                    locations, logits, bbox_reg, ctrness, sizes_wh,
+                    c.pre_nms_top_n_train, c.rpn_nms_thresh, c.fpn_post_nms_top_n_train,
+                    c.nms_pre_topk, 0.0, c.score_mode, level_topk=c.strict_level_topk,
+                    dense_points=c.dense_points)
+        else:
+            stage1 = self._anchor_head(features, supp_pooled)
+            anchors, cls, reg = stage1
+            anchors_all = torch.cat(anchors)
+            if c.stage1 == "retinanet":
+                loss_cls, loss_reg = retinanet_losses(
+                    anchors_all, cls, reg, targets.xyxy, targets.get_field("labels"),
+                    targets.valid, self.rpn.box_coder, c.retina_num_classes, c.retina_fg_iou,
+                    c.retina_bg_iou)
+                return {"loss_retina_cls": loss_cls, "loss_retina_reg": loss_reg}
+            if rpn_draws is None:
+                rpn_draws = torch.rand((b, anchors_all.shape[0]), generator=generator,
+                                       device=anchors_all.device)
+            labels, reg_targets = rpn_targets(
+                anchors_all, self.rpn.generator.visibility(anchors_all, sizes_wh), targets.xyxy,
+                targets.valid, self.rpn.box_coder, c.rpn_fg_iou, c.rpn_bg_iou)
+            obj_loss, box_loss = rpn_losses(
+                rpn_draws.to(anchors_all.device), cls, reg, labels, reg_targets,
+                c.rpn_batch_per_image, c.rpn_positive_fraction)
+            losses = {"loss_objectness": obj_loss * 10.0, "loss_rpn_box_reg": box_loss * 500.0}
+            if c.rpn_only:
+                return losses
+            with torch.no_grad():
+                proposals = self._anchor_proposals(stage1, sizes_wh, train=True)
         with record_function("support_pool"):
             supp_7x7 = self._supp_roi_7x7(features_supp, supp_sizes, b)
         ones = torch.where(targets.valid, 1.0, 0.0)
@@ -777,9 +928,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     and fc6/fc7 kaiming-uniform(a=1), the mask and keypoint heads as the JAX
     package's (mask_fcn kaiming-normal over fan-out, their other convs
     flax's lecun-normal), other head layers N(0, 0.01) (bbox_pred
-    N(0, 0.001)) with the FCOS prior bias on cls_logits; biases 0;
-    FrozenBN statistics are the identity and GN/Scale factors 1."""
-    prior = model.config.prior_prob
+    N(0, 0.001)); biases 0 but the prior bias on FCOS's and RetinaNet's
+    cls_logits (not the anchor RPN's, as in the JAX package); FrozenBN
+    statistics are the identity and GN/Scale factors 1."""
+    # FCOS's from MODEL.FCOS.PRIOR_PROB, RetinaNet's from its fixed 0.01
+    prior_bias = {"fcos": -math.log((1 - model.config.prior_prob) / model.config.prior_prob),
+                  "retinanet": retina_prior_bias()}.get(model.config.stage1)
 
     def uniform(shape, scale):
         bound = math.sqrt(3.0 * scale / math.prod(shape[1:]))   # var scale/fan_in
@@ -825,8 +979,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 mod.weight.copy_(w)
                 if mod.bias is not None:
                     mod.bias.zero_()
-                    if name.endswith("cls_logits"):
-                        mod.bias.fill_(-math.log((1 - prior) / prior))
+                    if name.endswith("cls_logits") and prior_bias is not None:
+                        mod.bias.fill_(prior_bias)
 
 
 def build_detection_model(cfg, device=None,

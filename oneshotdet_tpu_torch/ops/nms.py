@@ -5,13 +5,23 @@ score, a kept box suppresses later boxes with ``iou > threshold``, IoU with
 +1 extents. Padded slots (``valid=False``) neither survive nor suppress. The keep mask
 is a custom op (``ops.library``), so that its data-dependent loop stays out
 of an exported graph.
+
+The plain keep mask builds (..., K, K) temporaries for every leading index
+at once. Where those would pass ``BATCHED_PAIRS`` elements (RetinaNet's one
+NMS over ~27 000 candidates an image, the anchor RPN's training NMS at
+12 000 a level), it runs over chunks of the leading indices, as many as fit
+(``nms_chunk``), one image at least; each image's keep set is computed
+alone either way, so the chunked mask equals the batched one bit for bit.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 TO_REMOVE = 1.0
+BATCHED_PAIRS = 2 ** 30     # (..., K, K) elements the keep mask builds at once, at most
 
 
 def _pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
@@ -48,8 +58,32 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     return op(boxes, scores, valid, float(iou_threshold))
 
 
+def nms_chunk(lead: int, k: int) -> int:
+    """Leading indices (images) per pass of the plain keep mask: all
+    ``lead`` where lead * K^2 fits BATCHED_PAIRS, else as many as fit, one
+    at least."""
+    return max(1, min(lead, BATCHED_PAIRS // max(k * k, 1)))
+
+
 def nms_keep_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
                         valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask in the original index order, over chunks of the
+    leading indices where all of them at once would pass BATCHED_PAIRS
+    (``nms_chunk``)."""
+    k = boxes.shape[-2]
+    lead = valid.shape[:-1]
+    n = math.prod(lead)
+    chunk = nms_chunk(n, k)
+    if chunk >= n:
+        return _keep_mask(boxes, scores, valid, iou_threshold)
+    flat = (boxes.reshape(n, k, 4), scores.reshape(n, k), valid.reshape(n, k))
+    parts = [_keep_mask(*(x[i:i + chunk] for x in flat), iou_threshold)
+             for i in range(0, n, chunk)]
+    return torch.cat(parts).reshape(valid.shape)
+
+
+def _keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask in the original index order.
 
     ``boxes`` (..., K, 4), ``scores`` and ``valid`` (..., K); leading dims are

@@ -8,8 +8,11 @@ scalar FCOS scales () -> (1,). Beyond the JAX package's map it carries
 heads (MODEL.MASK_ON / KEYPOINT_ON: ``roi_heads.mask.feature_extractor.
 mask_fcn{i}``, ``roi_heads.mask.predictor.{conv5_mask,mask_fcn_logits}``,
 ``roi_heads.keypoint.feature_extractor.conv_fcn{i}``,
-``roi_heads.keypoint.predictor.kps_score_lowres``), under the reference
-modules' names; a flax ``ConvTranspose`` kernel (kh, kw, in, out) becomes
+``roi_heads.keypoint.predictor.kps_score_lowres``) and the anchor stage-1
+heads (``rpn_module``: ``rpn.head.{conv,cls_logits,bbox_pred}``;
+``retinanet_module``: ``rpn.head.{cls_tower,bbox_tower}.{0,2,4,6}`` and
+``rpn.head.{cls_logits,bbox_pred}``), under the reference modules' names;
+a flax ``ConvTranspose`` kernel (kh, kw, in, out) becomes
 the (in, out, kh, kw) weight of ``conv_transpose2d`` flipped in both
 spatial axes. A tree transformed by the JAX package's
 ``quantize_weights_int8`` (TPU.QUANT 'int8_weight') keeps its int8 kernels
@@ -30,6 +33,7 @@ _FCOS_FINAL = {"cls_logits", "bbox_pred", "centerness"}
 _COMPRESS = {"compress_0": 0, "compress_gn0": 1, "compress_1": 3, "compress_gn1": 4}
 _HEADS = {"mask_head": "mask", "keypoint_head": "keypoint"}
 _DECONV = {"conv5_mask", "kps_score_lowres"}
+_RPN_CONVS = {"conv", "cls_logits", "bbox_pred"}
 
 
 def _w(leaf: str) -> str:
@@ -88,6 +92,17 @@ def map_flax_leaf(collection: str, path: Tuple[str, ...]) -> Optional[Tuple[str,
         if re.match(r"^(mask_fcn\d+|conv_fcn\d+|mask_fcn_logits)$", p[2]) or p[2] in _DECONV:
             kind = "deconv" if p[2] in _DECONV else "conv"
             return f"roi_heads.{_HEADS[p[0]]}.{p[1]}.{p[2]}.{_w(p[3])}", _t(p[3], kind)
+        return None
+
+    if p[0] == "rpn_module" and len(p) == 4 and p[1] == "head" and p[2] in _RPN_CONVS:
+        return f"rpn.head.{p[2]}.{_w(p[3])}", _t(p[3], "conv")
+
+    if p[0] == "retinanet_module" and len(p) == 4 and p[1] == "head":
+        m = re.match(r"^(cls_tower|bbox_tower)_(\d+)$", p[2])
+        if m:
+            return f"rpn.head.{m.group(1)}.{2 * int(m.group(2))}.{_w(p[3])}", _t(p[3], "conv")
+        if p[2] in ("cls_logits", "bbox_pred"):
+            return f"rpn.head.{p[2]}.{_w(p[3])}", _t(p[3], "conv")
         return None
 
     if p[0] == "fcos_head":

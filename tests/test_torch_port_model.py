@@ -87,12 +87,13 @@ def test_backbone_p6_from_c5_matches_jax(setup):
                                    atol=1e-4 * np.abs(r).max())
 
 
-@pytest.mark.parametrize("switch", [("MODEL.FCOS_ON", False)])
+@pytest.mark.parametrize("switch", [("MODEL.FCOS_ON", False, "MODEL.RETINANET_ON", True,
+                                     "TPU.QUANT", "int8")])
 def test_unported_switches_raise(switch):
-    """The anchor stage 1 raises (TPU.QUANT is ported:
-    ``test_torch_port_quant.py``)."""
+    """RetinaNet under TPU.QUANT raises (the anchor stage 1 and TPU.QUANT
+    are ported: ``test_torch_port_{rpn,retinanet,quant}.py``)."""
     _, pcfg = small_cfgs(*switch)
-    with pytest.raises(NotImplementedError, match=switch[0]):
+    with pytest.raises(NotImplementedError, match=r"TPU\.QUANT with MODEL\.RETINANET_ON"):
         build_detection_model(pcfg, device="cpu")
 
 

@@ -623,7 +623,9 @@ def test_not_ported_lists_only_the_anchor_stage_one():
     from oneshotdet_tpu_torch.models.detector import _not_ported
 
     _, pcfg = small_cfgs("TPU.QUANT", "int8", "MODEL.FCOS_ON", False)
-    assert _not_ported(pcfg) == ["MODEL.FCOS_ON=False (anchor RPN / RetinaNet stage 1)"]
+    assert _not_ported(pcfg) == []              # the anchor RPN's head stays float
+    _, pcfg = small_cfgs("TPU.QUANT", "int8", "MODEL.FCOS_ON", False, "MODEL.RETINANET_ON", True)
+    assert _not_ported(pcfg) == ["TPU.QUANT with MODEL.RETINANET_ON (RetinaNet's int8 towers)"]
 
 
 # -- the unforced gap and the drift tool -----------------------------------------

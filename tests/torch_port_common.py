@@ -705,7 +705,7 @@ class mask_kp_kinks_as_jax(head_kinks_as_jax):
     def _positive(self, name, x, slope):
         k = self.calls.get(name, 0)
         self.calls[name] = k + 1
-        ref = torch.from_numpy(self.kinks[name][k]).permute(0, 3, 1, 2)   # NCHW, the port's
+        ref = torch.from_numpy(np.array(self.kinks[name][k])).permute(0, 3, 1, 2)  # NCHW
         own = x > 0
         theirs = ref > 0
         near = x.detach().abs() < KINK_TOL
@@ -719,3 +719,228 @@ class mask_kp_kinks_as_jax(head_kinks_as_jax):
     def __exit__(self, *exc):
         for mod, f in self._saved:
             mod.F = f
+
+
+# -- the anchor stage 1 (MODEL.FCOS_ON False: the anchor RPN, RetinaNet) -------
+
+# tests/test_stage1_dispatch.py::_small_base: the packages' defaults at 64 FPN
+# channels, one backbone, small capacities, the anchor RPN's five strides
+STAGE1_SMALL = [
+    "MODEL.FCOS_ON", False,
+    "MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET",
+    "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 64,
+    "MODEL.RETINANET.USE_C5", False,
+    "FEW_SHOT.SIAMESE_BACKBONE", False,
+    "FEW_SHOT.SECOND_STAGE_METHOD", "concat",
+    "FEW_SHOT.SECOND_STAGE_CLS_LOSS", "ce_loss",
+    "MODEL.RPN.PRE_NMS_TOP_N_TEST", 64,
+    "MODEL.RPN.POST_NMS_TOP_N_TEST", 32,
+    "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 32,
+    "MODEL.RPN.POST_NMS_TOP_N_TRAIN", 32,
+    "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", 32,
+    "MODEL.RPN.ANCHOR_STRIDE", "(8, 16, 32, 64, 128)",
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 8,
+    "MODEL.ROI_HEADS.DETECTIONS_PER_IMG", 16,
+    "TPU.MAX_GT_BOXES", 4,
+    "TPU.NMS_PRE_TOPK", 128,
+    "TPU.COMPUTE_DTYPE", "float32",
+]
+# RetinaNet as tests/test_stage1_dispatch.py builds it
+RETINA = ["MODEL.RETINANET_ON", True, "MODEL.RETINANET.PRE_NMS_TOP_N", 64]
+
+
+def stage1_cfgs(*overrides):
+    """(JAX cfg, port cfg): the defaults, STAGE1_SMALL, overrides."""
+    out = []
+    for base in (jax_default_cfg, port_default_cfg):
+        c = base.clone()
+        c.merge_from_list(STAGE1_SMALL + list(overrides))
+        out.append(c)
+    return tuple(out)
+
+
+def stage1_inputs(seed=0):
+    """numpy (queries (2, 64, 64, 3), their (h, w), supports (2, 32, 32, 3),
+    their (h, w)), the second image of each smaller than its bucket."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(2, 64, 64, 3).astype(np.float32),
+            np.array([[64.0, 64.0], [48.0, 56.0]], np.float32),
+            rng.randn(2, 32, 32, 3).astype(np.float32),
+            np.array([[32.0, 32.0], [32.0, 24.0]], np.float32))
+
+
+def stage1_setup(*overrides):
+    """Seeded weights of the config's JAX model (``random_variables`` on
+    ``stage1_inputs``) for both packages: dict(jcfg, pcfg, jm, variables,
+    state_dict, jax=(images, supports), port=(images, supports))."""
+    q, qs, s, ss = stage1_inputs()
+    jcfg, pcfg = stage1_cfgs(*overrides)
+    jm = jax_build(jcfg)
+    jq = JaxImageBatch(jnp.asarray(q), jnp.asarray(qs))
+    js = JaxImageBatch(jnp.asarray(s), jnp.asarray(ss))
+    variables = random_variables(jm, (jq, js))
+    head = variables["params"].get("retinanet_module", {}).get("head", {})
+    for conv in head.values():
+        # RetinaNet's towers have no norm: at N(0, 1/fan_in) their logits
+        # reach +-5000 on the fused pyramid, where the sigmoid saturates and
+        # JAX's jitted focal loss rounds log(1 - p + 1e-6) 0.3% away from its
+        # own op-by-op value; the head's init scale, N(0, 0.01), keeps them
+        # near +-10
+        k = conv["kernel"]
+        conv["kernel"] = (k * np.float32(0.01 * np.sqrt(np.prod(k.shape[:-1])))).astype(np.float32)
+    return dict(jcfg=jcfg, pcfg=pcfg, jm=jm, variables=variables,
+                state_dict=state_dict_from_flax(variables), jax=(jq, js),
+                port=(ImageBatch(t(q), t(qs)), ImageBatch(t(s), t(ss))))
+
+
+def stage1_port(setup):
+    """The port's model of a ``stage1_setup`` on the CPU, its weights loaded
+    strictly."""
+    model = build_detection_model(setup["pcfg"], device="cpu")
+    model.load_state_dict(setup["state_dict"], strict=True)
+    return model
+
+
+def jax_rpn_draws(rng, n, b=TRAIN_B):
+    """The (B, n) uniforms JAX's anchor RPN loss draws under the train rng
+    ``rng``: ``fold_in(rng, 7)`` split per image."""
+    keys = jax.random.split(jax.random.fold_in(rng, 7), b)
+    return torch.from_numpy(np.stack([np.asarray(jax.random.uniform(k, (n,))) for k in keys]))
+
+
+def anchor_proposal_count(pcfg, feature_shapes, anchors_per_cell=3):
+    """The anchor RPN's train proposal capacity for these level shapes."""
+    r = pcfg.MODEL.RPN
+    per_level = [min(r.POST_NMS_TOP_N_TRAIN, r.PRE_NMS_TOP_N_TRAIN, h * w * anchors_per_cell)
+                 for h, w in feature_shapes]
+    return min(r.FPN_POST_NMS_TOP_N_TRAIN, sum(per_level))
+
+
+def _stage1_kink(mdl, method):
+    """``capture_intermediates`` filter: the relation head's pre-activations
+    and the outputs of the anchor heads' convs that a ReLU takes (the RPN
+    head's ``conv``, RetinaNet's ``{cls,bbox}_tower_i``)."""
+    import re
+
+    if method != "__call__" or mdl.parent is None:
+        return False
+    if capture_head_kinks(mdl, method):
+        return True
+    head = mdl.parent
+    stage1 = getattr(head.parent, "name", None) if head.parent is not None else None
+    return head.name == "head" and (
+        (stage1 == "rpn_module" and mdl.name == "conv")
+        or (stage1 == "retinanet_module" and re.match(r"^(cls|bbox)_tower_\d$", mdl.name or "")
+            is not None))
+
+
+class anchor_kinks_as_jax(mask_kp_kinks_as_jax):
+    """The anchor heads' ReLUs (the RPN head's one, RetinaNet's tower ReLUs)
+    differentiated at JAX's branch where their input lies within KINK_TOL of
+    0 (``head_kinks_as_jax``'s rule; ``kinks`` by the flax conv's name, one
+    array per level)."""
+
+    def __init__(self, head, kinks):
+        super().__init__(None, kinks)
+        self.head = head
+
+    def __enter__(self):
+        outer = self
+
+        class Relu(nn.Module):
+            def __init__(self, name):
+                super().__init__()
+                self.kink = name
+
+            def forward(self, x):
+                return _Kink.apply(x, 0.0, outer._positive(self.kink, x, 0.0))
+
+        self._restore = []
+        if hasattr(self.head, "relu"):                     # the RPN head
+            self._restore.append((self.head, "relu", self.head.relu))
+            self.head.relu = Relu("conv")
+        else:                                              # RetinaNet's towers
+            for tower in ("cls_tower", "bbox_tower"):
+                seq = getattr(self.head, tower)
+                for i in range(len(seq) // 2):
+                    self._restore.append((seq, 2 * i + 1, seq[2 * i + 1]))
+                    seq[2 * i + 1] = Relu(f"{tower}_{i}")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, key, mod in self._restore:
+            if isinstance(key, int):
+                owner[key] = mod
+            else:
+                setattr(owner, key, mod)
+
+
+def anchor_train_reference(setup, batch, rng):
+    """JAX's value_and_grad of the config's train apply on ``batch`` under
+    ``rng`` (one FAST_COMPILE jit): dict(losses, grads by port name, kinks
+    of the relation head, kinks of the anchor head)."""
+    jm, variables = setup["jm"], setup["variables"]
+
+    def loss_fn(params, batch, rng):
+        losses, state = jm.apply({"params": params, "constants": variables["constants"]},
+                                 *jax_train_inputs(batch), train=True, rng=rng,
+                                 capture_intermediates=_stage1_kink, mutable=["intermediates"])
+        return sum(losses.values()), (losses, state["intermediates"])
+
+    args = (variables["params"], batch, rng)
+    (_, (losses, inter)), grads = compile_fast(
+        jax.value_and_grad(loss_fn, has_aux=True), *args)(*args)
+    stage1 = "rpn_module" if "rpn_module" in inter else "retinanet_module"
+    return dict(losses={k: float(v) for k, v in losses.items()},
+                grads=state_dict_from_flax({"params": grads}),
+                head_kinks={name: [np.asarray(x) for x in calls["__call__"]]
+                            for name, calls in inter.get("roi_head", {}).items()},
+                anchor_kinks={name: [np.asarray(x) for x in calls["__call__"]]
+                              for name, calls in inter[stage1]["head"].items()})
+
+
+# At 64 FPN channels the relation head's aggreg conv has 32 outputs, one to a
+# GroupNorm group: the norm removes the conv's bias, whose gradient is 0 in
+# exact arithmetic and rounding noise on both sides (~1e-7 against its
+# weight's ~10). It is held to 1e-6 of its weight's gradient instead.
+SHIFT_INVARIANT_64 = {
+    "roi_heads.box.feature_aggreg.0.bias": "roi_heads.box.feature_aggreg.0.weight"}
+
+
+def check_train_against(ref, losses, grads):
+    """Each loss within LOSS_RTOL of JAX's (the same keys) and each
+    gradient within GRAD_REL relative norm (a parameter JAX gives an
+    all-zero gradient gets none, or zeros; SHIFT_INVARIANT_64's biases
+    within 1e-6 of their weight's gradient on both sides)."""
+    assert set(losses) == set(ref["losses"])
+    for k, v in losses.items():
+        assert v.dtype == torch.float32 and v.dim() == 0
+        np.testing.assert_allclose(float(v.detach()), ref["losses"][k], rtol=LOSS_RTOL, err_msg=k)
+    for name, got in grads.items():
+        want = ref["grads"][name]
+        got = got if got is not None else torch.zeros_like(want)
+        if name in SHIFT_INVARIANT_64 and float(want.norm()) > 0:
+            scale = float(ref["grads"][SHIFT_INVARIANT_64[name]].norm())
+            assert max(float(want.norm()), float(got.norm())) <= 1e-6 * scale, name
+            continue
+        if float(want.norm()) == 0.0:
+            assert float(got.norm()) == 0.0, name
+            continue
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= GRAD_REL, f"{name}: {rel:.2e}"
+
+
+def assert_same_slots(port, ref, fields=("scores",)):
+    """Padded Boxes equal slot by slot: the same valid slots, and in them
+    the boxes within BOX_RTOL and each field within SCORE_RTOL. Stage-1
+    outputs sort by score with ties in index order on both sides, so their
+    slots line up; a set comparison by IoU cannot tell apart the identical
+    boxes that clipping gives several anchors."""
+    np.testing.assert_array_equal(np_(port.valid), np.asarray(ref.valid))
+    v = np.asarray(ref.valid)
+    assert v.any()
+    np.testing.assert_allclose(np_(port.xyxy)[v], np.asarray(ref.xyxy)[v], rtol=BOX_RTOL,
+                               atol=1e-3)
+    for name in fields:
+        np.testing.assert_allclose(np_(port.fields[name])[v], np.asarray(ref.fields[name])[v],
+                                   rtol=SCORE_RTOL, atol=1e-6, err_msg=name)
