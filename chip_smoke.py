@@ -88,8 +88,18 @@ and the anchor stage 1 (phase 15, MODEL.FCOS_ON False: the anchor RPN
 feeding stage 2 and RetinaNet with RPN_ONLY at full width, eval forwards
 with 7 and 6 K1 launches, train steps with 7 and 5 K1 and K1b calls, the
 anchor RPN through tools.test_net, tools.train_net and the predictor, and
-small float32 forwards and train steps of both on the card against the CPU)
--- and checks small float32 forwards and a small float32 train
+small float32 forwards and train steps of both on the card against the CPU),
+and the last eval-path gaps (phase 16: K1 at C = 512, bf16 and float32 (two
+channel slices), against its plain version with its plan on the proposals,
+the predictor's 1 x 2000, the p3-skew mix and the edge cases; the preset,
+the full forward and the 'int8' preset with ONESHOT_PREPOOL_COMPRESS=1,
+hoisted with and without the fused opt-in (7 K1, 0 K3) and un-hoisted in
+the same call, small float32 and 'int8' hoisted forwards against the CPU;
+RetinaNet with RPN_ONLY under 'int8' and 'int8_weight' at full width and
+small against the CPU; the anchor RPN's serving bundle through
+ArtifactPredictor bit for bit against OneShotPredictor and RetinaNet's
+batch-8 full program bit for bit against eager; tools.webcam on a 3-frame
+MJPG where cv2 imports) -- and checks small float32 forwards and a small float32 train
 step on the card against the same model on the CPU. Every kernel's launch count is
 set to 0 before each path and read after it. Any failure raises and exits
 non-zero. The last two lines of stdout are the per-kernel JSON line and
@@ -281,13 +291,16 @@ def edge_case_rois(gen, dev):
             ("all invalid R=64", invalid.to(dev), None, torch.zeros(n, dtype=torch.bool, device=dev))]
 
 
-def k1_bound(feats, rois, levels, valid, out):
-    """K1's bound on these inputs (ms, 'bytes' or 'operations'): the pyramid,
-    ROIs, levels and flags read once and the output written once at the
-    card's memory rate; 2 x 2 samples x 4 corners x (multiply + add) per
+def k1_bound(feats, rois, levels, valid, out, pixels=None):
+    """K1's bound on these inputs (ms, 'bytes' or 'operations'): the pyramid
+    (or only the ``pixels`` distinct pixels the ROIs' samples touch, where
+    given), ROIs, levels and flags read once and the output written once at
+    the card's memory rate; 2 x 2 samples x 4 corners x (multiply + add) per
     output value at the fp32 rate."""
     elt = out.element_size()
-    in_bytes = sum(f.numel() for f in feats) * elt + rois.numel() * 4 + levels.numel() * 4
+    fbytes = (sum(f.numel() for f in feats) if pixels is None
+              else pixels * feats[0].shape[-1]) * elt
+    in_bytes = fbytes + rois.numel() * 4 + levels.numel() * 4
     in_bytes += 0 if valid is None else valid.numel()
     nbytes = in_bytes + out.numel() * elt
     ops = out.numel() * 4 * 8
@@ -3988,13 +4001,17 @@ class int8_forced:
         def hook(mod, args):
             n_in = 1 if not name.endswith("box") else 2
             if self.record:
-                self.calls[name].append([[a.detach().cpu() for a in args[:n_in]], None])
+                self.calls[name].append([[None if a is None else a.detach().cpu()
+                                          for a in args[:n_in]], None])
                 return None
             k = self.seen[name]
             self.seen[name] = k + 1
             ins, _ = self.calls[name][k]
             new = []
             for a, ref in zip(args[:n_in], ins):
+                if a is None:          # the head's ROI features under the hoist
+                    new.append(None)
+                    continue
                 err = float((a.detach().float().cpu() - ref.float()).abs().max())
                 scale = float(ref.float().abs().max())
                 if err > QUANT_FORCE_RTOL * max(scale, 1e-30):
@@ -4698,6 +4715,495 @@ def anchor_path(flagship, dev, card, supp, frames):
     return paths, out
 
 
+# -- phase 16: the last eval-path gaps (the hoist, RetinaNet int8, anchor export) ------
+
+PREPOOL_ENV = "ONESHOT_PREPOOL_COMPRESS"
+HOIST_ITERS = 3                       # timed eval forwards of a phase 16 cell
+K1_512_CASES = 16000                  # R of the proposals' case at C = 512
+
+
+class env_set:
+    """Context: environment variables set (value None: removed), restored
+    after."""
+
+    def __init__(self, **values):
+        self.values, self.saved = values, {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class hoist_int8_forced:
+    """Context: record (``calls`` None) or replay the hoisted query half's
+    ``int8_dot`` calls (``models.detector.int8_dot``, one per level map),
+    as ``int8_forced`` replays the int8 layers: on the card each call's
+    input within QUANT_FORCE_RTOL of the CPU's maximum, the CPU's input
+    taken, the CPU's output given bit for bit."""
+
+    def __init__(self, calls=None):
+        self.calls, self.record, self.taken = calls, calls is None, 0
+
+    def __enter__(self):
+        from oneshotdet_tpu_torch.models import detector
+
+        self.mod, self.real = detector, detector.int8_dot
+        if self.record:
+            self.calls = []
+        detector.int8_dot = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.int8_dot = self.real
+
+    def _call(self, x, w):
+        if self.record:
+            y = self.real(x, w)
+            self.calls.append((x.detach().cpu(), y.detach().cpu()))
+            return y
+        ref_x, ref_y = self.calls[self.taken]
+        self.taken += 1
+        err = float((x.detach().float().cpu() - ref_x.float()).abs().max())
+        scale = float(ref_x.float().abs().max())
+        if err > QUANT_FORCE_RTOL * max(scale, 1e-30):
+            raise AssertionError(f"hoisted int8_dot {self.taken}: input {err:.3e} from the "
+                                 f"CPU's, beyond {QUANT_FORCE_RTOL} x {scale:.3e}")
+        y = self.real(ref_x.to(x.device, x.dtype), w)
+        if not torch.equal(y.cpu(), ref_y):
+            raise AssertionError(f"hoisted int8_dot {self.taken}: output on the card differs "
+                                 f"from the CPU's on the same input")
+        return y
+
+
+def touched_pixels(plans, rois, levels, shapes):
+    """Distinct (level, image, row, column) pixels that the plans' ROIs
+    stage: the least the kernel must read."""
+    maps = {}
+    for r, plan in enumerate(plans):
+        if plan is None or not plan.rows or not plan.cols:
+            continue
+        lvl = int(levels[r])
+        key = (lvl, int(rois[r, 0]))
+        if key not in maps:
+            maps[key] = np.zeros(shapes[lvl], bool)
+        maps[key][np.ix_(plan.rows, plan.cols)] = True
+    return int(sum(m.sum() for m in maps.values()))
+
+
+def k1_512_checks(ra, dev, card):
+    """Phase 16a: K1 at C = 512 (the hoisted compress_0 query half's maps,
+    2 x 256 channels) against its plain version in bf16 and float32 (two
+    channel slices of 1 KB a pixel): the proposals at R = 16 000, the
+    predictor's 1 x 2000, the p3-skew mix at R = 16 000 and the edge cases,
+    each with its plan statistics against ``roi_align_plan``; ms, bound and
+    share of the bound at each shape, the bound reading only the pixels the
+    ROIs touch (``touched_pixels``)."""
+    from oneshotdet_tpu_torch.tools.tune_roialign_v3 import make_rois
+
+    gen = torch.Generator().manual_seed(16)
+    q_shapes = pyramid_shapes(*QUERY_HW)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = [torch.randn(BATCH, h, w, 512, generator=gen).to(dev, dtype) for h, w in q_shapes]
+        cases = []
+        rois, valid = random_rois(K1_512_CASES, BATCH, QUERY_HW, gen, dev)
+        cases.append((f"proposals 7x7 R={K1_512_CASES}", feats, rois,
+                      ra.fpn_level_map(rois[:, 1:], 3, 7), valid))
+        rois, valid = random_rois(2000, 1, QUERY_HW, gen, dev)
+        cases.append(("predictor 7x7 1 x 2000", [f[:1] for f in feats], rois,
+                      ra.fpn_level_map(rois[:, 1:], 3, 7), valid))
+        rr = np.random.RandomState(516)
+        skew, skew_lv = make_rois(rr, K1_512_CASES, "p3", 4)
+        cases.append((f"p3-skew R={K1_512_CASES}", feats, torch.from_numpy(skew).to(dev),
+                      torch.from_numpy(skew_lv).to(dev), None))
+        for name, r, lv, v in edge_case_rois(gen, dev):
+            cases.append((name, feats, r, ra.fpn_level_map(r[:, 1:], 3, 7) if lv is None else lv,
+                          v))
+        for name, fs, rois, levels, valid in cases:
+            args = (fs, rois, levels, (7, 7), SCALES_Q, 2, valid)
+            k, err, metric, tol, staged = k1_compare(ra, f"C=512 {name}", dtype, args)
+            pixels = touched_pixels(ra.roi_align_plan(*args), rois.cpu(), levels.cpu(),
+                                    [tuple(f.shape[1:3]) for f in fs])
+            bound, by, nbytes, ops = k1_bound(fs, rois, levels, valid, k, pixels)
+            ms = time_ms(lambda: ra.multilevel_roi_align_cuda(*args))
+            main_case = not name.startswith(("one ROI", "outside", "all invalid", "wide"))
+            plain_ms = (time_ms(lambda: ra.multilevel_roi_align_plain(*args), reps=5, warmup=1)
+                        if main_case and rois.shape[0] <= 2000 else None)
+            log(f"roi_align C=512 {name} {str(dtype)[6:]}: {metric} (tolerance {tol}); "
+                f"{ra.channel_slices(512, dtype)} channel slice(s); kernel {ms:.4f} ms"
+                + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
+                + f", bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
+                f"kernel at {100 * bound / ms:.1f}% of its bound; staged {staged / 1e6:.1f} MB "
+                f"[{card}]")
+            out[f"{name} {str(dtype)[6:]}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=bound, bound_by=by,
+                                                   bound_share=bound / ms)
+            del k
+        del feats
+        torch.cuda.empty_cache()
+    return out
+
+
+def _timed_forwards(model, images, supps, iters=HOIST_ITERS):
+    """A warm-up then ``iters`` eval forwards: (dets, CUDA-event ms list,
+    peak GiB, launches)."""
+    dets = model(images, supps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        start.record()
+        dets = model(images, supps)
+        end.record()
+    torch.cuda.synchronize()
+    return (dets, sorted(s.elapsed_time(e) for s, e in events),
+            torch.cuda.max_memory_allocated() / 2**30, read_launches())
+
+
+def quant_card_check(cfg, dev, label, prepare=None):
+    """A small float32 forward of ``cfg`` (batch 2, 128x160 queries, 64x64
+    supports; TPU.QUANT and the hoist as ``cfg`` and the environment say)
+    on the card against the CPU with the same weights: detections within
+    the detection tolerances; under 'int8' every int8 layer, the relation
+    head's support half and the hoisted query half replayed from the CPU,
+    each bit for bit. Returns (detections, replayed calls)."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.structures import ImageBatch
+
+    gen = torch.Generator().manual_seed(11)
+    q = torch.randn(2, 128, 160, 3, generator=gen) * 50
+    s = torch.randn(2, 64, 64, 3, generator=gen) * 50
+    qs = torch.tensor([[128.0, 160.0], [100.0, 150.0]])
+    ss = torch.tensor([[64.0, 64.0], [60.0, 40.0]])
+    cpu = build_detection_model(cfg, device="cpu")
+    distinct_weights_(cpu, torch.Generator().manual_seed(12))
+    if prepare is not None:
+        prepare(cpu)
+    gpu = build_detection_model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    with int8_forced(cpu) as rec, hoist_int8_forced() as hrec:
+        ref = cpu(ImageBatch(q, qs), ImageBatch(s, ss))
+    args = (ImageBatch(q.to(dev), qs.to(dev)), ImageBatch(s.to(dev), ss.to(dev)))
+    replayed = 0
+    if cfg.TPU.QUANT == "int8":
+        with int8_forced(gpu, rec.calls) as rep, hoist_int8_forced(hrec.calls) as hrep:
+            got = gpu(*args)
+        replayed = rep.layers + hrep.taken
+    else:
+        got = gpu(*args)
+    n = 0
+    for i in range(2):
+        def dets(d):
+            v = d.valid[i].cpu().numpy()
+            return d.xyxy[i].float().cpu().numpy()[v], d.get_field("scores")[i].cpu().numpy()[v]
+        match_detections(dets(got), dets(ref))
+        n += int(got.valid[i].sum())
+    log(f"phase 16 small float32 forward {label}: {n} detections on the card match the CPU "
+        f"(score rtol 5e-4, box rtol 1e-3, TF32 off)"
+        + (f", {replayed} int8 calls replayed from the CPU, each bit for bit" if replayed else ""))
+    del cpu, gpu
+    return n, replayed
+
+
+def hoist_cells(flagship, preset, dev, card):
+    """Phase 16b: ONESHOT_PREPOOL_COMPRESS=1 at full width (bf16, phase 5's
+    batch 8): the preset (R = 4096) and the full forward (R = 16 000), each
+    built with the hoist and ONESHOT_PALLAS_ROI_HEAD=1 (both read at build)
+    and run as built (7 K1, 0 K3: the fused head is not taken under the
+    hoist), then hoisted without the opt-in and un-hoisted in turns
+    (hoisted, un-hoisted, un-hoisted, hoisted; HOIST_ITERS forwards each
+    after a warm-up, the model warmed by two forwards first); the preset
+    also under 'int8'. ms/batch by CUDA events (the median of each side's
+    forwards), peak memory, one profiled forward of each side; then small
+    float32 and 'int8' hoisted forwards on the card against the CPU."""
+    from oneshotdet_tpu_torch.config import cfg as default_cfg
+    from oneshotdet_tpu_torch.models import build_detection_model
+
+    images, supps = phase5_batch(dev)
+    paths, out = {}, {}
+    for label, path, quant in (("preset", preset, "none"), ("full 2000/img", flagship, "none"),
+                               ("preset int8", preset, "int8")):
+        c = default_cfg.clone()
+        c.merge_from_file(path)
+        c.merge_from_list(["TPU.QUANT", quant])
+        with env_set(ONESHOT_PREPOOL_COMPRESS="1", ONESHOT_PALLAS_ROI_HEAD="1"):
+            model = build_detection_model(c, device=dev,
+                                          generator=torch.Generator().manual_seed(1))
+        built = model.config
+        if not (built.prepool_compress and built.fused_roi_head):
+            raise AssertionError(f"phase 16 {label}: the switches were not read at build")
+        for _ in range(2):
+            model(images, supps)
+        sides = {"hoisted": dataclasses.replace(built, fused_roi_head=False),
+                 "un-hoisted": dataclasses.replace(built, fused_roi_head=False,
+                                                   prepool_compress=False)}
+        runs = [("hoisted, fused opt-in", built)] if quant == "none" else []
+        runs += [(name, sides[name]) for name in ("hoisted", "un-hoisted", "un-hoisted",
+                                                  "hoisted")]
+        times = {}
+        capacity = min(c.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+                       c.TPU.EVAL_ROI_TOPK or c.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST)
+        for name, conf in runs:
+            cell = f"phase 16 {label}, {name}"
+            model.config = conf
+            dets, ev, peak, n = _timed_forwards(model, images, supps)
+            paths[f"{cell}, {HOIST_ITERS} forwards" + (" (again)" if name in times else "")] = n
+            if n["roi_align"] != 7 * HOIST_ITERS or n["roi_head"] != 0:
+                raise AssertionError(f"{cell}: launches {n} in {HOIST_ITERS} forwards, expected "
+                                     f"7 K1 and 0 K3 a forward")
+            check_detections(dets, BATCH, capacity, images.sizes_wh())
+            times.setdefault(name, []).extend(ev)
+            log(f"eval forward {cell}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} bf16, CUDA events "
+                f"{[round(e, 1) for e in ev]} ms/batch, peak memory {peak:.2f} GiB, "
+                f"{int(dets.valid.sum())} detections, 7 K1 and 0 K3 a forward [{card}]")
+            entry = out.setdefault(cell, dict(k1_per_forward=7, k3_per_forward=0,
+                                              detections=int(dets.valid.sum()), peak_gib=peak))
+            entry["ms_events"] = sorted(times[name])
+            entry["ms_events_median"] = entry["ms_events"][len(entry["ms_events"]) // 2]
+            if name in sides and "stages_ms" not in entry:
+                entry["stages_ms"] = profile_forward(model, images, supps, cell)
+        log(f"phase 16 {label}: CUDA-event medians, hoisted "
+            f"{out[f'phase 16 {label}, hoisted']['ms_events_median']:.1f}, un-hoisted "
+            f"{out[f'phase 16 {label}, un-hoisted']['ms_events_median']:.1f} ms/batch (in turns, "
+            f"{2 * HOIST_ITERS} forwards each) [{card}]")
+        del model, dets
+        torch.cuda.empty_cache()
+    del images, supps
+    torch.cuda.empty_cache()
+    small = {}
+    for quant in ("none", "int8"):
+        c = default_cfg.clone()
+        c.merge_from_file(flagship)
+        c.merge_from_list(["TPU.COMPUTE_DTYPE", "float32", "TPU.NMS_PRE_TOPK", 1024,
+                           "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 128,
+                           "MODEL.ROI_HEADS.DETECTIONS_PER_IMG", 64, "TPU.QUANT", quant])
+        with env_set(ONESHOT_PREPOOL_COMPRESS="1"):
+            small[quant] = quant_card_check(c, dev, f"hoisted, TPU.QUANT {quant}")
+    out["small"] = small
+    return paths, out
+
+
+def retina_quant_cells(flagship, dev, card):
+    """Phase 16c: RetinaNet with RPN_ONLY under TPU.QUANT 'int8' and
+    'int8_weight' at full width (bf16, phase 5's batch 8, seed-1 weights,
+    the head's ``quiet_anchor_head_``): the eval forward (6 K1 a forward),
+    ms/batch by CUDA events; then small float32 forwards of both modes on
+    the card against the CPU, 'int8' replayed."""
+    from oneshotdet_tpu_torch.models import build_detection_model
+
+    images, supps = phase5_batch(dev)
+    paths, out = {}, {}
+    for mode in QUANT_MODES:
+        cell = f"phase 16 B RetinaNet RPN_ONLY, TPU.QUANT {mode}"
+        model = build_detection_model(anchor_cfg(flagship, ANCHOR_B, "TPU.QUANT", mode),
+                                      device=dev, generator=torch.Generator().manual_seed(1))
+        quiet_anchor_head_(model, torch.Generator().manual_seed(2))
+        dets, ev, peak, n = _timed_forwards(model, images, supps, iters=2)
+        paths[f"{cell}, 2 forwards"] = n
+        if n["roi_align"] != 6 * 2 or n["roi_head"] != 0:
+            raise AssertionError(f"{cell}: launches {n}, expected 6 K1 a forward")
+        check_detections(dets, BATCH, 2000, images.sizes_wh())
+        med = ev[len(ev) // 2]
+        log(f"eval forward {cell}: batch {BATCH} {QUERY_HW[0]}x{QUERY_HW[1]} bf16, CUDA events "
+            f"{[round(e, 1) for e in ev]} ms/batch, peak memory {peak:.2f} GiB, "
+            f"{int(dets.valid.sum())} detections, 6 K1 a forward [{card}]")
+        out[cell] = dict(ms_events=ev, peak_gib=peak, k1_per_forward=6,
+                         detections=int(dets.valid.sum()))
+        del model, dets
+        torch.cuda.empty_cache()
+    del images, supps
+    torch.cuda.empty_cache()
+    prepare = lambda m: quiet_anchor_head_(m, torch.Generator().manual_seed(52))  # noqa: E731
+    out["small"] = {mode: quant_card_check(anchor_cfg(flagship, ANCHOR_B, *SMALL,
+                                                      "TPU.COMPUTE_DTYPE", "float32",
+                                                      "TPU.QUANT", mode),
+                                           dev, f"RetinaNet RPN_ONLY, TPU.QUANT {mode}",
+                                           prepare)
+                    for mode in QUANT_MODES}
+    return paths, out
+
+
+def anchor_export_cells(flagship, dev, card, supp, frames):
+    """Phase 16d: the anchor RPN (cell A, seed-1 weights, the head's
+    ``quiet_anchor_head_``) as a batch-1 serving bundle on the ExportedProgram
+    route: ``ArtifactPredictor`` bit for bit against ``OneShotPredictor`` on
+    phase 4's support and frames, K1 6 per ``set_support`` and 1 per frame
+    counted from inside the programs; RetinaNet RPN_ONLY's batch-8 ``full``
+    program bit for bit against the eager forward on phase 5's batch (6 K1
+    inside); export and load seconds."""
+    from oneshotdet_tpu_torch import export as oexport
+    from oneshotdet_tpu_torch.models import build_detection_model
+    from oneshotdet_tpu_torch.predictor import ArtifactPredictor, OneShotPredictor
+
+    zero = {k: 0 for k in _counters()}
+    out, paths = {}, {}
+    cfg = anchor_cfg(flagship, ANCHOR_A)
+    eager = OneShotPredictor(cfg, confidence_threshold=0.0, query_bucket=QUERY_HW,
+                             supp_bucket=SUPP_HW, device=dev,
+                             generator=torch.Generator().manual_seed(1))
+    quiet_anchor_head_(eager.model, torch.Generator().manual_seed(2))
+    with tempfile.TemporaryDirectory() as root:
+        stem = os.path.join(root, "anchor_rpn")
+        t0 = time.perf_counter()
+        oexport.export_serving(cfg, eager.model, stem, query_hw=QUERY_HW, supp_hw=SUPP_HW,
+                               compile_executable=False)
+        out["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = ArtifactPredictor(stem, device=dev)
+        out["load_s"] = time.perf_counter() - t0
+        out["mib"] = {ext: os.path.getsize(stem + ext) / 2**20 for ext in (".support", ".detect")}
+    eager.set_support(supp)
+    reset_launches()
+    served.set_support(supp)
+    torch.cuda.synchronize()
+    if read_launches() != dict(zero, roi_align=6):
+        raise AssertionError(f"phase 16 A bundle set_support: {read_launches()}")
+    n_dets = []
+    for frame in frames:
+        want = eager.run_on_image(frame)
+        reset_launches()
+        got = served.run_on_image(frame)
+        torch.cuda.synchronize()
+        if read_launches() != dict(zero, roi_align=1):
+            raise AssertionError(f"phase 16 A bundle frame: {read_launches()}")
+        if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+                and len(got[1]) > 0):
+            raise AssertionError("phase 16 A bundle: the ExportedProgram route differs from "
+                                 "OneShotPredictor")
+        n_dets.append(len(got[1]))
+    paths["phase 16 A bundle, set_support + frames"] = dict(zero, roi_align=6 + len(frames))
+    out["frame_ms"] = {"OneShotPredictor": _frame_ms(eager, frames, 1),
+                       "exported": _frame_ms(served, frames, 1)}
+    del eager, served
+    torch.cuda.empty_cache()
+    log(f"phase 16 A anchor RPN serving bundle (ExportedProgram route): export "
+        f"{out['export_s']:.1f} s, load {out['load_s']:.1f} s, files "
+        + ", ".join(f"{k} {v:.1f} MiB" for k, v in out["mib"].items())
+        + f"; equal to OneShotPredictor bit for bit over {len(frames)} frames ({n_dets} "
+        f"detections), 6 K1 per set_support and 1 per frame inside the programs; ms per frame "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["frame_ms"].items()) + f" [{card}]")
+
+    images, supps = phase5_batch(dev)
+    cfg_b = anchor_cfg(flagship, ANCHOR_B)
+    model = build_detection_model(cfg_b, device=dev, generator=torch.Generator().manual_seed(1))
+    quiet_anchor_head_(model, torch.Generator().manual_seed(2))
+    want = model(images, supps)
+    t0 = time.perf_counter()
+    ep = oexport.export_eval(cfg_b, model, batch=BATCH, query_hw=QUERY_HW, supp_hw=SUPP_HW,
+                             kind="full")
+    out["retina_full_export_s"] = time.perf_counter() - t0
+    prog = ep.module()
+    tids = torch.ones((BATCH,), dtype=torch.int32, device=dev)
+    reset_launches()
+    with torch.inference_mode():
+        got = prog(images.pixels, images.sizes, supps.pixels, supps.sizes, tids)
+    torch.cuda.synchronize()
+    n = read_launches()
+    paths["phase 16 B RetinaNet full program, batch 8"] = n
+    if n != dict(zero, roi_align=6):
+        raise AssertionError(f"phase 16 B full program: launches {n}")
+    for g, w in zip(got, (want.xyxy, want.get_field("scores"), want.valid)):
+        if not torch.equal(g, w):
+            raise AssertionError("phase 16 B full program differs from the eager forward")
+    out["retina_full_detections"] = int(want.valid.sum())
+    log(f"phase 16 B RetinaNet RPN_ONLY full program, batch {BATCH}: export "
+        f"{out['retina_full_export_s']:.1f} s, equal to the eager forward bit for bit "
+        f"({out['retina_full_detections']} detections), 6 K1 inside [{card}]")
+    del model, ep, prog, images, supps
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def webcam_cell(flagship, dev, card):
+    """Phase 16e: ``tools.webcam`` on a 3-frame MJPG video written by
+    ``cv2.VideoWriter`` (frames 480x640), ``cv2.imshow`` / ``waitKey`` /
+    ``destroyAllWindows`` replaced in-process: the flagship on the card,
+    every frame detected and shown, ms per frame. Where cv2 does not
+    import, one line says so."""
+    try:
+        import cv2
+    except ImportError:
+        log("phase 16 webcam tool: cv2 (OpenCV) is not installed on this machine, the tool "
+            "was not run")
+        return {}, {"cv2": None}
+    from oneshotdet_tpu_torch.data.image_io import write_ppm
+    from oneshotdet_tpu_torch.tools import webcam
+
+    gen = np.random.RandomState(16)
+    shown, results = [], []
+    saved = cv2.imshow, cv2.waitKey, cv2.destroyAllWindows, webcam.stream
+    cv2.imshow = lambda name, img: shown.append(img.shape)
+    cv2.waitKey = lambda ms: -1
+    cv2.destroyAllWindows = lambda: None
+    webcam.stream = lambda *a: results.extend(saved[3](*a)) or results
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            write_ppm(os.path.join(root, "support.ppm"),
+                      gen.randint(0, 256, (300, 400, 3), dtype=np.uint8))
+            video = os.path.join(root, "video.avi")
+            writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 5, (640, 480))
+            for _ in range(3):
+                writer.write(gen.randint(0, 256, (480, 640, 3), dtype=np.uint8))
+            writer.release()
+            reset_launches()
+            rc = webcam.main(["--config-file", flagship, "--support",
+                              os.path.join(root, "support.ppm"), "--source", video,
+                              "--threshold", "0.0"])
+    finally:
+        cv2.imshow, cv2.waitKey, cv2.destroyAllWindows, webcam.stream = saved
+    n = read_launches()
+    if rc != 0 or len(results) != 3 or len(shown) != 3 or n["roi_align"] != 6 + 3:
+        raise AssertionError(f"phase 16 webcam: rc {rc}, {len(results)} frames, launches {n}")
+    for boxes, scores, _ in results:
+        if not (len(scores) and np.isfinite(boxes).all() and boxes.min() >= 0
+                and boxes[:, [0, 2]].max() <= 640 and boxes[:, [1, 3]].max() <= 480):
+            raise AssertionError("phase 16 webcam: empty or outside the frame")
+    ms = [r[2] for r in results]
+    log(f"phase 16 webcam tool (cv2 {cv2.__version__}): 3 MJPG frames 480x640, "
+        f"{[len(r[1]) for r in results]} detections, ms per frame {[round(m, 1) for m in ms]} "
+        f"(host clock, the first with its warm-up), 6 + 3 K1 [{card}]")
+    return {"phase 16 webcam, support + 3 frames": n}, {"cv2": cv2.__version__, "frame_ms": ms}
+
+
+def eval_gaps_path(flagship, preset, dev, card, supp, frames):
+    """Phase 16: K1 at C = 512 (16a), the hoisted compress_0 query half
+    (16b), RetinaNet under TPU.QUANT (16c), an exported anchor stage 1
+    (16d) and the webcam tool (16e)."""
+    from oneshotdet_tpu_torch.ops import roi_align as ra
+
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    t0 = time.perf_counter()
+    out["k1_512"] = k1_512_checks(ra, dev, card)
+    log(f"phase 16a: {time.perf_counter() - t0:.1f} s")
+    for name, fn in (("hoist", lambda: hoist_cells(flagship, preset, dev, card)),
+                     ("retina_quant", lambda: retina_quant_cells(flagship, dev, card)),
+                     ("anchor_export", lambda: anchor_export_cells(flagship, dev, card, supp,
+                                                                   frames)),
+                     ("webcam", lambda: webcam_cell(flagship, dev, card))):
+        t0 = time.perf_counter()
+        p, out[name] = fn()
+        paths.update(p)
+        log(f"phase 16 {name}: {time.perf_counter() - t0:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['phase_s']:.1f} s")
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
@@ -4951,6 +5457,15 @@ def main() -> int:
 
     phase_done("phase 15 (anchor RPN and RetinaNet)")
 
+    # -- phase 16: the hoist (K1 at C = 512), RetinaNet int8, anchor export, webcam --
+    gap_paths, eval_gaps = eval_gaps_path(flagship, preset, dev, card, supp, frame_pixels)
+    paths.update(gap_paths)
+    for label, n in gap_paths.items():
+        launches[label] = n["roi_align"]
+        head_launches[label] = n["roi_head"]
+
+    phase_done("phase 16 (hoist, RetinaNet int8, anchor export, webcam)")
+
     # -- kernels line and result ------------------------------------------------
     head = checks[("proposals 7x7 R=16000", torch.bfloat16)]
     k3 = head_checks_result[(16000, torch.bfloat16)]
@@ -4978,6 +5493,8 @@ def main() -> int:
         "mask_keypoint": mask_kp,
         "quant": quant,
         "anchor_stage1": anchor,
+        "pool_512": eval_gaps["k1_512"],
+        "eval_gaps": {k: v for k, v in eval_gaps.items() if k != "k1_512"},
         "artifact": artifact,
         "supp_aug": supp_aug,
         "card": card,

@@ -4,10 +4,10 @@ Key names mirror the reference (`maskrcnn_benchmark/config/defaults.py`) so
 that reference yaml configs and the repo's ``configs/*.yaml`` load unchanged.
 The ``TPU`` section keeps its name so the same yaml files drive both
 packages: its static capacities (``NMS_PRE_TOPK``, ``EVAL_ROI_TOPK``,
-``STRICT_LEVEL_TOPK``), buckets and ``COMPUTE_DTYPE`` are read by the port;
-``HOST_S2D`` is ignored (the port's stem is a plain 7x7/2 conv), and the
-switches the port has not taken over yet (``QUANT``, mesh layout) raise
-``NotImplementedError`` when turned on.
+``STRICT_LEVEL_TOPK``), buckets, ``COMPUTE_DTYPE`` and ``QUANT`` are read by
+the port; ``HOST_S2D`` is ignored (the port's stem is a plain 7x7/2 conv),
+and a device mesh, which the port has not taken over, raises
+``NotImplementedError`` in the engine.
 """
 
 from .node import CfgNode as CN

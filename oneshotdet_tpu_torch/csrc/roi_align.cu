@@ -60,6 +60,17 @@
 //      in fp32 and stores the bin once with a 16-byte store. Warps split the
 //      item's bins. Dead slots (valid = False, bad level or batch index)
 //      only store zeros.
+//   6. Channel slices. Where one bin's (2 grid)^2 pixels of all C channels
+//      do not fit a staging buffer (C = 512 in fp32: 16 pixels of 2 KB), the
+//      block cuts each pixel into the fewest equal channel slices that fit
+//      (`channel_slices`) and plans the items for one slice's bytes; it then
+//      stages and sums every item once per slice, slice-major, through the
+//      same two buffers. A channel's sums do not depend on the other
+//      channels, so a slice's output is the plain version's. With one slice
+//      (C = 256 in both dtypes, C = 512 in bf16) the launch takes the
+//      kernel's unsliced instance (SLICED = false), the code as it was
+//      before slices: the slice loop's index arithmetic cost 2-3% at C = 256
+//      (oneshotdet_tpu_torch/tools/ablate_roi_align.py --parent).
 // Four blocks of 256 threads fit an SM (two 24 KB buffers each, at most 64
 // registers). The five level base pointers and sizes are passed by value,
 // so the pyramid is never concatenated. Tried and measured slower on the
@@ -150,8 +161,8 @@ __device__ __forceinline__ void axis_slots(AxisSample* s, int pooled, int grid, 
 // columns while its columns times the tallest output row's rows fit the
 // budget; within it a band takes output rows while its rows times the
 // chunk's columns fit. One output row (column) touches at most 2 * grid
-// rows (columns), so one bin always fits (the wrapper checks 4 grid^2 <=
-// budget); a ROI whose pixels all fit is one item. Returns the number of
+// rows (columns), so one bin always fits (`channel_slices` makes 4 grid^2
+// <= budget); a ROI whose pixels all fit is one item. Returns the number of
 // items and the staged pixels in *px.
 __device__ __forceinline__ int plan_items(const short* yf, const short* ye, const short* xf,
                                           const short* xe, int pooled_h, int pooled_w,
@@ -189,10 +200,12 @@ __device__ __forceinline__ int plan_items(const short* yf, const short* ye, cons
   return n;
 }
 
-// Step 4: the item's pixels into `buf`, pixel-major, one warp per pixel.
+// Step 4: one channel slice of the item's pixels into `buf`, pixel-major,
+// one warp per pixel. `base` points at the slice's first channel of the
+// image's map; a pixel is `pixel_bytes` in the map, `slice_bytes` in `buf`.
 __device__ __forceinline__ void stage_item(const Item it, const int* rows, const int* cols,
                                            const char* base, int width, int pixel_bytes,
-                                           char* buf) {
+                                           int slice_bytes, char* buf) {
   const int nc = it.c1 - it.c0;
   const int npx = (it.r1 - it.r0) * nc;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -201,13 +214,15 @@ __device__ __forceinline__ void stage_item(const Item it, const int* rows, const
     const int pc = p - pr * nc;
     const char* src =
         base + ((int64_t)rows[it.r0 + pr] * width + cols[it.c0 + pc]) * pixel_bytes;
-    char* dst = buf + p * pixel_bytes;
-    for (int o = 16 * lane; o < pixel_bytes; o += 16 * 32) cp_async16(dst + o, src + o);
+    char* dst = buf + p * slice_bytes;
+    for (int o = 16 * lane; o < slice_bytes; o += 16 * 32) cp_async16(dst + o, src + o);
   }
   cp_async_commit();
 }
 
-// Step 5: every (bin, channel vector) of the item. A thread steps through
+// Step 5: every (bin, channel vector) of the item's staged channel slice,
+// `vpp` vectors a pixel in `buf`; bin b's vectors go to out_roi[b * out_vpp
+// + v] (`out_roi` at the slice's first vector). A thread steps through
 // its (bin, vector) pairs without dividing. The mean divides by count, or
 // multiplies by its reciprocal when count is a power of two, which rounds
 // the same (a full-precision division per channel was an eighth of the
@@ -215,8 +230,8 @@ __device__ __forceinline__ void stage_item(const Item it, const int* rows, const
 template <typename T>
 __device__ __forceinline__ void sum_item(const Item it, const uint4* buf,
                                          const AxisSample* ys, const AxisSample* xs,
-                                         int pooled_w, int grid, int vpp, float count,
-                                         uint4* out_roi) {
+                                         int pooled_w, int grid, int vpp, int out_vpp,
+                                         float count, uint4* out_roi) {
   constexpr int N = Vec<T>::N;
   const int nbw = it.pw1 - it.pw0;
   const int nbins = (it.ph1 - it.ph0) * nbw;
@@ -252,7 +267,7 @@ __device__ __forceinline__ void sum_item(const Item it, const uint4* buf,
     }
 #pragma unroll
     for (int j = 0; j < N; ++j) acc[j] = pow2 ? acc[j] * inv : acc[j] / count;
-    out_roi[(ph * pooled_w + pw) * vpp + v] = Vec<T>::narrow(acc);
+    out_roi[(ph * pooled_w + pw) * out_vpp + v] = Vec<T>::narrow(acc);
     bin += step_bin;
     v += step_v;
     if (v >= vpp) {
@@ -262,12 +277,12 @@ __device__ __forceinline__ void sum_item(const Item it, const uint4* buf,
   }
 }
 
-template <typename T>
+template <typename T, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 4)
     roi_align_kernel(Pyramid pyr, int batch, int channels, const float* __restrict__ rois,
                      const int* __restrict__ levels, const unsigned char* __restrict__ valid,
-                     int pooled_h, int pooled_w, int grid, T* __restrict__ out,
-                     int* __restrict__ stats) {
+                     int pooled_h, int pooled_w, int grid, int slices,
+                     T* __restrict__ out, int* __restrict__ stats) {
   extern __shared__ __align__(16) char stage[];  // 2 x STAGE_BYTES
   __shared__ AxisSample ys[MAX_AXIS], xs[MAX_AXIS];
   __shared__ int rows[MAX_SLOTS], cols[MAX_SLOTS];
@@ -298,6 +313,8 @@ __global__ void __launch_bounds__(THREADS, 4)
   const int height = pyr.height[lvl];
   const int width = pyr.width[lvl];
   const int pixel_bytes = channels * (int)sizeof(T);
+  const int slice_bytes = SLICED ? pixel_bytes / slices : pixel_bytes;
+  const int svpp = SLICED ? vpp / slices : vpp;  // 16-byte vectors of a slice of a pixel
   const char* base = static_cast<const char*>(pyr.data[lvl]) +
                      (int64_t)b * height * width * pixel_bytes;
 
@@ -318,7 +335,7 @@ __global__ void __launch_bounds__(THREADS, 4)
   // step 3: the items
   if (tid == 0) {
     int px = 0;
-    n_items = plan_items(yf, ye, xf, xe, pooled_h, pooled_w, STAGE_BYTES / pixel_bytes,
+    n_items = plan_items(yf, ye, xf, xe, pooled_h, pooled_w, STAGE_BYTES / slice_bytes,
                          items, &px);
     if (stats != nullptr) {
       stats[2 * r] = n_items;
@@ -327,34 +344,72 @@ __global__ void __launch_bounds__(THREADS, 4)
   }
   __syncthreads();
 
-  // steps 4-5: double-buffered items
   const int n = n_items;
   const float count = (float)(grid * grid);
-  stage_item(items[0], rows, cols, base, width, pixel_bytes, stage);
-  for (int k = 0; k < n; ++k) {
-    if (k + 1 < n) {
-      stage_item(items[k + 1], rows, cols, base, width, pixel_bytes,
-                 stage + ((k + 1) & 1) * STAGE_BYTES);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if constexpr (!SLICED) {
+    // steps 4-5: double-buffered items
+    stage_item(items[0], rows, cols, base, width, pixel_bytes, pixel_bytes, stage);
+    for (int k = 0; k < n; ++k) {
+      if (k + 1 < n) {
+        stage_item(items[k + 1], rows, cols, base, width, pixel_bytes, pixel_bytes,
+                   stage + ((k + 1) & 1) * STAGE_BYTES);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      sum_item<T>(items[k], reinterpret_cast<const uint4*>(stage + (k & 1) * STAGE_BYTES), ys,
+                  xs, pooled_w, grid, vpp, vpp, count, out_roi);
+      __syncthreads();
     }
-    __syncthreads();
-    sum_item<T>(items[k], reinterpret_cast<const uint4*>(stage + (k & 1) * STAGE_BYTES), ys,
-                xs, pooled_w, grid, vpp, count, out_roi);
-    __syncthreads();
+  } else {
+    // steps 4-6: double-buffered units, unit k = item k % n of slice k / n
+    const int units = n * slices;
+    stage_item(items[0], rows, cols, base, width, pixel_bytes, slice_bytes, stage);
+    int item = 0, slice = 0;  // unit k's
+    for (int k = 0; k < units; ++k) {
+      if (k + 1 < units) {
+        const int next = item + 1 < n ? item + 1 : 0;
+        const int next_slice = item + 1 < n ? slice : slice + 1;
+        stage_item(items[next], rows, cols, base + next_slice * slice_bytes, width, pixel_bytes,
+                   slice_bytes, stage + ((k + 1) & 1) * STAGE_BYTES);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      sum_item<T>(items[item], reinterpret_cast<const uint4*>(stage + (k & 1) * STAGE_BYTES), ys,
+                  xs, pooled_w, grid, svpp, vpp, count, out_roi + slice * svpp);
+      __syncthreads();
+      if (++item == n) {
+        item = 0;
+        ++slice;
+      }
+    }
   }
+}
+
+// Step 6: the fewest equal channel slices s of a pixel (s divides C) whose
+// bytes fill 16-byte vectors and of which one bin's (2 grid)^2 pixels fit
+// one staging buffer; 0 where none does. Mirrored by
+// ops/roi_align.py::channel_slices.
+static int channel_slices(int channels, int elt, int grid) {
+  for (int s = 1; s <= channels; ++s) {
+    if (channels % s != 0 || (channels / s * elt) % 16 != 0) continue;
+    if (4 * grid * grid * (channels / s) * elt <= STAGE_BYTES) return s;
+  }
+  return 0;
 }
 
 // Two staging buffers beyond the 48 KB default, and the largest shared
 // memory carveout, so that four blocks fit an SM.
-template <typename T>
+template <typename T, bool SLICED>
 static cudaError_t set_attributes() {
-  cudaError_t e = cudaFuncSetAttribute(roi_align_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(roi_align_kernel<T, SLICED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        2 * STAGE_BYTES);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(roi_align_kernel<T>,
+  return cudaFuncSetAttribute(roi_align_kernel<T, SLICED>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
@@ -362,13 +417,15 @@ static cudaError_t set_attributes() {
 template <typename T>
 static int launch(const Pyramid& pyr, int batch, int channels, const void* rois,
                   const void* levels, const void* valid, int num_rois, int pooled_h,
-                  int pooled_w, int grid, void* out, void* stats, cudaStream_t s) {
-  cudaError_t e = set_attributes<T>();
+                  int pooled_w, int grid, int slices, void* out, void* stats,
+                  cudaStream_t s) {
+  cudaError_t e = slices > 1 ? set_attributes<T, true>() : set_attributes<T, false>();
   if (e != cudaSuccess) return (int)e;
   const int smem = 2 * STAGE_BYTES;
-  roi_align_kernel<T><<<num_rois, THREADS, smem, s>>>(
+  auto kernel = slices > 1 ? roi_align_kernel<T, true> : roi_align_kernel<T, false>;
+  kernel<<<num_rois, THREADS, smem, s>>>(
       pyr, batch, channels, static_cast<const float*>(rois), static_cast<const int*>(levels),
-      static_cast<const unsigned char*>(valid), pooled_h, pooled_w, grid,
+      static_cast<const unsigned char*>(valid), pooled_h, pooled_w, grid, slices,
       static_cast<T*>(out), static_cast<int*>(stats));
   return (int)cudaGetLastError();
 }
@@ -382,27 +439,28 @@ void oneshot_roi_align_limits(int* out) {
   out[2] = MAX_ITEMS;
 }
 
-// Resident blocks per SM of the kernel for dtype (0 = float32, 1 =
-// bfloat16), or -1 on error.
+// Resident blocks per SM of the kernel's unsliced instance for dtype (0 =
+// float32, 1 = bfloat16), or -1 on error.
 int oneshot_roi_align_blocks_per_sm(int dtype) {
   int n = -1;
   const size_t smem = 2 * STAGE_BYTES;
   if (dtype == 0) {
-    if (set_attributes<float>() != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, roi_align_kernel<float>, THREADS,
-                                                      smem) != cudaSuccess)
+    if (set_attributes<float, false>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, roi_align_kernel<float, false>,
+                                                      THREADS, smem) != cudaSuccess)
       return -1;
-  } else if (set_attributes<__nv_bfloat16>() != cudaSuccess ||
-             cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, roi_align_kernel<__nv_bfloat16>,
-                                                           THREADS, smem) != cudaSuccess) {
+  } else if (set_attributes<__nv_bfloat16, false>() != cudaSuccess ||
+             cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, roi_align_kernel<__nv_bfloat16, false>, THREADS, smem) != cudaSuccess) {
     return -1;
   }
   return n;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. `stats`, when not null, receives per
-// ROI (items, staged pixels) as int32 (R, 2). Returns cudaGetLastError()
-// after launch, or cudaErrorInvalidValue for shapes beyond the limits.
+// ROI (items, staged pixels) of one channel slice's plan as int32 (R, 2).
+// Returns cudaGetLastError() after launch, or cudaErrorInvalidValue for
+// shapes beyond the limits.
 int oneshot_roi_align_forward(const void* pyramid, int batch, int channels, int dtype,
                               const void* rois, const void* levels, const void* valid,
                               int num_rois, int pooled_h, int pooled_w, int sampling_ratio,
@@ -412,15 +470,16 @@ int oneshot_roi_align_forward(const void* pyramid, int batch, int channels, int 
   const int g = sampling_ratio;
   if ((dtype != 0 && dtype != 1) || g <= 0 || pooled_h <= 0 || pooled_w <= 0 ||
       pooled_h * g > MAX_AXIS || pooled_w * g > MAX_AXIS || pooled_h * pooled_w > MAX_ITEMS ||
-      channels <= 0 || (channels * elt) % 16 != 0 ||
-      4 * g * g * channels * elt > STAGE_BYTES)
+      channels <= 0 || (channels * elt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const int slices = channel_slices(channels, elt, g);
+  if (slices == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(pyr, batch, channels, rois, levels, valid, num_rois, pooled_h,
-                         pooled_w, g, out, stats, s);
+                         pooled_w, g, slices, out, stats, s);
   return launch<__nv_bfloat16>(pyr, batch, channels, rois, levels, valid, num_rois, pooled_h,
-                               pooled_w, g, out, stats, s);
+                               pooled_w, g, slices, out, stats, s);
 }
 
 const char* oneshot_cuda_error_string(int code) {

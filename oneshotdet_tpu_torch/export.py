@@ -16,6 +16,15 @@ Two artifact kinds, as in the JAX package:
 Artifacts are box-only, as the JAX package's: with MODEL.MASK_ON /
 KEYPOINT_ON the programs run and hold no mask or keypoint head.
 
+Any stage 1 exports: FCOS, the anchor RPN and RetinaNet (the submodule
+``rpn`` either way). The anchor grids of the artifact's query bucket are
+built before the trace and held by the programs as constants; with
+RPN_ONLY the detect program holds no ``roi_heads`` and returns the stage-1
+output's (xyxy, scores, valid). Every NMS of the path (FCOS's, the anchor
+RPN's five per-level calls, RetinaNet's chunked one, stage 2's) is the op
+``oneshotdet::nms_keep_mask``, so its data-dependent loop stays out of the
+traced graph.
+
 Input contract: pixels are NHWC float32, normalized and zero-padded to the
 artifact's static shape (never space-to-depth blocked: the port's stem takes
 plain pixels, so a bundle's meta says ``"host_s2d": false``); sizes are
@@ -72,7 +81,8 @@ class _Program(nn.Module):
         super().__init__()
         self.model = copy.copy(model)
         self.model._modules = {k: v for k, v in model._modules.items() if k in keep}
-        if "roi_heads" in keep:
+        heads = "roi_heads" in self.model._modules
+        if heads:
             # box-only: the mask and keypoint heads neither run nor carry
             # their weights
             heads = copy.copy(model.roi_heads)
@@ -83,7 +93,7 @@ class _Program(nn.Module):
         self.entry = entry
         self.head_operands = nn.Module()
         self.operand_meta = None
-        if model.config.fused_roi_head and "roi_heads" in keep:
+        if heads and model.config.fused_roi_head and not model.config.prepool_compress:
             head = model.roi_heads.box
             dev = next(model.parameters()).device
             ops = kernel_operands(pack_roi_head_params(head), model.dtype,
@@ -106,8 +116,32 @@ class _Program(nn.Module):
 
 
 def _export(model, entry, keep, args):
-    with torch.no_grad():
-        return torch.export.export(_Program(model, entry, keep), tuple(args), strict=False)
+    grids = getattr(model._modules.get("rpn"), "generator", None)
+    built = None if grids is None else dict(grids._grids)
+    try:
+        with torch.no_grad():
+            ep = torch.export.export(_Program(model, entry, keep), tuple(args), strict=False)
+    finally:
+        # a grid made inside the trace is a traced value, not a tensor
+        leaked = built is not None and grids._grids.keys() != built.keys()
+        if leaked:
+            grids._grids = built
+    if leaked:
+        raise RuntimeError("anchor grids were built inside the export trace: the query "
+                           "bucket's level shapes were not prebuilt")
+    return ep
+
+
+def level_shapes(hw: Tuple[int, int], levels: int = 5):
+    """(H, W) of P3 .. P(2 + levels) for an (H, W) input: each stride-2 step
+    of the stem, the max pool, the ResNet stages and P6 / P7 takes the
+    ceiling of half."""
+    (h, w), out = hw, []
+    for k in range(1, 3 + levels):
+        h, w = -(-h // 2), -(-w // 2)
+        if k >= 3:
+            out.append((h, w))
+    return out
 
 
 def _output_examples(ep):
@@ -124,18 +158,16 @@ def export_eval(cfg, model, *, batch: int = 8, query_hw: Optional[Tuple[int, int
     """Trace the eval program of ``model`` (the port's ``GeneralizedRCNN``,
     on the device the artifact is for) at static shapes. Returns one
     ``ExportedProgram`` (kind="full") or a (support, detect) pair of them
-    (kind="cached_support"); the weights are inside. A model whose stage 1
-    is the anchor RPN or RetinaNet raises NotImplementedError (not ported
-    yet)."""
+    (kind="cached_support"); the weights are inside, and for the anchor RPN
+    and RetinaNet the anchor grids of ``query_hw`` too."""
     if kind not in ("full", "cached_support"):
         raise ValueError(f"unknown export kind: {kind!r}")
-    if model.config.stage1 != "fcos":
-        raise NotImplementedError(
-            f"exporting a model whose stage 1 is {model.config.stage1!r} (MODEL.FCOS_ON False) "
-            "is not ported to oneshotdet_tpu_torch yet")
     query_hw = tuple(query_hw or cfg.TPU.QUERY_BUCKETS[0])
     supp_hw = tuple(supp_hw or cfg.TPU.SUPP_BUCKET)
     dev = next(model.parameters()).device
+    if model.config.stage1 != "fcos":
+        model.rpn.generator.grid_anchors(level_shapes(query_hw, len(model.config.fpn_strides)),
+                                         dev)
     pixels = torch.zeros((batch, *query_hw, 3), dtype=torch.float32, device=dev)
     sizes = torch.tensor([query_hw] * batch, dtype=torch.float32, device=dev)
     supp_pixels = torch.zeros((batch, *supp_hw, 3), dtype=torch.float32, device=dev)

@@ -61,8 +61,13 @@ alone, loss_retina_cls and loss_retina_reg, whatever RPN_ONLY says, as the
 JAX package does. The mask and keypoint heads follow stage 2 whatever stage
 1 is.
 
-A config that turns on a part not ported yet raises ``NotImplementedError``
-(see ``detector_config_from_cfg``). The stages are
+ONESHOT_PREPOOL_COMPRESS=1 (read when the model is built, without linear
+fusion: the JAX package's gate) hoists compress_0's query half, a 1x1 map
+C -> 2C, onto the full FPN maps before the eval ROI pool (under 'int8' an
+``int8_dot`` per level map, each with its own activation scale, as the JAX
+package's ``_eval_roi_pool``; under 'int8_weight' the float kernel, as
+there); K1 pools the 2C-channel maps and the relation head adds the support
+half (``prepooled_query``), never through the fused head. The stages are
 ``torch.profiler.record_function`` ranges (query_backbone, support_backbone,
 support_pool, fcos_head, fcos_postprocess or rpn_head, rpn_postprocess or
 retinanet_head, retinanet_postprocess, then roi_pool, roi_head,
@@ -75,7 +80,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -83,6 +88,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.box_coder import BoxCoder
+from ..ops.quant import int8_dot
 from ..ops.roi_align import fpn_level_map, multilevel_roi_align, roi_align
 from ..ops.roi_head_fused import check_kernel_widths
 from ..structures.boxes import Boxes, cat_boxes, compact_boxes, truncate_boxes
@@ -169,6 +175,7 @@ class DetectorConfig:
     num_supp_aug: int = 1
     supp_aug_method: str = "avg"   # avg | max | conv
     fused_roi_head: bool = False    # ONESHOT_PALLAS_ROI_HEAD=1: the fused head kernel
+    prepool_compress: bool = False  # ONESHOT_PREPOOL_COMPRESS=1: compress_0's query half hoisted
     # mask / keypoint heads (MODEL.MASK_ON / KEYPOINT_ON)
     mask_on: bool = False
     keypoint_on: bool = False
@@ -205,25 +212,11 @@ class DetectorConfig:
     quant: str = "none"            # TPU.QUANT: none | int8 | int8_weight (eval only)
 
 
-def _not_ported(cfg) -> List[str]:
-    """Names of the switches this cfg turns on that the port does not run."""
-    c = cfg
-    checks = {
-        "TPU.QUANT with MODEL.RETINANET_ON (RetinaNet's int8 towers)":
-            not c.MODEL.FCOS_ON and c.MODEL.RETINANET_ON and c.TPU.QUANT not in ("", "none"),
-    }
-    return [name for name, on in checks.items() if on]
-
-
 def detector_config_from_cfg(cfg) -> DetectorConfig:
-    """Map the cfg tree onto DetectorConfig; raises NotImplementedError for
-    switches whose code is not ported yet. The fused head's opt-in
-    (ONESHOT_PALLAS_ROI_HEAD=1) is read here and holds only without linear
-    fusion, the JAX package's gate."""
-    missing = _not_ported(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported to oneshotdet_tpu_torch yet: " + ", ".join(missing))
+    """Map the cfg tree onto DetectorConfig. The opt-ins of the fused head
+    (ONESHOT_PALLAS_ROI_HEAD=1) and of the hoisted compress_0 query half
+    (ONESHOT_PREPOOL_COMPRESS=1) are read here, once, and hold only without
+    linear fusion, the JAX package's gates (which it reads at each trace)."""
     rpn, retina = cfg.MODEL.RPN, cfg.MODEL.RETINANET
     return DetectorConfig(
         depth=50 if "50" in cfg.MODEL.BACKBONE.CONV_BODY else 101,
@@ -289,6 +282,8 @@ def detector_config_from_cfg(cfg) -> DetectorConfig:
         # the JAX package's opt-in, read once here
         fused_roi_head=(os.environ.get("ONESHOT_PALLAS_ROI_HEAD") == "1"
                         and not cfg.FEW_SHOT.LINEAR_FUSION),
+        prepool_compress=(os.environ.get("ONESHOT_PREPOOL_COMPRESS") == "1"
+                          and not cfg.FEW_SHOT.LINEAR_FUSION),
         mask_on=cfg.MODEL.MASK_ON,
         keypoint_on=cfg.MODEL.KEYPOINT_ON,
         mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
@@ -364,7 +359,7 @@ class GeneralizedRCNN(nn.Module):
             self.rpn = RetinaNetModule(c.out_channels, c.retina_num_classes,
                                        c.retina_anchor_sizes, c.retina_anchor_strides,
                                        c.retina_aspect_ratios, c.retina_octave,
-                                       c.retina_scales_per_octave)
+                                       c.retina_scales_per_octave, quant=c.quant)
         else:
             self.rpn = RPNModule(c.out_channels, c.rpn_anchor_sizes, c.rpn_aspect_ratios,
                                  c.rpn_anchor_stride, c.rpn_straddle_thresh)
@@ -478,6 +473,28 @@ class GeneralizedRCNN(nn.Module):
             [_nhwc(f) for f in features], rois, levels, (r, r), c.pooler_scales,
             c.pooler_sampling_ratio, valid=self._pool_valid(boxes))
 
+    def _eval_roi_pool(self, features, proposals: Boxes):
+        """The eval ROI pool: (7x7 ROI features in the compute dtype, None),
+        or with ONESHOT_PREPOOL_COMPRESS=1 (None, compress_0's query half
+        pooled): the 1x1 map C -> 2C on every FPN level (under 'int8'
+        ``int8_dot`` with one activation scale per level map; otherwise the
+        float kernel in the compute dtype, under 'int8_weight' too, as the
+        JAX package's ``_eval_roi_pool``), then K1 over the 2C-channel maps.
+        The map commutes with the bilinear pool, so only rounding differs."""
+        c = self.config
+        if not c.prepool_compress:
+            return self._pool_rois(features, proposals).to(self.dtype), None
+        wq = self.roi_heads.box.compress_dim_conv[0].weight[:, :c.out_channels, 0, 0]
+        maps = []
+        for f in features:
+            x = _nhwc(f)
+            if c.quant == "int8":
+                y = int8_dot(x, wq).to(self.dtype)
+            else:
+                y = x.to(self.dtype) @ wq.to(self.dtype).t()
+            maps.append(y.permute(0, 3, 1, 2))      # channels_last NCHW, as the FPN's
+        return None, self._pool_rois(maps, proposals)
+
     def _pool_rois_at(self, features, boxes: Boxes, resolution: int,
                       scales: Sequence[float], sampling_ratio: int) -> torch.Tensor:
         """ROIAlign of batched padded Boxes at any (resolution, scales,
@@ -572,15 +589,15 @@ class GeneralizedRCNN(nn.Module):
             c.pooler_scales, c.pooler_sampling_ratio)
         return pooled.reshape(batch_size, -1, r, r, pooled.shape[-1])
 
-    def _roi_head_multi_shot(self, roi_feats, supp_7x7):
+    def _roi_head_multi_shot(self, roi_feats, supp_7x7, prepooled=None):
         """One head pass per support shot (each through the fused head when
-        it is on); element-wise max over class logits, each class slot's
-        deltas from its winning shot."""
+        it is on and nothing is hoisted); element-wise max over class
+        logits, each class slot's deltas from its winning shot."""
         head = self.roi_heads.box
         fused = self.config.fused_roi_head
         if supp_7x7.shape[1] == 1:
-            return head(roi_feats, supp_7x7[:, 0], use_fused=fused)
-        outs = [head(roi_feats, supp_7x7[:, s], use_fused=fused)
+            return head(roi_feats, supp_7x7[:, 0], use_fused=fused, prepooled_query=prepooled)
+        outs = [head(roi_feats, supp_7x7[:, s], use_fused=fused, prepooled_query=prepooled)
                 for s in range(supp_7x7.shape[1])]
         logits = torch.stack([o[0] for o in outs])          # (S, N, ncls)
         regs = torch.stack([o[1] for o in outs])            # (S, N, 4*nreg)
@@ -734,10 +751,10 @@ class GeneralizedRCNN(nn.Module):
             proposals = truncate_boxes(proposals, c.eval_roi_topk)
 
         with record_function("roi_pool"):
-            roi_feats = self._pool_rois(features, proposals).to(self.dtype)
+            roi_feats, prepooled = self._eval_roi_pool(features, proposals)
         with record_function("roi_head"):
             supp_7x7 = supp_7x7.expand((b,) + supp_7x7.shape[1:]).to(self.dtype)
-            cls_logits, box_deltas = self._roi_head_multi_shot(roi_feats, supp_7x7)
+            cls_logits, box_deltas = self._roi_head_multi_shot(roi_feats, supp_7x7, prepooled)
         with record_function("roi_postprocess"):
             dets = roi_head_postprocess(
                 cls_logits, box_deltas, proposals, target_ids,

@@ -4,7 +4,10 @@ MODEL.RETINANET_ON (counterpart of ``oneshotdet_tpu/models/retinanet.py``).
   - head: twin towers of 4 x (3x3 conv + ReLU), no GroupNorm, shared over
     the levels; 3x3 ``cls_logits`` (A * C logits a cell, the prior bias
     -log((1 - 0.01) / 0.01)) and 3x3 ``bbox_pred`` (4 A deltas); outputs
-    NHWC float32;
+    NHWC float32; under TPU.QUANT ('int8', 'int8_weight') the eight tower
+    convs are int8 (``ops.quant.make_conv``: under 'int8' one activation
+    scale per conv call, so per level) and the two predictors stay in the
+    compute dtype, as the JAX package's;
   - anchors: 3 octave scales x 3 ratios a cell (A = 9), BoxCoder(10, 10, 5, 5);
   - losses: anchors matched at IoU 0.5 / 0.4 with the low-quality matches
     kept; sigmoid focal loss (gamma 2, alpha 0.25) over every anchor with a
@@ -33,6 +36,7 @@ from ..ops.losses import sigmoid_focal_loss, smooth_l1_loss
 from ..ops.nms import nms_keep_mask, top_k
 from ..structures.boxes import Boxes, clip_to_image, masked_box_iou
 from .anchor_generator import retinanet_anchor_generator
+from ..ops.quant import make_conv
 from .layers import Conv2d
 from .matcher import BELOW_LOW_THRESHOLD, match_boxes
 
@@ -47,17 +51,19 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
-def _tower(channels: int) -> nn.Sequential:
+def _tower(channels: int, quant: str = "none") -> nn.Sequential:
     """Convs at 2i, ReLUs at 2i + 1: the reference's indices."""
     return nn.Sequential(*[m for _ in range(NUM_CONVS)
-                           for m in (Conv2d(channels, channels, 3, padding=1), nn.ReLU())])
+                           for m in (make_conv(quant, channels, channels, 3, padding=1),
+                                     nn.ReLU())])
 
 
 class RetinaNetHead(nn.Module):
-    def __init__(self, in_channels: int, num_classes: int = 1, num_anchors: int = 9):
+    def __init__(self, in_channels: int, num_classes: int = 1, num_anchors: int = 9,
+                 quant: str = "none"):
         super().__init__()
-        self.cls_tower = _tower(in_channels)
-        self.bbox_tower = _tower(in_channels)
+        self.cls_tower = _tower(in_channels, quant)
+        self.bbox_tower = _tower(in_channels, quant)
         self.cls_logits = Conv2d(in_channels, num_anchors * num_classes, 3, padding=1)
         self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 3, padding=1)
 
@@ -77,12 +83,12 @@ class RetinaNetModule(nn.Module):
 
     def __init__(self, in_channels: int, num_classes: int, anchor_sizes: Sequence[float],
                  anchor_strides: Sequence[int], aspect_ratios: Sequence[float],
-                 octave: float = 2.0, scales_per_octave: int = 3):
+                 octave: float = 2.0, scales_per_octave: int = 3, quant: str = "none"):
         super().__init__()
         self.generator = retinanet_anchor_generator(anchor_sizes, aspect_ratios, anchor_strides,
                                                     octave, scales_per_octave)
         self.head = RetinaNetHead(in_channels, num_classes,
-                                  len(aspect_ratios) * scales_per_octave)
+                                  len(aspect_ratios) * scales_per_octave, quant)
         self.box_coder = BoxCoder(RETINA_BOX_WEIGHTS)
 
 

@@ -23,8 +23,9 @@ ROI features are NHWC (N, 7, 7, C); the 1x1 convs run as matmuls over the
 last axis, the 3x3 conv on the channels_last NCHW view of the same memory.
 With ``use_fused`` (the eval opt-in) the whole head runs as one fused op,
 ``ops.roi_head_fused`` (the CUDA kernel on the card), wherever the JAX
-package would take its fused kernel (never with linear fusion); otherwise it
-runs through the layers.
+package would take its fused kernel (never with linear fusion, nor with
+compress_0's query half hoisted before the pool, ``prepooled_query``);
+otherwise it runs through the layers.
 
 TPU.QUANT (``quant``) makes compress_1, the 3x3 conv, fc6 and fc7 int8
 (``ops.quant``) and quantizes compress_0's query and support halves apart:
@@ -125,11 +126,17 @@ class ROIBoxHead(nn.Module):
             self._fused_cache[dtype] = cached
         return cached[1]
 
-    def forward(self, roi_feats: torch.Tensor, supp_feats: torch.Tensor,
-                use_fused: bool = False):
+    def forward(self, roi_feats: Optional[torch.Tensor], supp_feats: torch.Tensor,
+                use_fused: bool = False, prepooled_query: Optional[torch.Tensor] = None):
         """roi_feats (N, 7, 7, C); supp_feats (N, 7, 7, C), or (B, 7, 7, C)
         with B dividing N (one support per image, image-major ROIs).
         Returns float32 logits (N, ncls) and deltas (N, 4 * nreg).
+
+        ``prepooled_query`` (N, 7, 7, 2C), compress_0's query half pooled
+        from the hoisted maps (ONESHOT_PREPOOL_COMPRESS=1), takes the place
+        of roi_feats (None then): the head adds the support half and its
+        bias, per image, and goes on from compress_gn0; the fused head does
+        not run, as the JAX package's gate.
 
         ``use_fused`` (the eval path with the fused head switched on) runs
         the fused head where the JAX package's gate takes its kernel: no
@@ -140,7 +147,12 @@ class ROIBoxHead(nn.Module):
 
         With linear fusion the supports are broadcast to the ROIs and
         concatenated with them on channels, straight into the 3x3 conv."""
-        n, b = roi_feats.shape[0], supp_feats.shape[0]
+        if prepooled_query is not None:
+            if self.linear_fusion:
+                raise ValueError("a linear-fusion head has no compress_0 to hoist")
+            use_fused = False
+        n = (roi_feats if prepooled_query is None else prepooled_query).shape[0]
+        b = supp_feats.shape[0]
         if (use_fused and self.resolution == 7 and b != n and n % b == 0
                 and fused_head_applies(n // b, self.linear_fusion)):
             if roi_feats.device.type != "cpu":
@@ -152,7 +164,7 @@ class ROIBoxHead(nn.Module):
             supp = supp_feats[:, None].expand(b, n // b, *supp_feats.shape[1:])
             x = torch.cat([roi_feats, supp.reshape(roi_feats.shape)], dim=-1)
         else:
-            x = self._compress(roi_feats, supp_feats)
+            x = self._compress(roi_feats, supp_feats, prepooled_query)
         x = self.feature_aggreg(x.permute(0, 3, 1, 2))          # (N, C/2, 7, 7)
         x = F.relu(self.fc6(x.flatten(1)))                       # channel-major
         x = F.relu(self.fc7(x))
@@ -160,25 +172,29 @@ class ROIBoxHead(nn.Module):
         deltas = self.predictor.bbox_pred(x).float()
         return logits, deltas
 
-    def _compress(self, roi_feats: torch.Tensor, supp_feats: torch.Tensor) -> torch.Tensor:
+    def _compress(self, roi_feats: Optional[torch.Tensor], supp_feats: torch.Tensor,
+                  prepooled_query: Optional[torch.Tensor] = None) -> torch.Tensor:
         """compress_dim_conv over the concat of the ROIs and their image's
-        support, NHWC (N, 7, 7, C) out."""
+        support (or over ``prepooled_query``, the query half already
+        applied), NHWC (N, 7, 7, C) out."""
         c = self.in_channels
-        dtype = roi_feats.dtype
+        dtype = supp_feats.dtype
         conv0, gn0, act0, conv1, gn1, act1 = self.compress_dim_conv
         # conv(cat(q, s)) = q @ Wq + (s @ Ws + bias): the concat is never built
         # and the support half is computed once per image
         w0 = conv0.weight[:, :, 0, 0]                             # (2C out, 2C in)
         wq, ws = w0[:, :c], w0[:, c:]
         if self.quant == "int8":
-            ya = int8_dot(roi_feats, wq).to(dtype)
+            ya = None if roi_feats is None else int8_dot(roi_feats, wq).to(dtype)
             yb = int8_dot(supp_feats, ws).to(dtype)
         else:
             if self.quant == "int8_weight":
                 wq, ws = ((q.to(dtype) * s.to(dtype)[:, None])
                           for q, s in (fake_quant_weight(wq), fake_quant_weight(ws)))
-            ya = roi_feats @ wq.to(dtype).t()
+            ya = None if roi_feats is None else roi_feats @ wq.to(dtype).t()
             yb = supp_feats @ ws.to(dtype).t()
+        if ya is None:
+            ya = prepooled_query.to(dtype)
         yb = yb + conv0.bias.to(dtype)
         n, b = ya.shape[0], yb.shape[0]
         x = (ya.view(b, n // b, *ya.shape[1:]) + yb[:, None]).view(ya.shape)

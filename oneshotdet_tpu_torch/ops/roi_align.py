@@ -26,7 +26,9 @@ level's dtype.
 
 ``roi_align_plan`` mirrors how the kernel stages a ROI: the distinct rows
 and columns its samples touch, and the items (whole output rows x whole
-output columns) whose pixels fit one shared-memory buffer.
+output columns) whose pixels fit one shared-memory buffer, one channel
+slice at a time where a bin of all C channels does not (``channel_slices``:
+C = 512 in float32, the hoisted compress_0 query half's maps).
 ``roi_align_bwd_plan`` mirrors the backward kernel's tile lists: which ROIs
 each pixel tile of each (level, image) map sums, in ascending order; and
 ``multilevel_roi_align_backward_tiled`` repeats the backward kernel's
@@ -298,9 +300,26 @@ class RoiPlan:
         return sum((r1 - r0) * (c1 - c0) for *_, r0, r1, c0, c1 in self.items)
 
 
-def stage_budget(channels: int, dtype: torch.dtype) -> int:
-    """Pixels that fit one staging buffer."""
-    return STAGE_BYTES // (channels * torch.finfo(dtype).bits // 8)
+def channel_slices(channels: int, dtype: torch.dtype, sampling_ratio: int = 2) -> int:
+    """The equal channel slices the kernel cuts a pixel into (its step 6):
+    the fewest s dividing C whose slices fill 16-byte vectors and of which
+    one bin's (2 g)^2 pixels fit one staging buffer; 0 where none does. 1
+    at C = 256 in both dtypes and at C = 512 in bf16, 2 at C = 512 in
+    float32."""
+    elt = torch.finfo(dtype).bits // 8
+    for s in range(1, channels + 1):
+        if channels % s or channels // s * elt % 16:
+            continue
+        if 4 * sampling_ratio * sampling_ratio * (channels // s) * elt <= STAGE_BYTES:
+            return s
+    return 0
+
+
+def stage_budget(channels: int, dtype: torch.dtype, sampling_ratio: int = 2) -> int:
+    """Pixels of one channel slice (``channel_slices``) that fit one staging
+    buffer; 0 where no slicing fits."""
+    s = channel_slices(channels, dtype, sampling_ratio)
+    return STAGE_BYTES // (channels // s * torch.finfo(dtype).bits // 8) if s else 0
 
 
 def _axis_slots(ok, low, high, pooled: int, g: int):
@@ -359,8 +378,9 @@ def roi_align_plan(features, rois, levels, output_size, scales, sampling_ratio,
                    valid=None) -> List[Optional[RoiPlan]]:
     """The kernel's plan for every ROI (None for a slot it only zeroes):
     which rows and columns its samples touch and how its bins are cut into
-    items that fit the staging buffer. Only the features' shapes and dtype
-    are read."""
+    items whose pixels, one channel slice of them (``channel_slices``), fit
+    the staging buffer; the kernel stages and sums every item once per
+    slice. Only the features' shapes and dtype are read."""
     pooled_h, pooled_w = output_size
     g = sampling_ratio
     rois, levels = rois.detach().cpu().to(torch.float32), levels.detach().cpu().long()
@@ -369,7 +389,7 @@ def roi_align_plan(features, rois, levels, output_size, scales, sampling_ratio,
     live, lv = _live_levels([f.shape for f in features], rois, levels, valid)
     axes = [[t.tolist() for t in axis[:3]]
             for axis in _roi_axes(rois, lv, heights, widths, scales, output_size, g)]
-    budget = stage_budget(features[0].shape[-1], features[0].dtype)
+    budget = stage_budget(features[0].shape[-1], features[0].dtype, g)
     plans = []
     for r in range(rois.shape[0]):
         if not live[r]:
@@ -601,8 +621,9 @@ def multilevel_roi_align_cuda(features, rois, levels, output_size, scales,
     elt = torch.finfo(dtype).bits // 8
     _check(c > 0 and c * elt % 16 == 0,
            f"channel count {c} must fill 16-byte vectors ({16 // elt} {dtype} each)")
-    _check(4 * g * g <= stage_budget(c, dtype),
-           f"one bin's {2 * g} x {2 * g} pixels of {c} channels must fit {STAGE_BYTES} bytes")
+    _check(channel_slices(c, dtype, g) > 0,
+           f"one bin's {2 * g} x {2 * g} pixels of a slice of {c} channels must fit "
+           f"{STAGE_BYTES} bytes")
     for f in features:
         _check(f.dim() == 4 and f.shape[0] == b and f.shape[3] == c,
                f"level shape {tuple(f.shape)} vs (B={b}, H, W, C={c})")

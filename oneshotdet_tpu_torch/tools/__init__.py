@@ -1,7 +1,7 @@
 """Tools of the port: the CLIs ``train_net``, ``test_net``,
-``export_model``, ``oneshot_demo`` and ``remove_solver_states`` (``python
--m oneshotdet_tpu_torch.tools.<name>``, the first four on the card or
-``--device cpu``) and kernel parity, timing and ablation scripts that run on one CUDA card (each
+``export_model``, ``oneshot_demo``, ``webcam``, ``quant_drift`` and
+``remove_solver_states`` (``python -m oneshotdet_tpu_torch.tools.<name>``,
+all but the last on the card or ``--device cpu``) and kernel parity, timing and ablation scripts that run on one CUDA card (each
 runs as ``python3 oneshotdet_tpu_torch/tools/<name>.py`` and as
 ``<module>.main(argv)``)."""
 

@@ -1,14 +1,19 @@
 """Where the ROIAlign kernel (K1) spends its time, by ablation.
 
     python3 oneshotdet_tpu_torch/tools/ablate_roi_align.py [--reps 20] [--rounds 3]
+        [--parent build/parent/oneshotdet_tpu_torch/csrc/roi_align.cu]
 
 Needs one CUDA card and nvcc. Builds copies of csrc/roi_align.cu, each with
 one part of the work cut out (the outputs of the cut copies are wrong and
 only their times count), and times each against the full kernel with CUDA
 events, back-to-back calls, on the main path's shapes: the batch-8 832x1216
 pyramid (C = 256) and 8 x 2000 ROIs of the JAX tool's FCOS-like p3-skew mix
-(``tune_roialign_v3.make_inputs``), bf16 and f32. Prints the card, one line
-per copy and round (interleaved) and the time each cut saves.
+(``tune_roialign_v3.make_inputs``), bf16 and f32. With ``--parent`` (an
+earlier checkout's roi_align.cu, built with the headers beside it) the
+parent is timed too, on both that mix and the wide-box mix (sides U(8,
+640)), its output checked equal to the full kernel's; the copies run in
+turns, reversed every other round (parent, this, this, parent). Prints the
+card, one line per copy and round and the time each cut saves.
 """
 
 from __future__ import annotations
@@ -44,11 +49,15 @@ CUTS = [
 ]
 
 
-def build(workdir):
-    src = open(os.path.join(ROOT, "oneshotdet_tpu_torch", "csrc", "roi_align.cu")).read()
+def build(workdir, parent=None):
+    src_dir = os.path.join(ROOT, "oneshotdet_tpu_torch", "csrc")
+    src = open(os.path.join(src_dir, "roi_align.cu")).read()
     procs = []
-    for i, (name, patches) in enumerate(CUTS):
-        text = src
+    copies = [(name, src, src_dir, patches) for name, patches in CUTS]
+    if parent:
+        copies.append(("parent", open(parent).read(), os.path.dirname(os.path.abspath(parent)),
+                       []))
+    for i, (name, text, include, patches) in enumerate(copies):
         for old, new in patches:
             if text.count(old) != 1:
                 raise RuntimeError(f"cut {name!r}: its text is not in roi_align.cu once")
@@ -58,7 +67,7 @@ def build(workdir):
             f.write(text)
         lib = os.path.join(workdir, f"libcut{i}.so")
         procs.append((name, lib, subprocess.Popen(
-            [csrc._nvcc(), *csrc._flags("roi_align"), "-o", lib, path],
+            [csrc._nvcc(), *csrc._flags("roi_align"), "-I", include, "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for name, lib, proc in procs:
@@ -79,6 +88,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--parent", default="", help="an earlier checkout's roi_align.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate_roi_align: no CUDA device visible to torch", file=sys.stderr)
@@ -89,9 +99,19 @@ def main(argv=None) -> int:
     kernel = ra._kernel
     try:
         with tempfile.TemporaryDirectory() as workdir:
-            libs = build(workdir)
-            for dtype in (torch.bfloat16, torch.float32):
-                feats, rois, levels, _ = make_inputs(900, dev, dtype=dtype, skew="p3")
+            libs = build(workdir, args.parent)
+            mixes = ("p3", None) if args.parent else ("p3",)
+            for dtype, skew in ((d, m) for d in (torch.bfloat16, torch.float32) for m in mixes):
+                feats, rois, levels, _ = make_inputs(900, dev, dtype=dtype, skew=skew)
+                mix = "p3-skew" if skew else "wide"
+                if args.parent:
+                    outs = []
+                    for name in ("full", "parent"):
+                        ra._kernel = lambda lib=libs[name]: lib
+                        outs.append(ra.multilevel_roi_align_cuda(feats, rois, levels, (7, 7),
+                                                                 SCALES, 2))
+                    if not torch.equal(*outs):
+                        raise AssertionError(f"{mix} {dtype}: the parent's output differs")
 
                 def time_ms():
                     call = lambda: ra.multilevel_roi_align_cuda(feats, rois, levels, (7, 7),
@@ -108,14 +128,16 @@ def main(argv=None) -> int:
 
                 times = {name: [] for name in libs}
                 for rnd in range(args.rounds):
-                    for name, lib in libs.items():
+                    names = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
+                    for name in names:
+                        lib = libs[name]
                         ra._kernel = lambda lib=lib: lib
                         times[name].append(time_ms())
-                        print(f"{str(dtype)[6:]} round {rnd} {name}: {times[name][-1]:.4f} ms "
-                              f"per call", flush=True)
+                        print(f"{str(dtype)[6:]} {mix} round {rnd} {name}: "
+                              f"{times[name][-1]:.4f} ms per call", flush=True)
                 full = min(times["full"])
                 for name, t in times.items():
-                    print(f"{str(dtype)[6:]} p3-skew R={rois.shape[0]} {name:<20} "
+                    print(f"{str(dtype)[6:]} {mix} R={rois.shape[0]} {name:<20} "
                           f"{min(t):8.4f} ms  saves {full - min(t):7.4f} ms [{card}]",
                           flush=True)
                 del feats, rois, levels

@@ -3,7 +3,7 @@
 
     python -m oneshotdet_tpu_torch.tools.quant_drift [--variant-quant int8]
         [--roi-topk 512] [--batch 8] [--query-hw 832 1216] [--supp-hw 416 416]
-        [--dtype bfloat16] [--device cuda] [--seed 20260818]
+        [--dtype bfloat16] [--device cuda] [--seed 20260818] [KEY VALUE ...]
 
 Runs the flagship Siamese FCOS R-50-FPN eval forward twice on the same
 seeded weights and inputs: once at the compute dtype with the full workload
@@ -15,7 +15,9 @@ over the pairs matched at 0.5, the score MAE and the box coordinate MAE in
 pixels. ``drift_report`` computes the report from two sets of padded
 detections. The configuration's stated bound
 (``configs/oneshot_fcos_r50_fast_eval.yaml``) is match_rate@0.9 = 1.0 and a
-score MAE of about 1.5e-3 for 'int8'.
+score MAE of about 1.5e-3 for 'int8'. Trailing KEY VALUE pairs override
+the cfg of both sides, e.g. ``MODEL.FCOS_ON False MODEL.RETINANET_ON True``
+for RetinaNet (with ``MODEL.RPN_ONLY True`` its detections are compared).
 """
 
 from __future__ import annotations
@@ -89,8 +91,9 @@ def drift_report(base: Sequence[np.ndarray], variant: Sequence[np.ndarray]) -> D
 
 
 def make_cfg(quant: str = "none", roi_topk: int = 0, dtype: str = "bfloat16",
-             pre_nms: int = 6000, post_nms: int = 2000, dets: int = 2000):
-    """The flagship at production capacities with the given levers."""
+             pre_nms: int = 6000, post_nms: int = 2000, dets: int = 2000, opts=()):
+    """The flagship at production capacities with the given levers, then
+    ``opts`` (KEY VALUE pairs)."""
     from ..config import cfg
 
     c = cfg.clone()
@@ -108,6 +111,8 @@ def make_cfg(quant: str = "none", roi_topk: int = 0, dtype: str = "bfloat16",
     c.TPU.COMPUTE_DTYPE = dtype
     c.TPU.QUANT = quant
     c.TPU.EVAL_ROI_TOPK = roi_topk
+    if opts:
+        c.merge_from_list(list(opts))
     return c
 
 
@@ -150,6 +155,8 @@ def main(argv=None) -> int:
     p.add_argument("--variant-quant", default="int8", choices=["none", "int8", "int8_weight"])
     p.add_argument("--roi-topk", type=int, default=0)
     p.add_argument("--seed", type=int, default=20260818, help="the inputs' numpy seed")
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=None,
+                   help="cfg overrides of both sides, KEY VALUE ...")
     args = p.parse_args(argv)
 
     import torch
@@ -157,7 +164,8 @@ def main(argv=None) -> int:
     from ..models import build_detection_model
 
     dev = torch.device(args.device)
-    caps = dict(dtype=args.dtype, pre_nms=args.pre_nms, post_nms=args.post_nms, dets=args.dets)
+    caps = dict(dtype=args.dtype, pre_nms=args.pre_nms, post_nms=args.post_nms, dets=args.dets,
+                opts=args.opts or ())
     models = [build_detection_model(make_cfg(q, k, **caps), device=dev,
                                     generator=torch.Generator().manual_seed(0))
               for q, k in (("none", 0), (args.variant_quant, args.roi_topk))]

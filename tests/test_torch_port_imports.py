@@ -1,5 +1,6 @@
 """oneshotdet_tpu_torch stands alone: importing it loads neither JAX nor
-flax (nor PIL, which only the decoding of a non-PPM image imports), and no
+flax (nor PIL, which only the decoding of a non-PPM image imports, nor
+OpenCV, which the webcam tool imports in its ``main``), and no
 source of the port (nor chip_smoke.py) imports jax, flax or the JAX package
 ``oneshotdet_tpu``.
 """
@@ -46,8 +47,9 @@ def test_import_loads_neither_jax_nor_flax():
         "import oneshotdet_tpu_torch.models.mask_head, oneshotdet_tpu_torch.models.keypoint_head\n"
         "import oneshotdet_tpu_torch.models.roi_heads, oneshotdet_tpu_torch.structures.keypoint\n"
         "import oneshotdet_tpu_torch.ops.quant, oneshotdet_tpu_torch.tools.quant_drift\n"
+        "import oneshotdet_tpu_torch.tools.webcam\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL'))\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'oneshotdet_tpu', 'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -90,11 +90,14 @@ def test_backbone_p6_from_c5_matches_jax(setup):
 @pytest.mark.parametrize("switch", [("MODEL.FCOS_ON", False, "MODEL.RETINANET_ON", True,
                                      "TPU.QUANT", "int8")])
 def test_unported_switches_raise(switch):
-    """RetinaNet under TPU.QUANT raises (the anchor stage 1 and TPU.QUANT
-    are ported: ``test_torch_port_{rpn,retinanet,quant}.py``)."""
+    """Every switch of the JAX package's entry points is ported: RetinaNet
+    under TPU.QUANT, the last one that raised, builds with int8 towers
+    (held to JAX in ``test_torch_port_retinanet_quant.py``)."""
+    from oneshotdet_tpu_torch.ops.quant import QuantConv2d
+
     _, pcfg = small_cfgs(*switch)
-    with pytest.raises(NotImplementedError, match=r"TPU\.QUANT with MODEL\.RETINANET_ON"):
-        build_detection_model(pcfg, device="cpu")
+    model = build_detection_model(pcfg, device="cpu")
+    assert isinstance(model.rpn.head.cls_tower[0], QuantConv2d)
 
 
 @pytest.mark.parametrize("switch,head", [("MODEL.MASK_ON", "mask"),

@@ -620,12 +620,16 @@ def test_unknown_quant_mode_raises_value_error():
 
 
 def test_not_ported_lists_only_the_anchor_stage_one():
-    from oneshotdet_tpu_torch.models.detector import _not_ported
-
-    _, pcfg = small_cfgs("TPU.QUANT", "int8", "MODEL.FCOS_ON", False)
-    assert _not_ported(pcfg) == []              # the anchor RPN's head stays float
-    _, pcfg = small_cfgs("TPU.QUANT", "int8", "MODEL.FCOS_ON", False, "MODEL.RETINANET_ON", True)
-    assert _not_ported(pcfg) == ["TPU.QUANT with MODEL.RETINANET_ON (RetinaNet's int8 towers)"]
+    """Nothing is left unported under TPU.QUANT: the anchor RPN builds with
+    its head float, RetinaNet with int8 towers."""
+    anchor = ("TPU.QUANT", "int8", "MODEL.FCOS_ON", False, "MODEL.RPN.ANCHOR_STRIDE",
+              "(8, 16, 32, 64, 128)")
+    _, pcfg = small_cfgs(*anchor)
+    model = build_detection_model(pcfg, device="cpu")
+    assert not any(isinstance(m, pq.QuantConv2d) for m in model.rpn.modules())
+    _, pcfg = small_cfgs(*anchor, "MODEL.RETINANET_ON", True)
+    model = build_detection_model(pcfg, device="cpu")
+    assert sum(isinstance(m, pq.QuantConv2d) for m in model.rpn.modules()) == 8
 
 
 # -- the unforced gap and the drift tool -----------------------------------------

@@ -14,7 +14,7 @@ capacities:
     against ``forward``;
   - the weights against ``export_state_dict`` and the flax tree, the init
     against flax's, a ``.pth`` overlay through the ``Checkpointer``;
-  - the refusals: export, TPU.QUANT.
+  - what once raised: export (the pair), TPU.QUANT (int8 towers).
 
 One jitted JAX compile per detector mode (``compile_fast``).
 """
@@ -288,21 +288,38 @@ def test_pth_overlay_loads_through_checkpointer(setup, tmp_path):
         assert torch.equal(v, head[k] if k in head else before[k]), k
 
 
-# -- refusals -----------------------------------------------------------------------
+# -- once refused ------------------------------------------------------------------
 
-def test_export_raises(setup):
-    from oneshotdet_tpu_torch.export import export_eval
+def test_export_raises(setup, monkeypatch):
+    """Export no longer raises: RetinaNet RPN_ONLY's ``full`` program keeps
+    the model's modules, none of them a relation head, and the query
+    bucket's anchor grids are built before the trace (``export._export``
+    stubbed here; the traced programs, their grid constants and their
+    outputs are held in ``test_torch_port_anchor_export.py``)."""
+    from oneshotdet_tpu_torch import export as oexport
 
-    with pytest.raises(NotImplementedError, match="retinanet"):
-        export_eval(setup["pcfg"], stage1_port(setup), batch=1, query_hw=(64, 64),
-                    supp_hw=(32, 32), kind="cached_support")
+    pm = stage1_port(setup)
+    traced = []
+    monkeypatch.setattr(oexport, "_export", lambda model, entry, keep, args: traced.append(
+        (set(keep), dict(model.rpn.generator._grids))) or "program")
+    assert oexport.export_eval(setup["pcfg"], pm, batch=1, query_hw=(64, 64),
+                               supp_hw=(32, 32)) == "program"
+    (keep, grids), = traced
+    assert keep == {"backbone", "rpn"}
+    want = pm.rpn.generator.grid_anchors(SHAPES)
+    assert len(grids) == 5 and all(torch.equal(g, w) for g, w in zip(grids.values(), want))
 
 
 @pytest.mark.parametrize("mode", ["int8", "int8_weight"])
 def test_quant_raises(mode):
+    """TPU.QUANT no longer raises for RetinaNet: the towers are int8 layers
+    (held to JAX in ``test_torch_port_retinanet_quant.py``)."""
+    from oneshotdet_tpu_torch.ops.quant import QuantConv2d, WeightQuantConv2d
+
     _, pcfg = stage1_cfgs(*ONLY, "TPU.QUANT", mode)
-    with pytest.raises(NotImplementedError, match=r"TPU\.QUANT with MODEL\.RETINANET_ON"):
-        build_detection_model(pcfg, device="cpu")
+    model = build_detection_model(pcfg, device="cpu")
+    layer = QuantConv2d if mode == "int8" else WeightQuantConv2d
+    assert all(type(model.rpn.head.cls_tower[2 * i]) is layer for i in range(4))
 
 
 def test_engine_takes_rpn_only_output(setup):

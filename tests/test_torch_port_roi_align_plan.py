@@ -156,8 +156,14 @@ def test_wide_rois_split_and_small_ones_stage_once():
     (torch.bfloat16, 256, True), (torch.float32, 256, True), (torch.bfloat16, 512, True),
     (torch.float32, 512, False), (torch.bfloat16, 1024, False)])
 def test_budget_holds_one_bin(dtype, channels, ok):
-    """The wrapper's rule: one bin's 2g x 2g pixels must fit the buffer."""
-    assert (4 * 2 * 2 <= ra.stage_budget(channels, dtype)) == ok
+    """The wrapper's rule: one bin's 2g x 2g pixels of a channel slice must
+    fit the buffer, and they do at every width here; ``ok``: a whole pixel
+    fits, one slice (C = 512 in float32 and C = 1024 in bf16 take two
+    slices of 1 KB, 24 pixels a buffer)."""
+    assert 4 * 2 * 2 <= ra.stage_budget(channels, dtype)
+    assert (ra.channel_slices(channels, dtype) == 1) == ok
+    if not ok:
+        assert ra.channel_slices(channels, dtype) == 2 and ra.stage_budget(channels, dtype) == 24
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -17,7 +17,8 @@ CPU, in float32:
     leaf by leaf, the init against flax's, a ``.pth`` overlay through the
     ``Checkpointer``;
   - the plain NMS's chunks bit for bit against the batched keep mask;
-  - the refusals: export of a non-FCOS model, RetinaNet under TPU.QUANT.
+  - what once raised: export of a non-FCOS model (the bundle), RetinaNet
+    under TPU.QUANT (int8 towers).
 
 One jitted JAX compile per detector mode (``compile_fast``).
 """
@@ -391,26 +392,45 @@ def test_pth_overlay_loads_through_checkpointer(setup, tmp_path):
         assert torch.equal(v, head[k] if k in head else before[k]), k
 
 
-# -- refusals -----------------------------------------------------------------------
+# -- once refused ------------------------------------------------------------------
 
-def test_export_of_an_anchor_stage1_model_raises(setup):
-    from oneshotdet_tpu_torch.export import export_eval, export_serving
+def test_export_of_an_anchor_stage1_model_raises(setup, monkeypatch):
+    """Export no longer raises for the anchor RPN: ``export_eval`` builds the
+    query bucket's five anchor grids before it traces the whole model
+    (``export._export`` stubbed here; the traced programs are held to the
+    eager model and to JAX in ``test_torch_port_anchor_export.py``); an
+    unknown kind still raises."""
+    from oneshotdet_tpu_torch import export as oexport
 
     pm = stage1_port(setup)
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        export_eval(setup["pcfg"], pm, batch=1, query_hw=(64, 64), supp_hw=(32, 32))
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        export_serving(setup["pcfg"], pm, "/nonexistent/bundle", query_hw=(64, 64),
-                       supp_hw=(32, 32), compile_executable=False)
+    with pytest.raises(ValueError, match="unknown export kind"):
+        oexport.export_eval(setup["pcfg"], pm, batch=1, query_hw=(64, 64), supp_hw=(32, 32),
+                            kind="detect")
+    traced = []
+    monkeypatch.setattr(oexport, "_export", lambda model, entry, keep, args: traced.append(
+        (set(keep), len(model.rpn.generator._grids))) or "program")
+    assert oexport.export_eval(setup["pcfg"], pm, batch=1, query_hw=(64, 96),
+                               supp_hw=(32, 32)) == "program"
+    assert traced == [({"backbone", "rpn", "roi_heads"}, 5)]
+    assert sorted(k[1:3] for k in pm.rpn.generator._grids) == sorted(
+        oexport.level_shapes((64, 96)))
 
 
 def test_retinanet_under_quant_raises_and_the_rpn_does_not():
+    """Neither raises now: RetinaNet's towers are int8 under TPU.QUANT, the
+    anchor RPN's head stays float (the JAX package's RPN head has no int8
+    layer)."""
+    from oneshotdet_tpu_torch.ops.quant import QuantConv2d, WeightQuantConv2d
+
     for mode in ("int8", "int8_weight"):
         _, pcfg = stage1_cfgs(*RETINA, "TPU.QUANT", mode)
-        with pytest.raises(NotImplementedError, match="RETINANET_ON"):
-            build_detection_model(pcfg, device="cpu")
+        model = build_detection_model(pcfg, device="cpu")
+        assert isinstance(model.rpn.head.bbox_tower[0], (QuantConv2d, WeightQuantConv2d))
     _, pcfg = stage1_cfgs("TPU.QUANT", "int8_weight")
-    assert build_detection_model(pcfg, device="cpu").config.stage1 == "rpn"
+    model = build_detection_model(pcfg, device="cpu")
+    assert model.config.stage1 == "rpn"
+    assert not any(isinstance(m, (QuantConv2d, WeightQuantConv2d))
+                   for m in model.rpn.modules())
 
 
 def test_stage1_small_is_the_dispatch_tests_base():
